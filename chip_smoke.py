@@ -6,16 +6,21 @@
 Phases, each reported on its own line:
  1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` gives it;
  2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
- 3. hold every kernel against its plain PyTorch version on the card, for each
-    covariance at small shapes, and for the RBF kernel at the shapes of the
-    main path, timed with CUDA events beside its bound;
+ 3. hold every kernel (K1, K3, K2) against its plain PyTorch version on the
+    card, for each covariance at small shapes, and the backwards of K1 and K3
+    against autograd through the plain version; then each RBF kernel at the
+    shapes of the main path, timed with CUDA events beside its bound;
  4. check a small exact-GP MLL against the CPU run of the same model;
  5. the main path, through the entry points a user calls: the exact-GP
     negative MLL at N = 100,000, d = 3 with the benchmark's settings (K3 must
     launch once per CG iteration), then the posterior at N = 100,000, m = 64
     query points (K1 must launch); each is held against the plain path on
     the card on the same probes;
- 6. one JSON line listing every ported kernel with its launches, error and
+ 6. the training step on the main path: neg_mll(...).backward() at the same
+    size (the backward runs no CG, and must make two K2 launches and one K3
+    launch, the bilinear form's own mat-vec), held against the plain path's
+    gradients on the same probes, then three Adam steps;
+ 7. one JSON line listing every ported kernel with its launches, error and
     times, then, as the last line, {"ok": true, "device": {...}}.
 
 Any failed check, or any exception, exits non-zero without the last line.
@@ -151,6 +156,15 @@ def main() -> None:
             fail(f"{label}: kernel disagrees with its plain version")
         return err
 
+    def check_weighted(label, x1, x2, g, v, covar="rbf"):
+        """K2's two outputs, and the dx = 2 (ws x1 - wx) its callers assemble
+        from them (a difference of large sums), against the plain version."""
+        wx, ws = rbf.kernel_weighted(x1, x2, g, v, covar)
+        pwx, pws = rbf.kernel_weighted_plain(x1, x2, g, v, covar)
+        check_kernel(f"{label} W@x2", wx, pwx)
+        check_kernel(f"{label} rowsum(W)", ws, pws)
+        return check_kernel(f"{label} dx", 2.0 * (ws[:, None] * x1 - wx), 2.0 * (pws[:, None] * x1 - pwx))
+
     # 3a. every covariance, at small shapes (n not a multiple of the tiles)
     say("kernels vs plain, each covariance:")
     rq = rbf.rq_tile_covar(1.5)
@@ -160,31 +174,63 @@ def main() -> None:
             v = randn(8192, 11)
             check_kernel(f"K3 {covar} n=8192 d={d} t=11", rbf.kernel_matvec_sym(x, v, covar),
                          rbf.kernel_matvec_plain(x, x, v, covar))
+            # distinct x1 and x2 (Matern-1/2's k' is singular on a coincident
+            # pair); m = 5000 spans two of K2's 4096-point partial sums
+            x1, x2 = randn(3000, d) / math.sqrt(d), randn(5000, d) / math.sqrt(d)
+            check_weighted(f"K2 {covar} n=3000 m=5000 d={d} t=11", x1, x2, randn(3000, 11), randn(5000, 11), covar)
         x1, x2, v = randn(6000, D), randn(8192, D), randn(8192, 65)
         check_kernel(f"K1 {covar} n=6000 m=8192 d=3 t=65", rbf.kernel_matvec(x1, x2, v, covar),
                      rbf.kernel_matvec_plain(x1, x2, v, covar))
+    check_weighted("K2 rbf n=3000 m=5000 d=3 t=65 (three column chunks)", randn(3000, D), randn(5000, D),
+                   randn(3000, 65), randn(5000, 65))
+
+    def grads(fn, inputs, weights):
+        leaves = [t.clone().requires_grad_() for t in inputs]
+        return torch.autograd.grad(torch.sum(fn(*leaves) * weights), leaves)
+
+    say("backwards (autograd through the wrappers: K2, K1, K3) vs autograd through the plain version:")
+    for covar in ["rbf", "matern52"]:
+        x1, x2, v, w = randn(3000, D), randn(5000, D), randn(5000, 11), randn(3000, 11)
+        got = grads(lambda a, b, c: rbf.kernel_matvec(a, b, c, covar), (x1, x2, v), w)
+        want = grads(lambda a, b, c: rbf.kernel_matvec_plain(a, b, c, covar), (x1, x2, v), w)
+        for name, a, b in zip(("dx1", "dx2", "dv"), got, want):
+            check_kernel(f"K1 backward {covar} n=3000 m=5000 d=3 t=11 {name}", a, b)
+        x, v, w = randn(4000, D), randn(4000, 11), randn(4000, 11)
+        got = grads(lambda a, c: rbf.kernel_matvec_sym(a, c, covar), (x, v), w)
+        want = grads(lambda a, c: rbf.kernel_matvec_plain(a, a, c, covar), (x, v), w)
+        for name, a, b in zip(("dx", "dv"), got, want):
+            check_kernel(f"K3 backward {covar} n=4000 d=3 t=11 {name}", a, b)
 
     # 3b. the RBF kernels at the main path's shapes (inputs scaled by the
     # initial lengthscale softplus(0), as the model scales them), timed
     say(f"kernels vs plain at the main path's shapes (N={N}, d={D}):")
     ls = math.log(2.0) + 1e-6
     x = randn(N, D) / ls
-    v11, v65 = randn(N, PROBES + 1), randn(N, M_STAR + 1)
+    v11, v65, g11 = randn(N, PROBES + 1), randn(N, M_STAR + 1), randn(N, PROBES + 1)
+    t11 = PROBES + 1
     stats = {}
     for key, t, kern, plain, flops, nbytes in [
-        ("K3", PROBES + 1, lambda: rbf.kernel_matvec_sym(x, v11), lambda: rbf.kernel_matvec_plain(x, x, v11),
-         N * (N + 1) / 2 * (3 * D + 1 + 4 * (PROBES + 1)), 4 * N * (D + 2 * (PROBES + 1))),
+        ("K3", t11, lambda: rbf.kernel_matvec_sym(x, v11), lambda: rbf.kernel_matvec_plain(x, x, v11),
+         N * (N + 1) / 2 * (3 * D + 1 + 4 * t11), 4 * N * (D + 2 * t11)),
         ("K1", M_STAR + 1, lambda: rbf.kernel_matvec(x, x, v65), lambda: rbf.kernel_matvec_plain(x, x, v65),
          N * N * (3 * D + 1 + 2 * (M_STAR + 1)), 4 * (2 * N * D + 2 * N * (M_STAR + 1))),
+        # K2 as the training step calls it, K2(x, x, g, v): per pair d2 (3d),
+        # k' (2), g.v (2t), w (1), w x2 (2d), rowsum (1); reads x twice, g and
+        # v, writes W@x2 and rowsum(W)
+        ("K2", t11, lambda: rbf.kernel_weighted(x, x, g11, v11), lambda: rbf.kernel_weighted_plain(x, x, g11, v11),
+         N * N * (5 * D + 2 * t11 + 4), 4 * (3 * N * D + 2 * N * t11 + N)),
     ]:
-        err = check_kernel(f"{key} rbf n={N} d={D} t={t}", kern(), plain())
+        if key == "K2":
+            err = check_weighted(f"K2 rbf n={N} d={D} t={t}", x, x, g11, v11)
+        else:
+            err = check_kernel(f"{key} rbf n={N} d={D} t={t}", kern(), plain())
         ms = cuda_ms(torch, kern, 5)
         plain_ms = cuda_ms(torch, plain, 2)
         b_ms, b_by = bound_ms(flops, nbytes)
         stats[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
         say(f"  {key}: {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms by {b_by}, "
             f"{100 * b_ms / ms:.1f}% of bound)")
-    del x, v11, v65
+    del x, v11, v65, g11
 
     def bench_settings():
         """bench.py's settings for the N = 1e5 MLL (bench.py:100-129)."""
@@ -312,13 +358,120 @@ def main() -> None:
         say(f"  {label} posterior vs f64 plain: mean {e_mean:.2e}, var {e_var:.2e} of the prior variance")
     del ref, mean_r, var_r
 
-    # 6. the kernels line, then the result
+    # 6. the training step: neg_mll(...).backward(), forward and backward
+    # timed apart, with the launches of each half
+    def counts():
+        return dict(K1=rbf.kernel_matvec.launches, K3=rbf.kernel_matvec_sym.launches,
+                    K2=rbf.kernel_weighted.launches)
+
+    raw = ("raw_lengthscale", "raw_outputscale", "raw_noise")
+
+    def train_step(model, seed, *overrides):
+        model.zero_grad(set_to_none=True)
+        rbf.kernel_matvec.launches = rbf.kernel_matvec_sym.launches = rbf.kernel_weighted.launches = 0
+        cg.counts.clear()
+        with bench_settings(), settings.verbose_linalg(True), contextlib.ExitStack() as more:
+            for c in overrides:
+                more.enter_context(c)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = model.neg_mll(x, y, generator=torch.Generator().manual_seed(seed))
+            val = float(loss.detach())
+            t1 = time.perf_counter()
+            fwd, fwd_iters = counts(), list(cg.counts)
+            loss.backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        bwd = {k: v - fwd[k] for k, v in counts().items()}
+        grad = torch.stack([getattr(model, name).grad for name in raw]).double()
+        return dict(loss=val, grad=grad, fwd_s=t1 - t0, bwd_s=t2 - t1, fwd=fwd, bwd=bwd,
+                    fwd_iters=fwd_iters, bwd_iters=cg.counts[len(fwd_iters):])
+
+    steps = {}
+    for label in ("cold", "warm"):
+        st = steps[label] = train_step(fused, 1)
+        say(f"training step ({label}) N={N} d={D}: loss {st['loss']:.8f}, forward {st['fwd_s']:.3f} s "
+            f"(CG iterations {st['fwd_iters']}, launches {st['fwd']}), backward {st['bwd_s']:.3f} s "
+            f"(CG iterations {st['bwd_iters']}, launches {st['bwd']}), grad {st['grad'].tolist()}")
+        if not (math.isfinite(st["loss"]) and torch.isfinite(st["grad"]).all()):
+            fail("the training step's loss or gradients are not finite")
+        if st["fwd"] != dict(K1=0, K3=sum(st["fwd_iters"]), K2=0) or st["fwd"]["K3"] == 0:
+            fail("the training step's forward did not run one K3 launch per CG iteration and nothing else")
+        # the backward reuses the forward's solves (no CG) and makes one
+        # _bilinear_derivative: K2 twice for the x-gradient of K3, and K3 once,
+        # the bilinear form's own mat-vec, which carries the outputscale
+        # gradient; its right vectors are constants, so no K3 for dv
+        if st["bwd_iters"] or st["bwd"] != dict(K1=0, K3=1, K2=2):
+            fail("the training step's backward did not make exactly two K2 launches and one K3 launch")
+    launches["K3"] += steps["cold"]["fwd"]["K3"] + steps["cold"]["bwd"]["K3"]
+    launches["K2"] = steps["cold"]["bwd"]["K2"]
+    warm = steps["warm"]
+    k2_s = warm["bwd"]["K2"] * stats["K2"]["ms"] / 1e3
+    say(f"  backward: K2 {warm['bwd']['K2']} x {stats['K2']['ms']:.3f} ms = {k2_s:.3f} s, "
+        f"{100 * k2_s / warm['bwd_s']:.1f}% of the warm backward; K3 {warm['bwd']['K3']} x "
+        f"{stats['K3']['ms']:.3f} ms; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # the plain path on the card, on the same probes: at the benchmark's
+    # settings, and with CG run to 1e-4, where the f32 CG noise of the two
+    # paths is gone and each gradient, the lengthscale's through K2 included,
+    # can be held to PATH_RTOL of itself
+    st = train_step(plain, 1)
+    err = float(torch.linalg.norm(warm["grad"] - st["grad"]) / torch.linalg.norm(st["grad"]))
+    say(f"plain training step: loss {st['loss']:.8f}, forward {st['fwd_s']:.3f} s, backward {st['bwd_s']:.3f} s, "
+        f"grad {st['grad'].tolist()}, |fused - plain| / |plain| = {err:.2e}")
+    if not err <= PATH_RTOL:
+        fail("the training step's gradients disagree with the plain path")
+    tight = {label: train_step(model, 1, settings.cg_tolerance(1e-4), settings.max_cg_iterations(1000))
+             for label, model in (("fused", fused), ("plain", plain))}
+    rel = ((tight["fused"]["grad"] - tight["plain"]["grad"]).abs() / tight["plain"]["grad"].abs()).tolist()
+    say(f"  CG to 1e-4 (iterations fused {tight['fused']['fwd_iters']}, plain {tight['plain']['fwd_iters']}): "
+        f"fused grad {tight['fused']['grad'].tolist()}, plain {tight['plain']['grad'].tolist()}, "
+        f"relative difference of each {rel}")
+    if not max(rel) <= PATH_RTOL:
+        fail("the converged training step's gradients disagree with the plain path")
+
+    # the device's busy share over one warm fused step, from a profiler trace
+    # of its kernels (CUPTI); the profiler's own overhead lengthens the step
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            st = train_step(fused, 1)
+        kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_s = sum(e.time_range.elapsed_us() for e in kern) / 1e6
+        wall = st["fwd_s"] + st["bwd_s"]
+        by_name = {}
+        for e in kern:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        say(f"  profiled fused step: {wall:.3f} s wall, device busy {busy_s:.3f} s ({100 * busy_s / wall:.1f}%), "
+            f"{len(kern)} device events; top: " + "; ".join(f"{name[:60]} {ms:.1f} ms" for name, ms in top))
+    except Exception as exc:  # CUPTI tracing may be unavailable; no check rests on it
+        say(f"  device busy share: not measured ({type(exc).__name__}: {exc})")
+
+    # three Adam steps on the fused model, each with fresh probes
+    opt = torch.optim.Adam(fused.parameters(), lr=0.05)
+    start = torch.stack([getattr(fused, name).detach().clone() for name in raw])
+    for k in range(3):
+        st = train_step(fused, 100 + k)
+        opt.step()
+        now = torch.stack([getattr(fused, name).detach() for name in raw])
+        say(f"  Adam step {k}: loss {st['loss']:.8f}, (raw_lengthscale, raw_outputscale, raw_noise) "
+            f"{now.tolist()}, step {st['fwd_s'] + st['bwd_s']:.3f} s")
+        if not (math.isfinite(st["loss"]) and torch.isfinite(now).all()):
+            fail("an Adam step gave a non-finite loss or parameter")
+    if not bool((now != start).all()):
+        fail("the Adam steps did not move every parameter")
+
+    # 7. the kernels line, then the result
     kernels = []
     for key, name, source, replaces in [
         ("K1", "kernel_matvec", "linear_operator_tpu_torch/csrc/kernel_matvec.cu",
          "linear_operator_tpu/ops/rbf.py:277"),
         ("K3", "kernel_matvec_sym", "linear_operator_tpu_torch/csrc/kernel_matvec_sym.cu",
          "linear_operator_tpu/ops/rbf.py:432"),
+        ("K2", "kernel_weighted", "linear_operator_tpu_torch/csrc/kernel_weighted.cu",
+         "linear_operator_tpu/ops/rbf.py:305"),
     ]:
         if launches[key] == 0:
             fail(f"{name} was never launched on the main path")

@@ -2,9 +2,10 @@
 preconditioned CG + SLQ, and exact-GP inference whose kernel mat-vecs run as
 CUDA kernels written by hand for Hopper (``ops/rbf.py``, ``csrc/``).
 
-The port covers the exact-GP marginal likelihood and posterior, forward
-only.  Its entry points run on a CUDA device unless the caller asks for the
-CPU, where the kernels' plain PyTorch versions take their place.
+The port covers the exact-GP marginal likelihood and posterior and their
+gradients (the training step ``model.neg_mll(x, y, generator=g).backward()``).
+Its entry points run on a CUDA device unless the caller asks for the CPU,
+where the kernels' plain PyTorch versions take their place.
 """
 
 from . import settings

@@ -1,7 +1,8 @@
-// Stationary covariances k(d2) of inputs pre-scaled by the lengthscale,
-// shared by the K1 (kernel_matvec.cu) and K3 (kernel_matvec_sym.cu) kernels.
-// The formulas, and the sqrt(d2 + 1e-30) convention of the Matern kernels,
-// are those of ops/rbf.py's plain versions (TILE_COVARS).
+// Stationary covariances k(d2) of inputs pre-scaled by the lengthscale, and
+// their derivatives dk/d(d2), shared by the K1 (kernel_matvec.cu), K3
+// (kernel_matvec_sym.cu) and K2 (kernel_weighted.cu) kernels.  The formulas,
+// and the sqrt(d2 + 1e-30) convention of the Matern kernels, are those of
+// ops/rbf.py's plain versions (TILE_COVARS).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,6 +30,30 @@ __device__ __forceinline__ float covar_fn(float d2, float alpha) {
   } else {
     // rational quadratic (1 + d2 / (2 alpha))^-alpha
     return expf(-alpha * log1pf(d2 / (2.0f * alpha)));
+  }
+}
+
+// dk/d(d2), the weight of the chain rule through the squared distance (K2).
+template <int COVAR>
+__device__ __forceinline__ float dcovar_fn(float d2, float alpha) {
+  if (COVAR == COVAR_RBF) {
+    return -0.5f * expf(-0.5f * d2);
+  } else if (COVAR == COVAR_MATERN52) {
+    // -(5/6)(1 + sqrt5 d) e^{-sqrt5 d}
+    const float sd = 2.23606797749979f * sqrtf(d2 + 1e-30f);
+    return -(5.0f / 6.0f) * (1.0f + sd) * expf(-sd);
+  } else if (COVAR == COVAR_MATERN32) {
+    // -(3/2) e^{-sqrt3 d}
+    return -1.5f * expf(-1.7320508075688772f * sqrtf(d2 + 1e-30f));
+  } else if (COVAR == COVAR_MATERN12) {
+    // -e^{-d} / (2 d), singular at d = 0: a (near-)coincident pair gets
+    // weight 0 (the plain version's and the JAX package's convention)
+    if (!(d2 > 1e-12f)) return 0.0f;
+    const float r = sqrtf(d2 + 1e-30f);
+    return -expf(-r) / (2.0f * r);
+  } else {
+    // -(1/2) (1 + d2 / (2 alpha))^(-alpha - 1)
+    return -0.5f * expf((-alpha - 1.0f) * log1pf(d2 / (2.0f * alpha)));
   }
 }
 

@@ -1,5 +1,5 @@
-"""``inv_quad_logdet``, forward only: the GP marginal-likelihood core
-(counterpart of linear_operator_tpu/functions/_inv_quad_logdet.py).
+"""``inv_quad_logdet``: the GP marginal-likelihood core (counterpart of
+linear_operator_tpu/functions/_inv_quad_logdet.py).
 
 Stochastic path: draw m probes from the preconditioner's distribution
 N(0, P) (or N(0, I) without one), run ONE batched preconditioned CG over the
@@ -8,6 +8,17 @@ columns, then
 
     logdet   ~= SLQ estimate of log det(P^{-1} K) + log det P
     inv_quad  = sum(solves[..., m:] * rhs)
+
+Backward (the JAX package's ``_stochastic_bwd``), from the forward's solves
+with no further CG:
+
+    d logdet   ~= 1/m sum_j |z_j|^2 <K^{-1} z^_j, dK P^{-1} z^_j>
+    d inv_quad  = -<K^{-1} rhs, dK K^{-1} rhs>,   d/d rhs = 2 K^{-1} rhs
+
+(z^ the unit-normalized probes) as ONE ``_bilinear_derivative`` over the
+stacked left and right vectors.  The preconditioner is built on the detached
+operator: its terms cancel in expectation.  The Cholesky path differentiates
+through autograd.
 
 Dispatch: structural closed forms first, dense Cholesky below
 ``max_cholesky_size`` or with fast log_prob off, stochastic CG + SLQ above.
@@ -22,7 +33,7 @@ import torch
 from .. import settings
 from ..solvers.lanczos import lanczos_tridiag_to_diag
 from ..solvers.stochastic_lq import slq_quadrature
-from ._solve import BACKWARD_SLICE
+from ._solve import _unbroadcast
 
 
 def inv_quad_logdet(
@@ -132,16 +143,38 @@ def _finish(op, iq, ld, rhs, reduce_inv_quad):
 
 class _StochasticIQLD(torch.autograd.Function):
     """(inv_quad, SLQ logdet) from given probes.  The operator's tensors ride
-    along as inputs so that a backward reaches this node and raises."""
+    along as inputs, so that the backward hands each its gradient."""
 
     @staticmethod
     def forward(ctx, op, rhs, probes, precond_probes, norms, preconditioner, *op_leaves):
-        iq, ld, _, _ = _stochastic_forward(op, rhs, probes, preconditioner)
+        iq, ld, probe_solves, rhs_solves = _stochastic_forward(op, rhs, probes, preconditioner)
+        ctx.op = op
+        ctx.rhs_shape = None if rhs is None else rhs.shape
+        ctx.save_for_backward(probe_solves, rhs_solves, precond_probes, norms)
         return iq, ld
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(BACKWARD_SLICE)
+    def backward(ctx, iq_bar, ld_bar):
+        probe_solves, rhs_solves, precond_probes, norms = ctx.saved_tensors
+        m = probe_solves.shape[-1]
+        lefts, rights = [], []
+        if m > 0:
+            # the solves may carry a joint batch broader than the probes'
+            joint = probe_solves.shape[:-2]
+            coef = ld_bar[..., None, None] * norms**2 / m  # (*b, 1, m)
+            lefts.append(probe_solves * coef)
+            rights.append(precond_probes.expand(*joint, *precond_probes.shape[-2:]))
+        if rhs_solves is not None and rhs_solves.shape[-1] > 0:
+            lefts.append(-rhs_solves * iq_bar[..., None, :])
+            rights.append(rhs_solves)
+        if lefts:
+            op_grads = ctx.op._bilinear_derivative(torch.cat(lefts, dim=-1), torch.cat(rights, dim=-1))
+        else:
+            op_grads = (None,) * len(list(ctx.op._leaves()))
+        rhs_bar = None
+        if ctx.rhs_shape is not None and ctx.needs_input_grad[1]:
+            rhs_bar = _unbroadcast(2.0 * rhs_solves * iq_bar[..., None, :], ctx.rhs_shape)
+        return (None, rhs_bar, None, None, None, None, *op_grads)
 
 
 def _stochastic_iqld(op, rhs, probes, precond_probes, norms, *, preconditioner=None):

@@ -1,8 +1,12 @@
-"""``solve``, forward only (counterpart of
-linear_operator_tpu/functions/_solve.py).
+"""``solve`` (counterpart of linear_operator_tpu/functions/_solve.py).
 
 Dispatch: the operator's structural solve if it has one, dense Cholesky below
 ``max_cholesky_size`` (or with fast solves off), preconditioned CG otherwise.
+
+Backward (the JAX package's ``_solve_bwd``): with x = K^{-1} rhs and
+cotangent g, w = K^{-T} g is one more solve, rhs gets w, and the operator's
+tensors get the gradient of ``sum(-w * (K @ x))`` through one
+``_bilinear_derivative``.
 """
 
 from __future__ import annotations
@@ -10,12 +14,6 @@ from __future__ import annotations
 import torch
 
 from .. import settings
-
-BACKWARD_SLICE = (
-    "the backward of solve and inv_quad_logdet (the _stochastic_bwd / "
-    "_bilinear_derivative path, with the fused K2 kernel) is the next slice "
-    "of the port, the GP training step; this slice is forward-only"
-)
 
 
 def _dispatch_solve(op, rhs: torch.Tensor) -> torch.Tensor:
@@ -28,17 +26,39 @@ def _dispatch_solve(op, rhs: torch.Tensor) -> torch.Tensor:
     return op._solve_via_cg(rhs, preconditioner=closure).solution
 
 
+def _unbroadcast(g: torch.Tensor, shape) -> torch.Tensor:
+    """Reduce a cotangent back to the (possibly broadcast) primal shape."""
+    if g.shape == tuple(shape):
+        return g
+    extra = g.ndim - len(shape)
+    if extra > 0:
+        g = torch.sum(g, dim=tuple(range(extra)))
+    dims = tuple(i for i, (gs, ps) in enumerate(zip(g.shape, shape)) if ps == 1 and gs != 1)
+    if dims:
+        g = torch.sum(g, dim=dims, keepdim=True)
+    return g
+
+
 class _Solve(torch.autograd.Function):
-    """K^{-1} rhs; the operator's tensors ride along as inputs so that a
-    backward reaches this node and raises."""
+    """K^{-1} rhs; the operator's tensors ride along as inputs, so that the
+    backward hands each its gradient."""
 
     @staticmethod
     def forward(ctx, op, rhs, *op_leaves):
-        return _dispatch_solve(op, rhs)
+        x = _dispatch_solve(op, rhs)
+        ctx.op = op
+        ctx.rhs_shape = rhs.shape
+        ctx.save_for_backward(x)
+        return x
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(BACKWARD_SLICE)
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        w = _dispatch_solve(ctx.op.mT, g)
+        # K_bar = -w x^T, exact for any leaf parameterization
+        op_grads = ctx.op._bilinear_derivative(-w, x)
+        rhs_bar = _unbroadcast(w, ctx.rhs_shape) if ctx.needs_input_grad[1] else None
+        return (None, rhs_bar, *op_grads)
 
 
 def solve(op, rhs: torch.Tensor, lhs: torch.Tensor | None = None) -> torch.Tensor:

@@ -7,7 +7,9 @@ diagonal, and
     -2 log p(y) = y^T K^{-1} y + log|K| + n log 2 pi
 
 from ``inv_quad_logdet``: Cholesky below the size cutoff, preconditioned CG
-+ SLQ above it.  Forward only in this slice of the port.
++ SLQ above it.  A training step is ``loss = model.neg_mll(x, y,
+generator=g); loss.backward()``: the backward reuses the forward's solves, and
+on the fused path runs through the kernels' backward (K2).
 """
 
 from __future__ import annotations

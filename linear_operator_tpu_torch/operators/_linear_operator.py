@@ -7,8 +7,9 @@ ported as far as the exact-GP slice needs it.  An operator represents a
 
 Operators are plain classes whose fields are tensors, nested operators or
 static values.  ``_leaves`` walks the tensors and ``_map_tensors`` rebuilds a
-copy with every tensor mapped (``detach`` is one such map), which replaces the
-JAX package's pytree flattening.
+copy with every tensor mapped (``detach`` is one such map; ``_with_leaves``,
+the inverse of ``_leaves``, is another), which replaces the JAX package's
+pytree flattening.
 """
 
 from __future__ import annotations
@@ -80,6 +81,14 @@ class LinearOperator:
             setattr(out, name, _map_value(value, fn))
         return out
 
+    def _with_leaves(self, leaves) -> "LinearOperator":
+        """A copy whose tensor fields are ``leaves``, in ``_leaves`` order."""
+        it = iter(leaves)
+        out = self._map_tensors(lambda _: next(it))
+        if next(it, None) is not None:
+            raise ValueError("more leaves than the operator has tensors")
+        return out
+
     def _replace(self, **fields):
         out = copy.copy(self)
         for name, value in fields.items():
@@ -143,6 +152,29 @@ class LinearOperator:
 
     def _t_matmul(self, rhs: torch.Tensor) -> torch.Tensor:
         return self._transpose()._matmul(rhs)
+
+    def _bilinear_derivative(self, left_vecs: torch.Tensor, right_vecs: torch.Tensor) -> tuple:
+        """Gradients of ``sum(left * (K @ right))`` with respect to the
+        operator's tensors, as a tuple aligned with ``_leaves()``; None for a
+        leaf that does not require grad.
+
+        The JAX package's default backward (one ``jax.grad`` of the mat-mul):
+        the operator is rebuilt from detached leaves and ``_matmul`` is
+        differentiated by autograd.  A tensor that appears twice among the
+        leaves (x1 is x2 in a symmetric kernel) gets one partial for each
+        place.  Subclasses with a cheaper form override it."""
+        leaves = list(self._leaves())
+        needs = [t.requires_grad for t in leaves]
+        if not any(needs):
+            return (None,) * len(leaves)
+        with torch.enable_grad():
+            fresh = [t.detach().requires_grad_(r) for t, r in zip(leaves, needs)]
+            out = self._with_leaves(fresh)._matmul(right_vecs)
+            grads = torch.autograd.grad(
+                torch.sum(left_vecs * out), [t for t in fresh if t.requires_grad], allow_unused=True
+            )
+        it = iter(grads)
+        return tuple(next(it) if r else None for r in needs)
 
     def _diagonal(self) -> torch.Tensor:
         return torch.diagonal(self.to_dense(), dim1=-2, dim2=-1)

@@ -86,7 +86,8 @@ class AddedDiagLinearOperator(SumLinearOperator):
                 return self
             if settings.use_cholesky_for_solves(n) and settings.use_cholesky_for_log_prob(n):
                 return self
-            factor = self._build_precond_factor()
+            # no gradient flows through the preconditioner (its terms cancel)
+            factor = self.detach()._build_precond_factor()
         return self._replace(precond_factor=factor)
 
     def _build_precond_factor(self) -> torch.Tensor:

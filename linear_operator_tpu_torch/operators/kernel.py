@@ -4,7 +4,9 @@ at scale (counterpart of linear_operator_tpu/operators/kernel.py).
 ``_matmul`` evaluates K in row blocks of ``block_rows`` through the plain
 ``covar_func``, or, when ``matvec_impl`` is set, through the fused CUDA
 kernels of ``ops/rbf.py`` (:func:`fused_covar_matvec`), which never form a
-kernel block in device memory.
+kernel block in device memory.  ``_bilinear_derivative`` follows: one sweep
+of blocks, each differentiated inside the sweep, or autograd through the
+fused kernels, whose backward is K2.
 """
 
 from __future__ import annotations
@@ -92,6 +94,45 @@ class KernelLinearOperator(LinearOperator):
                 kb = self.covar_func(self.x1[..., start : start + self.block_rows, :], self.x2, **self.params)
                 out.append(torch.matmul(kb, rhs))
         return torch.cat(out, dim=-2)
+
+    def _bilinear_derivative(self, left_vecs, right_vecs) -> tuple:
+        """One-sweep blocked backward: each row block of K is formed, and its
+        gradient taken, inside the sweep, so that only one block's autograd
+        residuals are alive at a time (autograd through the blocked
+        ``_matmul`` would keep every block: at n = 1e5 the 40 GB kernel
+        matrix several times over).  The fused path and a single block take
+        the base path; there autograd runs through ``fused_covar_matvec``
+        into the kernels' own backward (K2)."""
+        n = self.x1.shape[-2]
+        if self.matvec_impl is not None or n <= self.block_rows:
+            return super()._bilinear_derivative(left_vecs, right_vecs)
+        names = [k for k, v in self.params.items() if isinstance(v, torch.Tensor)]
+        leaves = [self.x1, self.x2, *(self.params[k] for k in names)]  # _leaves() order
+        needs = [t.requires_grad for t in leaves]
+        if not any(needs):
+            return (None,) * len(leaves)
+        sums = [None] * len(leaves)  # x2 and the params: summed over blocks
+        dx1 = []
+        with torch.enable_grad():
+            x2, *pvals = (t.detach().requires_grad_(r) for t, r in zip(leaves[1:], needs[1:]))
+            params = {**self.params, **dict(zip(names, pvals))}
+            for start in range(0, n, self.block_rows):
+                rows = slice(start, start + self.block_rows)
+                x1b = self.x1[..., rows, :].detach().requires_grad_(needs[0])
+                inputs = [x1b, x2, *pvals]
+                with highest_matmul_precision():
+                    kb = self.covar_func(x1b, x2, **params)
+                    f = torch.sum(left_vecs[..., rows, :] * torch.matmul(kb, right_vecs))
+                wanted = [t for t, r in zip(inputs, needs) if r]
+                it = iter(torch.autograd.grad(f, wanted, allow_unused=True))
+                grads = [next(it) if r else None for r in needs]
+                dx1.append(grads[0])
+                for k in range(1, len(leaves)):
+                    if grads[k] is not None:
+                        sums[k] = grads[k] if sums[k] is None else sums[k] + grads[k]
+        if needs[0]:
+            sums[0] = torch.cat(dx1, dim=-2)
+        return tuple(sums)
 
     def _diagonal(self) -> torch.Tensor:
         # n shoved into a batch dim: the covariance of each point with itself

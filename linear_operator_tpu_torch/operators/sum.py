@@ -5,7 +5,7 @@ from __future__ import annotations
 import torch
 
 from ..utils.broadcasting import broadcast_shapes
-from ._linear_operator import LinearOperator
+from ._linear_operator import LinearOperator, _iter_tensors
 
 
 class SumLinearOperator(LinearOperator):
@@ -32,6 +32,19 @@ class SumLinearOperator(LinearOperator):
             return out
 
         return mm
+
+    def _bilinear_derivative(self, left_vecs, right_vecs) -> tuple:
+        """Term-wise: each term keeps its own backward (a kernel's blocked or
+        fused one).  Tensors outside the terms (AddedDiag's
+        ``precond_factor``, built on the detached operator) get None."""
+        grads = []
+        for name, value in vars(self).items():
+            if name == "operators":
+                for op in value:
+                    grads.extend(op._bilinear_derivative(left_vecs, right_vecs))
+            else:
+                grads.extend(None for _ in _iter_tensors(value))
+        return tuple(grads)
 
     def _shape(self) -> tuple[int, ...]:
         batch = broadcast_shapes(*(op.batch_shape for op in self.operators))

@@ -3,6 +3,8 @@ from .rbf import (
     kernel_matvec,
     kernel_matvec_plain,
     kernel_matvec_sym,
+    kernel_weighted,
+    kernel_weighted_plain,
     rq_tile_covar,
     sym_matvec_supported,
 )
@@ -12,6 +14,8 @@ __all__ = [
     "kernel_matvec",
     "kernel_matvec_plain",
     "kernel_matvec_sym",
+    "kernel_weighted",
+    "kernel_weighted_plain",
     "rq_tile_covar",
     "sym_matvec_supported",
 ]

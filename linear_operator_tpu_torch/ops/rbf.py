@@ -1,22 +1,29 @@
-"""Fused stationary-kernel mat-vecs, written by hand in CUDA for Hopper.
+"""Fused stationary-kernel mat-vecs and their backward, written by hand in
+CUDA for Hopper.
 
-PyTorch counterpart of ``linear_operator_tpu/ops/rbf.py``.  Two kernels
-compute y = k(|x1_i - x2_j|^2) v without storing the kernel matrix:
+PyTorch counterpart of ``linear_operator_tpu/ops/rbf.py``.  Three kernels,
+none of which stores the kernel matrix:
 
-* K1 :func:`kernel_matvec`, rectangular (``csrc/kernel_matvec.cu``), which
-  replaces the Pallas kernel ``_pallas_matvec``;
-* K3 :func:`kernel_matvec_sym`, for x1 = x2 (``csrc/kernel_matvec_sym.cu``),
-  which forms each off-diagonal tile once and replaces
-  ``_pallas_matvec_sym``.
+* K1 :func:`kernel_matvec`, y = k(|x1_i - x2_j|^2) v, rectangular
+  (``csrc/kernel_matvec.cu``), which replaces the Pallas kernel
+  ``_pallas_matvec``;
+* K3 :func:`kernel_matvec_sym`, the same for x1 = x2
+  (``csrc/kernel_matvec_sym.cu``), which forms each off-diagonal tile once and
+  replaces ``_pallas_matvec_sym``;
+* K2 :func:`kernel_weighted`, W = k'(|x1_i - x2_j|^2) o (g v^T) reduced to
+  W @ x2 and rowsum(W) (``csrc/kernel_weighted.cu``), which replaces
+  ``_pallas_weighted``: the chain rule through the squared distance, which
+  gives K1 and K3 their x-gradients.
 
 Inputs are pre-scaled by the lengthscale and the result is scaled by the
 outputscale outside the kernels, in PyTorch.  ``covar`` names a
 ``TILE_COVARS`` entry.
 
-Each wrapper takes its kernel's plain PyTorch version (:func:`kernel_matvec_plain`)
-for tensors on the CPU, launches the kernel for tensors on a CUDA device, and
+Each wrapper takes its kernel's plain PyTorch version (``*_plain``) for
+tensors on the CPU, launches the kernel for tensors on a CUDA device, and
 raises for anything else.  ``<wrapper>.launches`` counts the kernel launches.
-The kernels are forward-only: a backward through them raises.
+K1 and K3 are ``torch.autograd.Function``s whose backward is K2 (x-gradients)
+and K1 / K3 (v-gradient), each computed only when its input needs it.
 """
 
 from __future__ import annotations
@@ -36,13 +43,9 @@ _SQRT3 = 3.0**0.5
 # its accumulators in registers; wider rhs go to K1.
 SYM_MAX_COLUMNS = 16
 MAX_DIM = 128  # input dimensions the kernels take (shared-memory sizing)
-K1_SPLIT = 4096  # x2 points per K1 partial sum (MS in csrc/kernel_matvec.cu)
-
-BACKWARD_SLICE = (
-    "the backward of the fused kernel mat-vec (the K2 weighted-tile kernel and "
-    "the backward halves of K1 and K3) is the next slice of the port, the GP "
-    "training step; this slice is forward-only"
-)
+# x2 points per partial sum of K1 and K2 (MS in csrc/kernel_matvec.cu and
+# csrc/kernel_weighted.cu)
+K1_SPLIT = 4096
 
 
 def sq_dist(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
@@ -66,9 +69,19 @@ def _covar_rbf(d2):
     return torch.exp(-0.5 * d2)
 
 
+def _dcovar_rbf(d2):
+    return -0.5 * torch.exp(-0.5 * d2)
+
+
 def _covar_matern52(d2):
     sd = _SQRT5 * torch.sqrt(d2 + 1e-30)
     return (1.0 + sd + (5.0 / 3.0) * d2) * torch.exp(-sd)
+
+
+def _dcovar_matern52(d2):
+    # d/d(d2) [(1 + sqrt5 d + 5/3 d^2) e^{-sqrt5 d}] = -(5/6)(1 + sqrt5 d) e^{-sqrt5 d}
+    sd = _SQRT5 * torch.sqrt(d2 + 1e-30)
+    return -(5.0 / 6.0) * (1.0 + sd) * torch.exp(-sd)
 
 
 def _covar_matern32(d2):
@@ -76,25 +89,40 @@ def _covar_matern32(d2):
     return (1.0 + sd) * torch.exp(-sd)
 
 
+def _dcovar_matern32(d2):
+    # d/d(d2) [(1 + sqrt3 d) e^{-sqrt3 d}] = -(3/2) e^{-sqrt3 d}
+    return -1.5 * torch.exp(-_SQRT3 * torch.sqrt(d2 + 1e-30))
+
+
 def _covar_matern12(d2):
     return torch.exp(-torch.sqrt(d2 + 1e-30))
 
 
+def _dcovar_matern12(d2):
+    # -e^{-d} / (2 d) is singular at d = 0; a (near-)coincident pair gets
+    # weight 0, the JAX package's convention, so that its huge weight does
+    # not swamp the f32 sums of W @ x2 and rowsum(W)
+    d = torch.sqrt(d2 + 1e-30)
+    return torch.where(d2 > 1e-12, -torch.exp(-d) / (2.0 * d), torch.zeros_like(d))
+
+
 class TileCovar(NamedTuple):
-    """A covariance k(d2) the kernels evaluate: its plain version, the id
-    the CUDA sources switch on (``csrc/covar.cuh``), and its runtime
-    parameter (alpha of the rational quadratic)."""
+    """A covariance k(d2) the kernels evaluate: its plain version, the plain
+    version of its derivative dk/d(d2), the id the CUDA sources switch on
+    (``csrc/covar.cuh``), and its runtime parameter (alpha of the rational
+    quadratic)."""
 
     fn: Callable[[torch.Tensor], torch.Tensor]
+    dfn: Callable[[torch.Tensor], torch.Tensor]
     covar_id: int
     alpha: float = 0.0
 
 
 TILE_COVARS: dict[str, TileCovar] = {
-    "rbf": TileCovar(_covar_rbf, 0),
-    "matern52": TileCovar(_covar_matern52, 1),
-    "matern32": TileCovar(_covar_matern32, 2),
-    "matern12": TileCovar(_covar_matern12, 3),
+    "rbf": TileCovar(_covar_rbf, _dcovar_rbf, 0),
+    "matern52": TileCovar(_covar_matern52, _dcovar_matern52, 1),
+    "matern32": TileCovar(_covar_matern32, _dcovar_matern32, 2),
+    "matern12": TileCovar(_covar_matern12, _dcovar_matern12, 3),
 }
 _COVAR_RQ = 4
 
@@ -110,7 +138,10 @@ def rq_tile_covar(alpha: float) -> str:
         def _covar_rq(d2, _a=alpha):
             return (1.0 + d2 / (2.0 * _a)) ** (-_a)
 
-        TILE_COVARS[name] = TileCovar(_covar_rq, _COVAR_RQ, alpha)
+        def _dcovar_rq(d2, _a=alpha):
+            return -0.5 * (1.0 + d2 / (2.0 * _a)) ** (-_a - 1.0)
+
+        TILE_COVARS[name] = TileCovar(_covar_rq, _dcovar_rq, _COVAR_RQ, alpha)
     return name
 
 
@@ -127,16 +158,21 @@ def kernel_matvec_plain(x1, x2, v, covar: str = "rbf", block_entries: int = 2**2
     return torch.cat(out, dim=-2)
 
 
-class _ForwardOnly(torch.autograd.Function):
-    """Runs ``impl(*args)``; a backward through it raises."""
-
-    @staticmethod
-    def forward(ctx, impl, *args):
-        return impl(*args)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(BACKWARD_SLICE)
+def kernel_weighted_plain(x1, x2, g, v, covar: str = "rbf", block_entries: int = 2**27):
+    """Plain version of K2: (W @ x2, rowsum(W)) with W = k'(sq_dist(x1, x2))
+    o (g v^T), in full precision, formed in row blocks of at most
+    ``block_entries`` entries.  x1 (*b, n, d), x2 (*b, m, d), g (*b, n, t),
+    v (*b, m, t) -> (*b, n, d), (*b, n)."""
+    dfn = TILE_COVARS[covar].dfn
+    rows = max(1, block_entries // max(1, x2.shape[-2]))
+    wx, ws = [], []
+    with highest_matmul_precision():
+        for s in range(0, x1.shape[-2], rows):
+            blk = slice(s, s + rows)
+            w = dfn(sq_dist(x1[..., blk, :], x2)) * torch.matmul(g[..., blk, :], v.mT)
+            wx.append(torch.matmul(w, x2))
+            ws.append(torch.sum(w, dim=-1))
+    return torch.cat(wx, dim=-2), torch.cat(ws, dim=-1)
 
 
 def _as_batched(*tensors):
@@ -190,8 +226,9 @@ def kernel_matvec(x1, x2, v, covar: str = "rbf") -> torch.Tensor:
     """K1: y = k(|x1_i - x2_j|^2) @ v, never storing the kernel matrix.
 
     x1 (*b, n, d), x2 (*b, m, d), v (*b, m, t) -> (*b, n, t), with at most
-    one batch dim, which becomes a grid dimension of the kernel."""
-    return _ForwardOnly.apply(_kernel_matvec, x1, x2, v, covar)
+    one batch dim, which becomes a grid dimension of the kernel.
+    Differentiable in x1, x2 and v."""
+    return _KernelMatvec.apply(x1, x2, v, covar)
 
 
 def _kernel_matvec(x1, x2, v, covar):
@@ -224,6 +261,34 @@ def _kernel_matvec(x1, x2, v, covar):
 kernel_matvec.launches = 0
 
 
+class _KernelMatvec(torch.autograd.Function):
+    """K1 with the JAX package's ``_kernel_matvec_bwd``: dv = K^T g is K1 with
+    x1 and x2 swapped, dx1 and dx2 take one K2 launch each."""
+
+    @staticmethod
+    def forward(ctx, x1, x2, v, covar):
+        ctx.covar = covar
+        ctx.save_for_backward(x1, x2, v)
+        return _kernel_matvec(x1, x2, v, covar)
+
+    @staticmethod
+    def backward(ctx, g):
+        x1, x2, v = ctx.saved_tensors
+        g = g.contiguous()
+        need_x1, need_x2, need_v, _ = ctx.needs_input_grad
+        dx1 = _weighted_dx(x1, x2, g, v, ctx.covar) if need_x1 else None
+        # W^T @ x1 and colsum(W): K2 with the roles of (x1, g) and (x2, v) swapped
+        dx2 = _weighted_dx(x2, x1, v, g, ctx.covar) if need_x2 else None
+        dv = _kernel_matvec(x2, x1, g, ctx.covar) if need_v else None
+        return dx1, dx2, dv, None
+
+
+def _weighted_dx(x1, x2, g, v, covar):
+    """d/dx1 of sum(g * (k(x1, x2) @ v)) = 2 (rowsum(W) x1 - W @ x2)."""
+    wx, ws = kernel_weighted(x1, x2, g, v, covar)
+    return 2.0 * (ws[..., None] * x1 - wx)
+
+
 def sym_matvec_supported(t: int) -> bool:
     """The port's gate for K3: rhs of 1..SYM_MAX_COLUMNS columns."""
     return 1 <= t <= SYM_MAX_COLUMNS
@@ -234,8 +299,8 @@ def kernel_matvec_sym(x, v, covar: str = "rbf") -> torch.Tensor:
     each off-diagonal tile once.
 
     x (*b, n, d), v (*b, n, t) -> (*b, n, t), at most one batch dim;
-    ``sym_matvec_supported(t)`` must hold."""
-    return _ForwardOnly.apply(_kernel_matvec_sym, x, v, covar)
+    ``sym_matvec_supported(t)`` must hold.  Differentiable in x and v."""
+    return _KernelMatvecSym.apply(x, v, covar)
 
 
 def _kernel_matvec_sym(x, v, covar):
@@ -266,3 +331,79 @@ def _kernel_matvec_sym(x, v, covar):
 
 
 kernel_matvec_sym.launches = 0
+
+
+class _KernelMatvecSym(torch.autograd.Function):
+    """K3 with the JAX package's ``_kernel_matvec_sym_bwd``: x is both
+    arguments of k(x, x), so dx sums the two K2 partials; dv = K g is K3 again,
+    launched only when v needs a gradient (in the GP training step v holds
+    constant solves, so its backward makes two K2 launches and no K3)."""
+
+    @staticmethod
+    def forward(ctx, x, v, covar):
+        ctx.covar = covar
+        ctx.save_for_backward(x, v)
+        return _kernel_matvec_sym(x, v, covar)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, v = ctx.saved_tensors
+        g = g.contiguous()
+        need_x, need_v, _ = ctx.needs_input_grad
+        dx = None
+        if need_x:
+            dx = _weighted_dx(x, x, g, v, ctx.covar) + _weighted_dx(x, x, v, g, ctx.covar)
+        dv = _kernel_matvec_sym(x, g, ctx.covar) if need_v else None
+        return dx, dv, None
+
+
+# Columns of g and v per K2 CTA (TP in csrc/kernel_weighted.cu): g's rows sit
+# in registers, so a wide t runs as several column chunks whose partials add.
+WEIGHTED_COLUMNS = (4, 8, 12, 16, 24, 32)
+
+
+def _weighted_columns(t: int) -> int:
+    """K2's columns per CTA for a t-column g and v: as few chunks as possible
+    (at most 32 columns each), each as narrow as WEIGHTED_COLUMNS allows
+    (t = 11 runs as one chunk of 12, t = 65 as three of 24)."""
+    need = _cdiv(t, _cdiv(t, 32))
+    return next(c for c in WEIGHTED_COLUMNS if c >= need)
+
+
+def kernel_weighted(x1, x2, g, v, covar: str = "rbf"):
+    """K2: (W @ x2, rowsum(W)) with W_ij = k'(|x1_i - x2_j|^2) (g_i . v_j),
+    never storing W.
+
+    x1 (*b, n, d), x2 (*b, m, d), g (*b, n, t), v (*b, m, t) -> (*b, n, d),
+    (*b, n), with at most one batch dim.  The callers assemble
+    2 (rowsum(W) x1 - W @ x2), the x1-gradient of sum(g * (k(x1, x2) @ v))."""
+    if not _on_cuda(x1, x2, g, v):
+        return kernel_weighted_plain(x1, x2, g, v, covar)
+    spec = TILE_COVARS[covar]
+    batched, (a, b, gg, w) = _as_batched(x1, x2, g, v)
+    nb, n, d = a.shape
+    m, t = w.shape[-2:]
+    if b.shape != (nb, m, d) or gg.shape != (nb, n, t) or w.shape[0] != nb:
+        raise ValueError(
+            f"shape mismatch: x1 {tuple(x1.shape)}, x2 {tuple(x2.shape)}, "
+            f"g {tuple(g.shape)}, v {tuple(v.shape)}"
+        )
+    _check_kernel_inputs((a, b, gg, w), d)
+    tp = _weighted_columns(t)
+    # one partial result per (split of K1_SPLIT x2 points, column chunk)
+    parts = _cdiv(m, K1_SPLIT) * _cdiv(t, tp)
+    wx = torch.empty((parts, nb, n, d), dtype=torch.float32, device=a.device)
+    ws = torch.empty((parts, nb, n), dtype=torch.float32, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    _launch(
+        "kernel_weighted", "kernel_weighted_f32",
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+        a.data_ptr(), b.data_ptr(), gg.data_ptr(), w.data_ptr(), wx.data_ptr(), ws.data_ptr(),
+        nb, n, m, d, t, tp, spec.covar_id, spec.alpha, stream,
+    )
+    kernel_weighted.launches += 1
+    wx, ws = (wx[0], ws[0]) if parts == 1 else (wx.sum(dim=0), ws.sum(dim=0))
+    return (wx, ws) if batched else (wx[0], ws[0])
+
+
+kernel_weighted.launches = 0

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, K3) against their plain PyTorch versions, on
-the card.
+"""The port's CUDA kernels (K1, K2, K3) and their backwards against their
+plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and skips without one.  The file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from linear_operator_tpu_torch import ExactGPRegression, settings
 from linear_operator_tpu_torch.operators.kernel import rbf_kernel_operator
 from linear_operator_tpu_torch.ops import rbf
 
@@ -104,3 +105,101 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         rbf.kernel_matvec(x, x, v.mT.contiguous().mT)
     with pytest.raises(ValueError, match="CUDA"):
         rbf.kernel_matvec(x, x.cpu(), v)
+
+
+def _weighted_close(x1, x2, g, v, name="rbf"):
+    """K2's two outputs and the assembled dx = 2 (ws x1 - wx) against the
+    plain version: dx is a difference of large sums, so it is held too."""
+    wx, ws = rbf.kernel_weighted(x1, x2, g, v, name)
+    pwx, pws = rbf.kernel_weighted_plain(x1, x2, g, v, name)
+    _close(wx, pwx)
+    _close(ws, pws)
+    _close(2.0 * (ws[..., None] * x1 - wx), 2.0 * (pws[..., None] * x1 - pwx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 16])
+@pytest.mark.parametrize("covar", COVARS)
+def test_k2_matches_plain(cuda, covar, d):
+    # ragged n != m of distinct points (Matern-1/2's k' is singular on a
+    # coincident pair); t = 11 runs as one column chunk of 12, t = 65 as three
+    # of 24; d = 16 takes the quadratic form
+    x1, x2, g11, v11, g65, v65 = _data(
+        cuda, 12, (700, d), (1000, d), (700, 11), (1000, 11), (700, 65), (1000, 65)
+    )
+    x1, x2 = x1 / np.sqrt(d), x2 / np.sqrt(d)
+    for g, v in ((g11, v11), (g65, v65)):
+        _weighted_close(x1, x2, g, v, _name(covar))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 5, 33])
+def test_k2_every_column_width(cuda, t):
+    x1, x2, g, v = _data(cuda, 13, (333, 3), (444, 3), (333, t), (444, t))
+    _weighted_close(x1, x2, g, v)
+
+
+@pytest.mark.cuda
+def test_k2_two_splits_and_batch(cuda):
+    # m = 5000 spans two of K2's 4096-point partial sums; a batch of 2 is a
+    # grid dimension
+    x1, x2, g, v = _data(cuda, 14, (2, 300, 3), (2, 5000, 3), (2, 300, 11), (2, 5000, 11))
+    wx, ws = rbf.kernel_weighted(x1, x2, g, v)
+    want = [rbf.kernel_weighted_plain(x1[b], x2[b], g[b], v[b]) for b in range(2)]
+    _close(wx, torch.stack([w[0] for w in want]))
+    _close(ws, torch.stack([w[1] for w in want]))
+    _weighted_close(x1[0], x2[0], g[0], v[0])
+
+
+def _grads(fn, *inputs, weights):
+    leaves = [t.clone().requires_grad_() for t in inputs]
+    out = fn(*leaves)
+    return torch.autograd.grad(torch.sum(out * weights), leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("covar", ["rbf", "matern52"])
+def test_backwards_match_autograd_of_plain(cuda, covar):
+    """K1's dx1, dx2, dv and K3's dx, dv (autograd through the wrappers, so
+    through K2, K1 and K3) against autograd through the plain version."""
+    x1, x2, v, w1, x, vs, ws = _data(
+        cuda, 15, (600, 3), (900, 3), (900, 11), (600, 11), (800, 3), (800, 11), (800, 11)
+    )
+    k2 = rbf.kernel_weighted.launches
+    got = _grads(lambda a, b, c: rbf.kernel_matvec(a, b, c, covar), x1, x2, v, weights=w1)
+    want = _grads(lambda a, b, c: rbf.kernel_matvec_plain(a, b, c, covar), x1, x2, v, weights=w1)
+    for a, b in zip(got, want):
+        _close(a, b)
+    got = _grads(lambda a, c: rbf.kernel_matvec_sym(a, c, covar), x, vs, weights=ws)
+    want = _grads(lambda a, c: rbf.kernel_matvec_plain(a, a, c, covar), x, vs, weights=ws)
+    for a, b in zip(got, want):
+        _close(a, b)
+    assert rbf.kernel_weighted.launches == k2 + 4
+
+
+@pytest.mark.cuda
+def test_training_step_fused_matches_plain(cuda):
+    """neg_mll(...).backward() on the fused model (K3 forward, K2 backward)
+    against the plain model on the same probes: the three raw-parameter
+    gradients agree to 1e-3 of their norm.  CG runs to a tight tolerance:
+    at the benchmark's cg_tolerance(1.0) the f32 CG trajectories of two
+    mat-vecs that differ in the last bits part by ~1e-2 at this n (measured
+    on the CPU, where both paths take the plain versions), which would hide
+    what is compared here, the kernels."""
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.normal(size=(3000, 3)).astype(np.float32)).to(cuda)
+    y = torch.sin(3.0 * x[:, 0]) + 0.1 * torch.from_numpy(rng.normal(size=3000).astype(np.float32)).to(cuda)
+    grads = []
+    for fused in (True, False):
+        model = ExactGPRegression(use_fused_kernels=fused, materialize_threshold=None)
+        with settings.max_cholesky_size(0), settings.num_trace_samples(10), \
+                settings.preconditioner_mode("auto"), settings.max_cg_iterations(1000), \
+                settings.cg_tolerance(1e-4):
+            k2 = rbf.kernel_weighted.launches
+            loss = model.neg_mll(x, y, generator=torch.Generator().manual_seed(0))
+            loss.backward()
+        assert rbf.kernel_weighted.launches == k2 + (2 if fused else 0)
+        grads.append(torch.stack([model.raw_lengthscale.grad, model.raw_outputscale.grad, model.raw_noise.grad]))
+    assert torch.isfinite(grads[0]).all()
+    err = float(torch.linalg.norm(grads[0] - grads[1]))
+    assert err <= 1e-3 * float(torch.linalg.norm(grads[1])), (grads, err)

@@ -1,5 +1,5 @@
-"""The port's exact-GP slice (neg_mll and posterior) against the JAX package,
-stage by stage and whole.
+"""The port's exact-GP slice (neg_mll, posterior and their gradients) against
+the JAX package, stage by stage and whole.
 
 Stages run in float64 on the blocked (plain) kernel path at rtol 1e-8: both
 packages do the same arithmetic, so they differ only by summation order.  The
@@ -9,6 +9,14 @@ float32 on the fused path (JAX ``use_pallas=True``, the port's
 rtol 1e-4.  Both sides get identical probe draws by patching each package's
 ``LowRankRootAddedDiagLinearOperator.zero_mean_mvn_samples`` to return the
 same numpy array.  All inputs come from seeded numpy generators.
+
+Gradients (the training step, ``neg_mll(...).backward()`` against
+``jax.value_and_grad``) are compared relative to the gradient's norm: in
+float64 on the blocked path with ``block_rows=64``, so that both packages take
+their per-block backward, at 1e-7; on the fused path in float32 at 1e-4; on
+the Cholesky path in float64 at 1e-8.  The JAX gradients are jitted (a tenth
+of the eager time on the CPU); the settings are read while tracing, inside the
+same settings block.
 """
 
 import jax
@@ -221,15 +229,15 @@ def same_probes(monkeypatch):
     return install
 
 
-def _models(fused, dtype):
+def _models(fused, dtype, block_rows=4096):
     """A JAX model and a port model with the JAX parameters carried across."""
     jdtype = jnp.float32 if dtype == np.float32 else jnp.float64
-    jmodel = JaxGP(use_pallas=fused, materialize_threshold=None)
+    jmodel = JaxGP(use_pallas=fused, materialize_threshold=None, block_rows=block_rows)
     params = jmodel.init_params(3, dtype=jdtype)._replace(
         raw_lengthscale=jnp.asarray(-0.3, jdtype), raw_noise=jnp.asarray(-1.5, jdtype)
     )
     tmodel = tlo.ExactGPRegression(
-        use_fused_kernels=fused, materialize_threshold=None, device="cpu",
+        use_fused_kernels=fused, materialize_threshold=None, device="cpu", block_rows=block_rows,
         dtype=torch.float32 if dtype == np.float32 else torch.float64,
     )
     tlo.load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, params))
@@ -292,6 +300,186 @@ def test_posterior_wide_solve_takes_k1_and_mll_takes_k3(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# Gradients: the training step and the posterior
+# ---------------------------------------------------------------------------
+
+RAW = ("raw_lengthscale", "raw_outputscale", "raw_noise")
+
+
+def _grad_close(got, want, rtol):
+    """Entrywise, with errors taken relative to the gradient's norm."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * np.linalg.norm(want))
+
+
+def _port_grads(tmodel):
+    return [_np(getattr(tmodel, name).grad) for name in RAW]
+
+
+def _jax_grads(g):
+    return [_np(getattr(g, name)) for name in RAW]
+
+
+# (fused, dtype, block_rows, rtol of the gradient's norm)
+GRAD_CASES = [(False, np.float64, 64, 1e-7), (True, np.float32, 4096, 1e-4)]
+
+
+@pytest.mark.parametrize("fused, dtype, block_rows, rtol", GRAD_CASES)
+def test_training_step_grads_match_jax(same_probes, fused, dtype, block_rows, rtol):
+    """neg_mll(...).backward() against jax.value_and_grad of the JAX model's
+    neg_mll on identical probes: the three raw parameters and y (the rhs
+    gradient of inv_quad_logdet)."""
+    same_probes(dtype)
+    x, y, _ = (a.astype(dtype) for a in _gp_data(20))
+    jmodel, params, tmodel = _models(fused, dtype, block_rows)
+    yt = torch.from_numpy(y).requires_grad_()
+    with _Both(**SLICE):
+        want, (jg, jgy) = jax.jit(jax.value_and_grad(
+            lambda p, yy: jmodel.neg_mll(p, jnp.asarray(x), yy, key=jax.random.PRNGKey(0)), argnums=(0, 1)
+        ))(params, jnp.asarray(y))
+        loss = tmodel.neg_mll(torch.from_numpy(x), yt, generator=torch.Generator())
+        loss.backward()
+    np.testing.assert_allclose(_np(loss), _np(want), rtol=rtol)
+    _grad_close(_port_grads(tmodel), _jax_grads(jg), rtol)
+    _grad_close(yt.grad, jgy, rtol)
+
+
+def test_training_step_grads_cholesky_path():
+    """Below max_cholesky_size the port differentiates the dense Cholesky
+    through autograd; the JAX package through its Cholesky VJP."""
+    x, y, _ = _gp_data(21, n=128)
+    jmodel, params, tmodel = _models(False, np.float64)
+    with _Both(**{**SLICE, "max_cholesky_size": 1000}):
+        want, jg = jax.jit(jax.value_and_grad(lambda p: jmodel.neg_mll(p, jnp.asarray(x), jnp.asarray(y))))(params)
+        loss = tmodel.neg_mll(torch.from_numpy(x), torch.from_numpy(y))
+        loss.backward()
+    np.testing.assert_allclose(_np(loss), _np(want), rtol=1e-10)
+    _grad_close(_port_grads(tmodel), _jax_grads(jg), 1e-8)
+
+
+def test_training_step_under_skip_logdet_forward(same_probes):
+    """skip_logdet_forward zeroes the SLQ term of the forward value but not
+    its gradient: the backward works from the forward's probe solves."""
+    same_probes(np.float64)
+    x, y, _ = (torch.from_numpy(a) for a in _gp_data(22))
+    grads, losses = [], []
+    for skip in (False, True):
+        tmodel = tlo.ExactGPRegression(use_fused_kernels=False, materialize_threshold=None,
+                                       device="cpu", dtype=torch.float64)
+        with _Both(**SLICE), tlo.settings.skip_logdet_forward(skip):
+            loss = tmodel.neg_mll(x, y, generator=torch.Generator())
+            loss.backward()
+        grads.append(_port_grads(tmodel))
+        losses.append(float(loss.detach()))
+    _grad_close(grads[1], grads[0], 1e-12)
+    assert losses[0] != losses[1]
+
+
+@pytest.mark.parametrize("fused, dtype, block_rows, rtol", GRAD_CASES)
+def test_posterior_grads_match_jax(fused, dtype, block_rows, rtol):
+    """Gradient of sum(mean) + sum(var) through _Solve.backward (one more CG
+    solve and one _bilinear_derivative over the 1 + m = 25 columns, which on
+    the fused path is K1's backward)."""
+    x, y, x_star = (a.astype(dtype) for a in _gp_data(23))
+    jmodel, params, tmodel = _models(fused, dtype, block_rows)
+
+    def jloss(p):
+        mean, var = jmodel.posterior(p, jnp.asarray(x), jnp.asarray(y), jnp.asarray(x_star))
+        return jnp.sum(mean) + jnp.sum(var)
+
+    with _Both(**SLICE):
+        jg = jax.jit(jax.grad(jloss))(params)
+        mean, var = tmodel.posterior(*(torch.from_numpy(a) for a in (x, y, x_star)))
+        (mean.sum() + var.sum()).backward()
+    _grad_close(_port_grads(tmodel), _jax_grads(jg), rtol)
+
+
+def test_solve_grads_match_jax():
+    """solve(K, rhs) with K = k(x, x) + noise I: gradients to the rhs and to
+    the lengthscale, outputscale and noise tensors, blocked, float64."""
+    x, _, _ = _gp_data(24)
+    rng = np.random.default_rng(25)
+    rhs, w = rng.normal(size=(256, 3)), rng.normal(size=(256, 3))
+    hyper = (0.8, 1.2, 0.1)
+
+    def jf(ls, os_, noise, b):
+        op = jkernel.rbf_kernel_operator(
+            jnp.asarray(x), lengthscale=ls, outputscale=os_, block_rows=64, materialize_threshold=None
+        ).add_diagonal(noise)
+        return jnp.sum(jlo.solve(op, b) * w)
+
+    leaves = [torch.tensor(h, dtype=torch.float64, requires_grad=True) for h in hyper]
+    rt = torch.from_numpy(rhs).requires_grad_()
+    with _Both(**SLICE):
+        want = jax.jit(jax.grad(jf, argnums=(0, 1, 2, 3)))(*(jnp.asarray(h) for h in hyper), jnp.asarray(rhs))
+        op = tkernel.rbf_kernel_operator(
+            torch.from_numpy(x), lengthscale=leaves[0], outputscale=leaves[1], block_rows=64,
+            use_fused_kernels=False, materialize_threshold=None,
+        ).add_diagonal(leaves[2])
+        torch.sum(tlo.solve(op, rt) * torch.from_numpy(w)).backward()
+    _grad_close([t.grad for t in leaves], want[:3], 1e-7)
+    _close(rt.grad, want[3], 1e-7)
+
+
+def test_unbroadcast_matches_jax():
+    from linear_operator_tpu.functions._solve import _unbroadcast as j_unbroadcast
+    from linear_operator_tpu_torch.functions._solve import _unbroadcast as t_unbroadcast
+
+    g = np.random.default_rng(26).normal(size=(2, 3, 5, 4))
+    for shape in [(2, 3, 5, 4), (3, 5, 4), (1, 5, 4), (3, 5, 1), (5, 4)]:
+        _close(t_unbroadcast(torch.from_numpy(g), shape), j_unbroadcast(jnp.asarray(g), shape), 1e-12)
+
+
+def test_bilinear_derivative_per_leaf_and_shared_inputs():
+    """K = k(x, x) + D: the term-wise, blocked and base backwards agree with
+    autograd through the dense matrix; x1 is x2, and each place gets its own
+    partial; the preconditioner factor gets None."""
+    rng = np.random.default_rng(27)
+    x = torch.from_numpy(rng.normal(size=(100, 3))).requires_grad_()
+    ls, os_, noise = (torch.tensor(v, dtype=torch.float64, requires_grad=True) for v in (0.7, 1.3, 0.2))
+    left, right = (torch.from_numpy(rng.normal(size=(100, 4))) for _ in range(2))
+    for block_rows in (32, 4096):
+        op = tkernel.rbf_kernel_operator(
+            x, lengthscale=ls, outputscale=os_, block_rows=block_rows,
+            use_fused_kernels=False, materialize_threshold=None,
+        ).add_diagonal(noise).with_preconditioner(torch.zeros(100, 2, dtype=torch.float64))
+        leaves = list(op._leaves())
+        assert leaves[0] is leaves[1] is x
+        grads = op._bilinear_derivative(left, right)
+        assert len(grads) == len(leaves) and grads[-1] is None
+        want = torch.autograd.grad(torch.sum(left * (op.to_dense() @ right)), (x, ls, os_, noise))
+        _close(grads[0] + grads[1], want[0], 1e-12)
+        for got, ref in zip(grads[2:5], want[1:]):
+            _close(got, ref, 1e-12)
+        # _with_leaves is the inverse of _leaves
+        rebuilt = op._with_leaves([t.detach() for t in leaves])
+        _close(rebuilt.to_dense(), op.to_dense(), 0)
+
+
+def test_training_step_routes_through_k3_forward_and_k2_backward(monkeypatch):
+    """Route check on the CPU: the fused training step's forward calls K3 once
+    per CG iteration; its backward makes two K2 calls, one K3 forward (the
+    bilinear form's own mat-vec, which carries the outputscale gradient) and
+    no K3 call for the constant right vectors and no K1 call."""
+    from linear_operator_tpu_torch.ops import rbf as trbf
+
+    calls = []
+    for name in ("_kernel_matvec_sym", "_kernel_matvec", "kernel_weighted"):
+        real = getattr(trbf, name)
+        monkeypatch.setattr(trbf, name, lambda *a, _n=name, _f=real: calls.append(_n) or _f(*a))
+    x, y, _ = (torch.from_numpy(a.astype(np.float32)) for a in _gp_data(28))
+    model = tlo.ExactGPRegression(materialize_threshold=None, device="cpu")
+    with _Both(**{**SLICE, "num_trace_samples": 10}):
+        loss = model.neg_mll(x, y, generator=torch.Generator())
+        forward = list(calls)
+        calls.clear()
+        loss.backward()
+    assert set(forward) == {"_kernel_matvec_sym"} and len(forward) >= 10
+    assert sorted(calls) == ["_kernel_matvec_sym", "kernel_weighted", "kernel_weighted"]
+    assert all(torch.isfinite(getattr(model, name).grad) for name in RAW)
+
+
+# ---------------------------------------------------------------------------
 # Guards
 # ---------------------------------------------------------------------------
 
@@ -310,18 +498,6 @@ def test_softplus_matches_jax_above_torch_threshold():
     xs = np.array([-30.0, -2.0, 0.0, 19.0, 25.0, 40.0])
     want = jax.nn.softplus(jnp.asarray(xs)) + 1e-6
     np.testing.assert_allclose(_np(_softplus(torch.from_numpy(xs))), _np(want), rtol=1e-14)
-
-
-def test_backward_raises_not_implemented():
-    x, y, x_star = (torch.from_numpy(a.astype(np.float32)) for a in _gp_data(12, n=64, m=4))
-    model = tlo.ExactGPRegression(device="cpu")
-    with _Both(**SLICE):
-        loss = model.neg_mll(x, y, generator=torch.Generator())
-        with pytest.raises(NotImplementedError, match="next slice"):
-            loss.backward()
-        mean, _ = model.posterior(x, y, x_star)
-        with pytest.raises(NotImplementedError, match="next slice"):
-            mean.sum().backward()
 
 
 def test_pivoted_mode_names_the_later_slice():

@@ -1,9 +1,10 @@
-"""The port's fused kernel mat-vecs (K1, K3) against the JAX package.
+"""The port's fused kernel mat-vecs (K1, K3), their weighted-tile backward
+kernel (K2) and the backwards of K1 and K3 against the JAX package.
 
 On the CPU the port's wrappers run their kernels' plain PyTorch versions;
-the JAX side runs K1 in Pallas interpret mode (a 3-pass bf16 product, ~1e-5
-relative to exact f32, hence K1's rtol 1e-4) and K3 through its dense f32
-HIGHEST fallback (rtol 1e-5).  Errors are taken relative to the largest
+the JAX side runs K1 and K2 in Pallas interpret mode (a 3-pass bf16 product,
+~1e-5 relative to exact f32, hence rtol 1e-4 for K1, K2 and every gradient)
+and K3 through its dense f32 HIGHEST fallback (rtol 1e-5).  Errors are taken relative to the largest
 entry of the result (``atol = rtol * max|ref|``): a sum of signed terms has
 entries near 0 whose relative error means nothing.  Inputs are made with a
 seeded numpy generator and handed to both packages.
@@ -102,15 +103,27 @@ def test_sym_gate():
         trbf.kernel_matvec_sym(torch.from_numpy(x), torch.from_numpy(v))
 
 
+def _launch_counts():
+    return (trbf.kernel_matvec.launches, trbf.kernel_matvec_sym.launches, trbf.kernel_weighted.launches)
+
+
 def test_cpu_runs_plain_version_and_counts_no_launch():
-    x, v = _data(4, (64, 3), (64, 5))
-    before = (trbf.kernel_matvec.launches, trbf.kernel_matvec_sym.launches)
-    a = trbf.kernel_matvec(torch.from_numpy(x), torch.from_numpy(x), torch.from_numpy(v))
-    b = trbf.kernel_matvec_sym(torch.from_numpy(x), torch.from_numpy(v))
-    assert (trbf.kernel_matvec.launches, trbf.kernel_matvec_sym.launches) == before
-    plain = trbf.kernel_matvec_plain(torch.from_numpy(x), torch.from_numpy(x), torch.from_numpy(v))
+    x, v, g = _data(4, (64, 3), (64, 5), (64, 5))
+    x, v, g = (torch.from_numpy(a) for a in (x, v, g))
+    before = _launch_counts()
+    a = trbf.kernel_matvec(x, x, v)
+    b = trbf.kernel_matvec_sym(x, v)
+    wx, ws = trbf.kernel_weighted(x, x, g, v)
+    xg = x.clone().requires_grad_()
+    torch.sum(trbf.kernel_matvec_sym(xg, v) * g).backward()
+    assert _launch_counts() == before
+    plain = trbf.kernel_matvec_plain(x, x, v)
     torch.testing.assert_close(a, plain, rtol=0, atol=0)
     torch.testing.assert_close(b, plain, rtol=0, atol=0)
+    pwx, pws = trbf.kernel_weighted_plain(x, x, g, v)
+    torch.testing.assert_close(wx, pwx, rtol=0, atol=0)
+    torch.testing.assert_close(ws, pws, rtol=0, atol=0)
+    assert torch.isfinite(xg.grad).all()
 
 
 def test_wrapper_refuses_a_device_it_has_no_kernel_for():
@@ -120,25 +133,107 @@ def test_wrapper_refuses_a_device_it_has_no_kernel_for():
         trbf.kernel_matvec(x, x, v)
     with pytest.raises(ValueError, match="CUDA"):
         trbf.kernel_matvec_sym(torch.zeros(8, 3), v)
+    with pytest.raises(ValueError, match="CUDA"):
+        trbf.kernel_weighted(x, x, v, v)
 
 
-def test_backward_through_kernels_raises():
-    x, v = _data(5, (32, 3), (32, 4))
-    xt = torch.from_numpy(x).requires_grad_()
-    for out in (
-        trbf.kernel_matvec(xt, xt, torch.from_numpy(v)),
-        trbf.kernel_matvec_sym(xt, torch.from_numpy(v)),
-    ):
-        with pytest.raises(NotImplementedError, match="next slice"):
-            out.sum().backward()
+# ---------------------------------------------------------------------------
+# K2 and the backwards of K1 and K3
+# ---------------------------------------------------------------------------
+
+
+def _dx(wx, ws, x1):
+    return 2.0 * (np.asarray(ws)[:, None] * np.asarray(x1) - np.asarray(wx))
+
+
+# every covariance at d = 3, the quadratic form (d = 16) for two, and a wide
+# rhs (t = 65, the posterior gradient's width)
+K2_CASES = [(c, 3, 11) for c in COVARS] + [("rbf", 16, 11), ("matern12", 16, 11), ("matern32", 3, 65)]
+
+
+@pytest.mark.parametrize("covar, d, t", K2_CASES)
+def test_k2_plain_matches_jax(covar, d, t):
+    # n = 300 ragged, m = 520 spans two of JAX's 512-point tiles
+    x1, x2, g, v = _data(5, (300, d), (520, d), (300, t), (520, t))
+    scale = np.float32(1.0 / np.sqrt(d))
+    x1, x2 = x1 * scale, x2 * scale
+    jname, tname = _names(covar)
+    jwx, jws = jrbf._pallas_weighted(*map(jnp.asarray, (x1, x2, g, v)), 512, jname)
+    wx, ws = trbf.kernel_weighted(*map(torch.from_numpy, (x1, x2, g, v)), tname)
+    assert wx.shape == (300, d) and ws.shape == (300,)
+    _close(wx, jwx, 1e-4)
+    _close(ws, jws, 1e-4)
+    # the assembled gradient, a difference of the two sums
+    _close(_dx(wx, ws, x1), _dx(jwx, jws, x1), 1e-4)
+
+
+def _torch_grads(fn, inputs, weights):
+    leaves = [torch.from_numpy(a).requires_grad_() for a in inputs]
+    torch.sum(fn(*leaves) * torch.from_numpy(weights)).backward()
+    return [leaf.grad for leaf in leaves]
+
+
+@pytest.mark.parametrize("covar, d", [("rbf", 3), ("matern52", 3), ("matern12", 16)])
+def test_k1_backward_matches_jax(covar, d):
+    """dx1, dx2 and dv of K1 (two K2 plain calls and K1 transposed) against
+    jax.grad through the JAX package's custom VJP."""
+    x1, x2, v, w = _data(6, (300, d), (520, d), (520, 7), (300, 7))
+    scale = np.float32(1.0 / np.sqrt(d))
+    x1, x2 = x1 * scale, x2 * scale
+    jname, tname = _names(covar)
+
+    def f(a, b, c):
+        return jnp.sum(jrbf.kernel_matvec(a, b, c, 512, jname) * w)
+
+    want = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(*map(jnp.asarray, (x1, x2, v)))
+    got = _torch_grads(lambda a, b, c: trbf.kernel_matvec(a, b, c, tname), (x1, x2, v), w)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+
+
+@pytest.mark.parametrize("covar, d", [("rbf", 3), ("matern32", 3), ("rq", 3), ("matern12", 16)])
+def test_k3_backward_matches_jax(covar, d):
+    """dx (both K2 partials of k(x, x)) and dv of K3 against jax.grad."""
+    x, v, w = _data(7, (300, d), (300, 11), (300, 11))
+    # Coordinates on a 1/16 grid: at d > 8 both packages take the quadratic
+    # form, which is then exact in f32, so each point is at distance 0 from
+    # itself in both.  Otherwise its rounding leaves a point ~1e-7 from
+    # itself, in an order-dependent way, and Matern-1/2 gives that pair a
+    # weight of 0 in one package and ~-e^{-d}/(2d) ~ -1e3 in the other: its
+    # exact contribution, (x_i - x_i), is 0, but in ws x - wx it cancels only
+    # to f32 rounding (measured 6e-3 of the largest entry).
+    x = np.round(16 * x / np.sqrt(d)).astype(np.float32) / np.float32(16)
+    jname, tname = _names(covar)
+
+    def f(a, c):
+        return jnp.sum(jrbf.kernel_matvec_sym(a, c, 1024, jname) * w)
+
+    want = jax.jit(jax.grad(f, argnums=(0, 1)))(jnp.asarray(x), jnp.asarray(v))
+    got = _torch_grads(lambda a, c: trbf.kernel_matvec_sym(a, c, tname), (x, v), w)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+
+
+def test_backward_computes_only_what_is_needed(monkeypatch):
+    """A constant v costs K3's backward no K3 call; a constant x no K2 call."""
+    calls = []
+    real_sym, real_weighted = trbf._kernel_matvec_sym, trbf.kernel_weighted
+    monkeypatch.setattr(trbf, "_kernel_matvec_sym", lambda *a: calls.append("K3") or real_sym(*a))
+    monkeypatch.setattr(trbf, "kernel_weighted", lambda *a: calls.append("K2") or real_weighted(*a))
+    x, v, w = (torch.from_numpy(a) for a in _data(8, (40, 3), (40, 4), (40, 4)))
+    torch.sum(trbf.kernel_matvec_sym(x.clone().requires_grad_(), v) * w).backward()
+    assert calls == ["K3", "K2", "K2"]
+    calls.clear()
+    torch.sum(trbf.kernel_matvec_sym(x, v.clone().requires_grad_()) * w).backward()
+    assert calls == ["K3", "K3"]
 
 
 def test_kernel_sources_hash_into_library_names():
     from linear_operator_tpu_torch import _build
 
-    assert _build.sources() == ["kernel_matvec", "kernel_matvec_sym"]
+    assert _build.sources() == ["kernel_matvec", "kernel_matvec_sym", "kernel_weighted"]
     paths = {_build.library_path(name) for name in _build.sources()}
-    assert len(paths) == 2 and all(p.parent == _build.BUILD_DIR for p in paths)
+    assert len(paths) == 3 and all(p.parent == _build.BUILD_DIR for p in paths)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
