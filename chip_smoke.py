@@ -10,16 +10,30 @@ Phases, each reported on its own line:
     card, for each covariance at small shapes, and the backwards of K1 and K3
     against autograd through the plain version; then each RBF kernel at the
     shapes of the main path, timed with CUDA events beside its bound;
+    3c. the bf16 tile cache: K4 and K5 against their plain versions for each
+    covariance (K5 on K4's own tiles), K5's symmetry, then both at
+    N = 100,000, tile 1024, timed beside their bounds;
  4. check a small exact-GP MLL against the CPU run of the same model;
  5. the main path, through the entry points a user calls: the exact-GP
     negative MLL at N = 100,000, d = 3 with the benchmark's settings (K3 must
     launch once per CG iteration), then the posterior at N = 100,000, m = 64
     query points (K1 must launch); each is held against the plain path on
     the card on the same probes;
+    5b. neg_mll under the default settings (the rank-15 pivoted-Cholesky
+    preconditioner) at the model's initial noise, reported beside the plain
+    path and an f64 run; at noise 1.0 held against the plain path;
  6. the training step on the main path: neg_mll(...).backward() at the same
     size (the backward runs no CG, and must make two K2 launches and one K3
     launch, the bilinear form's own mat-vec), held against the plain path's
     gradients on the same probes, then three Adam steps;
+ 8. the tile-cache path at N = 100,000, noise 1.0: a kernel operator with
+    matvec_closure_impl=rbf_fused_closure, through inv_quad_logdet and
+    solve.  (a) |bf16(K) - K|_2 by power iteration; (b) the training step
+    (forward: one K4 launch, one K5 launch per CG iteration, nothing else;
+    backward: two K2 launches and one K3 launch); (c) the same step with
+    the plain versions of K4 and K5, held against (b); (d) the same step on
+    the f32 K3 path, reported; (e) a default-settings solve to 1e-4, its
+    residual on the cached operator; (f) three Adam steps;
  7. one JSON line listing every ported kernel with its launches, error and
     times, then, as the last line, {"ok": true, "device": {...}}.
 
@@ -44,6 +58,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM peaks at the full 700 W power limit (NVIDIA data sheet): f32
 # outside the tensor cores, and HBM3 bandwidth.
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12  # dense, on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 
 N, D, M_STAR, PROBES = 100_000, 3, 64, 10
@@ -53,6 +68,8 @@ KERNEL_RTOL = 1e-4  # |kernel - plain| <= KERNEL_RTOL * max|plain|, see check_ke
 # preconditioned CG carry into the MLL and the posterior (~1e-5 at n = 2500);
 # a wrong kernel moves them by O(1).
 PATH_RTOL = 1e-3
+TILE = 1024  # the tile of rbf_fused_closure's cache
+CACHE_NOISE = 1.0  # the noise of the tile-cache path, where bf16(K) + D stays positive definite
 
 
 def fail(message: str) -> None:
@@ -79,10 +96,22 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+def once_ms(torch, fn) -> float:
+    """Milliseconds of one call on the card, between two CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     """The least time the card could take: the larger of the flops over the
-    f32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    peak of their type (f32 by default) and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
@@ -115,7 +144,25 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     import linear_operator_tpu_torch as lo
     from linear_operator_tpu_torch import _build, settings
+    from linear_operator_tpu_torch.models.gp import _softplus
+    from linear_operator_tpu_torch.operators import (
+        KernelLinearOperator,
+        rbf_covar,
+        rbf_fused_closure,
+        rbf_fused_matvec,
+    )
     from linear_operator_tpu_torch.ops import rbf
+
+    # every kernel wrapper, whose .launches counts its kernel's launches
+    wrappers = dict(K1=rbf.kernel_matvec, K3=rbf.kernel_matvec_sym, K2=rbf.kernel_weighted,
+                    K4=rbf.rbf_build_sym_tiles, K5=rbf.rbf_matvec_sym_cached)
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts():
+        return {key: w.launches for key, w in wrappers.items()}
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -232,6 +279,94 @@ def main() -> None:
             f"{100 * b_ms / ms:.1f}% of bound)")
     del x, v11, v65, g11
 
+    # 3c. the bf16 tile cache
+    def check_tiles(label, got, want, chunk=256):
+        """K4's tiles: at most one bf16 ulp from the plain version's, and at
+        least 99.9% bit-identical (expf and torch.exp may differ by an f32
+        ulp, which now and then crosses a bf16 rounding boundary).  Compared
+        in chunks of tile pairs; returns the largest absolute difference."""
+        torch.cuda.synchronize()
+        ulp, same, err = 0, 0, 0.0
+        for s in range(0, got.shape[0], chunk):
+            a, b = got[s : s + chunk], want[s : s + chunk]
+            diff = (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+            ulp = max(ulp, int(diff.max()))
+            same += int((diff == 0).sum())
+            err = max(err, float((a.float() - b.float()).abs().max()))
+        share = same / got.numel()
+        ok = got.shape == want.shape and ulp <= 1 and share >= 0.999
+        say(f"  {label}: max {ulp} bf16 ulp, {100 * share:.4f}% bit-identical, max_abs_err {err:.3e} "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"{label}: K4 disagrees with its plain version")
+        return err
+
+    say("tile cache (K4, K5) vs plain, each covariance (K5 on K4's own tiles):")
+    for covar in ["rbf", "matern52", "matern32", "matern12", rq]:
+        for d in (3, 16):
+            for n, tile in ((3000, 1024), (1000, 128)):
+                x = randn(n, d) / math.sqrt(d)
+                tiles = rbf.rbf_build_sym_tiles(x, tile, covar)
+                check_tiles(f"K4 {covar} n={n} d={d} tile={tile}", tiles,
+                            rbf.rbf_build_sym_tiles_plain(x, tile, covar))
+                worst = 0.0
+                for t in (1, 11, 16):
+                    v = randn(n, t)
+                    for passes in (1, 2):
+                        got = rbf.rbf_matvec_sym_cached(tiles, v, n, tile, passes)
+                        want = rbf.rbf_matvec_sym_cached_plain(tiles, v, n, tile, passes)
+                        torch.cuda.synchronize()
+                        rel = float((got - want).abs().max()) / float(want.abs().max())
+                        if not rel <= KERNEL_RTOL:
+                            check_kernel(f"K5 {covar} n={n} d={d} tile={tile} t={t} passes={passes}", got, want)
+                        worst = max(worst, rel)
+                say(f"  K5 {covar} n={n} d={d} tile={tile}: t in (1, 11, 16), passes 1 and 2, "
+                    f"largest rel err {worst:.2e} ok")
+
+    say(f"tile cache at the path's shapes (N={N}, d={D}, tile {TILE}):")
+    x = randn(N, D) / ls
+    tiles = rbf.rbf_build_sym_tiles(x, TILE)
+    npairs = tiles.shape[0]
+    cache_bytes = tiles.numel() * 2
+    want = rbf.rbf_build_sym_tiles_plain(x, TILE)
+    err4 = check_tiles(f"K4 rbf n={N} d={D} ({npairs} tile pairs, {tiles.numel():.3e} entries)", tiles, want)
+    del want
+    torch.cuda.empty_cache()
+    # K4 writes the cache once and reads x; ~12 f32 operations an entry
+    # (d2 by differences 3d, the exponent 2, exp ~4, the bf16 rounding 1)
+    b_ms, b_by = bound_ms(12 * tiles.numel(), cache_bytes + 4 * N * D)
+    stats["K4"] = dict(max_abs_err=err4, ms=cuda_ms(torch, lambda: rbf.rbf_build_sym_tiles(x, TILE), 3),
+                       plain_ms=once_ms(torch, lambda: rbf.rbf_build_sym_tiles_plain(x, TILE)),
+                       bound_ms=b_ms, bound_by=b_by)
+    torch.cuda.empty_cache()
+    v11 = randn(N, t11)
+    err5 = check_kernel(f"K5 rbf n={N} t={t11} passes=2", rbf.rbf_matvec_sym_cached(tiles, v11, N, TILE),
+                        rbf.rbf_matvec_sym_cached_plain(tiles, v11, N, TILE))
+    # K5 reads the cache once, v once and writes y once; its products,
+    # npad^2 t multiply-adds per bf16 pass, are what a tensor core computes
+    npad = -(-N // TILE) * TILE
+    b_ms, b_by = bound_ms(2 * npad * npad * t11 * 2, cache_bytes + 8 * N * t11, PEAK_BF16_FLOPS)
+    stats["K5"] = dict(max_abs_err=err5, ms=cuda_ms(torch, lambda: rbf.rbf_matvec_sym_cached(tiles, v11, N, TILE), 5),
+                       plain_ms=once_ms(torch, lambda: rbf.rbf_matvec_sym_cached_plain(tiles, v11, N, TILE)),
+                       bound_ms=b_ms, bound_by=b_by)
+    for key in ("K4", "K5"):
+        s = stats[key]
+        say(f"  {key}: {s['ms']:.3f} ms (plain {s['plain_ms']:.1f} ms, bound {s['bound_ms']:.3f} ms by "
+            f"{s['bound_by']}, {100 * s['bound_ms'] / s['ms']:.1f}% of bound)")
+    # the cached operator is symmetric: u^T (M w) = w^T (M u), with u and w
+    # exact in bf16, so that the lo pass adds nothing, and nonnegative, so
+    # that neither side is a cancelling sum
+    u, w = (randn(N, 1).abs().to(torch.bfloat16).float() for _ in range(2))
+    mw, mu = (rbf.rbf_matvec_sym_cached(tiles, a, N, TILE) for a in (w, u))
+    umw, wmu = float((u.double() * mw.double()).sum()), float((w.double() * mu.double()).sum())
+    asym = abs(umw - wmu) / abs(umw)
+    say(f"  K5 symmetry n={N}: u^T(Mw) {umw:.8e}, w^T(Mu) {wmu:.8e}, relative difference {asym:.2e}")
+    if not asym <= 1e-5:
+        fail("K5 is not symmetric")
+    say(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del x, tiles, v11, u, w, mw, mu
+    torch.cuda.empty_cache()
+
     def bench_settings():
         """bench.py's settings for the N = 1e5 MLL (bench.py:100-129)."""
         stack = contextlib.ExitStack()
@@ -287,7 +422,7 @@ def main() -> None:
             return mean, var, time.perf_counter() - t0
 
     launches = {}
-    rbf.kernel_matvec.launches = rbf.kernel_matvec_sym.launches = 0
+    reset_counts()
     cg.counts.clear()
     mll, mll_s = neg_mll(fused)
     launches["K3"], launches["K1"] = rbf.kernel_matvec_sym.launches, rbf.kernel_matvec.launches
@@ -299,7 +434,7 @@ def main() -> None:
     if launches["K3"] != sum(mll_iters) or launches["K3"] == 0 or launches["K1"] != 0:
         fail("neg_mll did not run one K3 launch per CG iteration")
 
-    rbf.kernel_matvec.launches = rbf.kernel_matvec_sym.launches = 0
+    reset_counts()
     cg.counts.clear()
     mean, var, post_s = posterior(fused)
     post = dict(K1=rbf.kernel_matvec.launches, K3=rbf.kernel_matvec_sym.launches)
@@ -358,24 +493,96 @@ def main() -> None:
         say(f"  {label} posterior vs f64 plain: mean {e_mean:.2e}, var {e_var:.2e} of the prior variance")
     del ref, mean_r, var_r
 
+    # 5b. the repaired default: neg_mll under the default settings, whose
+    # preconditioner is the rank-15 pivoted Cholesky, except that CG replaces
+    # the Cholesky path at every size
+    def default_terms(model, dtype=torch.float32):
+        """inv_quad_logdet of the model's training operator under the default
+        settings, the two terms neg_mll sums, per data point."""
+        cg.counts.clear()
+        with settings.max_cholesky_size(0), settings.verbose_linalg(True), torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            iq, ld = lo.inv_quad_logdet(model.train_operator(x.to(dtype)), y.to(dtype)[:, None], logdet=True,
+                                        generator=torch.Generator().manual_seed(1))
+            iq, ld = float(iq) / N, float(ld) / N
+            return dict(iq=iq, ld=ld, loss=0.5 * (iq + ld + math.log(2.0 * math.pi)),
+                        s=time.perf_counter() - t0, iters=list(cg.counts))
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rank = fused.train_operator(x)._build_precond_factor().shape[-1]
+        torch.cuda.synchronize()
+        factor_ms = 1e3 * (time.perf_counter() - t0)
+    reset_counts()
+    cg.counts.clear()
+    with settings.max_cholesky_size(0), settings.verbose_linalg(True), torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mll_d = float(fused.neg_mll(x, y, generator=torch.Generator().manual_seed(1)))
+        mll_d_s = time.perf_counter() - t0
+    dflt, dflt_iters = counts(), list(cg.counts)
+    say(f"default settings (preconditioner_mode {settings.preconditioner_mode.value()!r}, rank {rank}): "
+        f"pivoted factor {factor_ms:.1f} ms; neg_mll {mll_d:.8f} in {mll_d_s:.3f} s, CG iterations {dflt_iters}, "
+        f"launches {dflt}")
+    if settings.preconditioner_mode.value() != "pivoted" or rank != 15:
+        fail("the default preconditioner is not the rank-15 pivoted Cholesky")
+    if not math.isfinite(mll_d) or dflt["K3"] != sum(dflt_iters) or dflt["K3"] == 0:
+        fail("the default-settings neg_mll did not run one K3 launch per CG iteration")
+    launches["K3"] += dflt["K3"]
+
+    def set_noise(model, noise):
+        """The model with softplus(raw_noise) + 1e-6 = noise."""
+        with torch.no_grad():
+            model.raw_noise.fill_(math.log(math.expm1(noise - 1e-6)))
+        return model
+
+    def show(label, r, ref=None):
+        diff = "" if ref is None else f", loss rel diff {abs(r['loss'] - ref['loss']) / abs(ref['loss']):.2e}"
+        say(f"  {label}: iq/n {r['iq']:.8f}, logdet/n {r['ld']:.8f}, loss {r['loss']:.8f} in {r['s']:.3f} s, "
+            f"CG iterations {r['iters']}{diff}")
+
+    # reported: the fused path again (K3's atomics sum in another order), the
+    # plain path, and the plain path in f64.  At the model's initial noise
+    # (0.127) the rank-15 preconditioner leaves the 20 Lanczos steps behind
+    # the SLQ logdet ill-conditioned: f32 summation order alone moves the
+    # logdet by ~5e-4 of itself on either path, and neg_mll = 0.5 (iq +
+    # logdet) + 0.919 with logdet ~ -2 magnifies that ~40x, so no two f32
+    # paths agree to PATH_RTOL there
+    runs = {label: default_terms(model, dtype=dtype) for label, model, dtype in [
+        ("fused", fused, torch.float32), ("plain", plain, torch.float32),
+        ("plain f64", lo.ExactGPRegression(block_rows=8192, use_fused_kernels=False, dtype=torch.float64),
+         torch.float64)]}
+    for label, r in runs.items():
+        show(f"noise 0.127, {label} (reported)", r, None if label == "fused" else runs["fused"])
+    # held: the same settings at noise 1.0, where CG and Lanczos are
+    # well-conditioned and the two paths must agree
+    held = {label: default_terms(set_noise(lo.ExactGPRegression(block_rows=8192, use_fused_kernels=use), 1.0))
+            for label, use in (("fused", True), ("plain", False))}
+    for label, r in held.items():
+        show(f"noise 1.0, {label}", r, None if label == "fused" else held["fused"])
+    rel = abs(held["fused"]["loss"] - held["plain"]["loss"]) / abs(held["plain"]["loss"])
+    if not rel <= PATH_RTOL:
+        fail("the default-settings neg_mll disagrees with the plain path")
+
     # 6. the training step: neg_mll(...).backward(), forward and backward
     # timed apart, with the launches of each half
-    def counts():
-        return dict(K1=rbf.kernel_matvec.launches, K3=rbf.kernel_matvec_sym.launches,
-                    K2=rbf.kernel_weighted.launches)
-
     raw = ("raw_lengthscale", "raw_outputscale", "raw_noise")
 
-    def train_step(model, seed, *overrides):
+    def train_step(model, seed, *overrides, loss_fn=None):
+        """One step of ``loss_fn(model, generator)`` (default: the model's
+        neg_mll on the main path's data) under the benchmark's settings."""
         model.zero_grad(set_to_none=True)
-        rbf.kernel_matvec.launches = rbf.kernel_matvec_sym.launches = rbf.kernel_weighted.launches = 0
+        reset_counts()
         cg.counts.clear()
         with bench_settings(), settings.verbose_linalg(True), contextlib.ExitStack() as more:
             for c in overrides:
                 more.enter_context(c)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            loss = model.neg_mll(x, y, generator=torch.Generator().manual_seed(seed))
+            gen = torch.Generator().manual_seed(seed)
+            loss = model.neg_mll(x, y, generator=gen) if loss_fn is None else loss_fn(model, gen)
             val = float(loss.detach())
             t1 = time.perf_counter()
             fwd, fwd_iters = counts(), list(cg.counts)
@@ -395,13 +602,13 @@ def main() -> None:
             f"(CG iterations {st['bwd_iters']}, launches {st['bwd']}), grad {st['grad'].tolist()}")
         if not (math.isfinite(st["loss"]) and torch.isfinite(st["grad"]).all()):
             fail("the training step's loss or gradients are not finite")
-        if st["fwd"] != dict(K1=0, K3=sum(st["fwd_iters"]), K2=0) or st["fwd"]["K3"] == 0:
+        if st["fwd"] != dict(K1=0, K3=sum(st["fwd_iters"]), K2=0, K4=0, K5=0) or st["fwd"]["K3"] == 0:
             fail("the training step's forward did not run one K3 launch per CG iteration and nothing else")
         # the backward reuses the forward's solves (no CG) and makes one
         # _bilinear_derivative: K2 twice for the x-gradient of K3, and K3 once,
         # the bilinear form's own mat-vec, which carries the outputscale
         # gradient; its right vectors are constants, so no K3 for dv
-        if st["bwd_iters"] or st["bwd"] != dict(K1=0, K3=1, K2=2):
+        if st["bwd_iters"] or st["bwd"] != dict(K1=0, K3=1, K2=2, K4=0, K5=0):
             fail("the training step's backward did not make exactly two K2 launches and one K3 launch")
     launches["K3"] += steps["cold"]["fwd"]["K3"] + steps["cold"]["bwd"]["K3"]
     launches["K2"] = steps["cold"]["bwd"]["K2"]
@@ -463,6 +670,144 @@ def main() -> None:
     if not bool((now != start).all()):
         fail("the Adam steps did not move every parameter")
 
+    # 8. the tile-cache path at noise 1.0: bf16(K) + D stays positive definite
+    # only where the noise exceeds |bf16(K) - K|_2 (indefinite at n = 1e5 and
+    # the default noise 0.127), so the path runs on noisy targets
+    del fused, plain, opt
+    torch.cuda.empty_cache()
+    y = torch.sin(3.0 * x[:, 0]) + math.sqrt(CACHE_NOISE) * torch.randn(N, device=dev, generator=kg)
+    model = set_noise(lo.ExactGPRegression(block_rows=8192), CACHE_NOISE)
+
+    def cached_operator(model, closure_impl, matvec_impl=rbf_fused_matvec):
+        """The slice's entry point: the model's kernel operator with a
+        per-solve closure builder, plus its noise."""
+        params = {"lengthscale": _softplus(model.raw_lengthscale),
+                  "outputscale": _softplus(model.raw_outputscale)}
+        return KernelLinearOperator(
+            x, x, params, covar_func=rbf_covar, block_rows=8192, symmetric=True,
+            matvec_impl=matvec_impl, matvec_closure_impl=closure_impl,
+        ).add_diagonal(_softplus(model.raw_noise))
+
+    def cached_loss(closure_impl, matvec_impl=rbf_fused_matvec):
+        def loss_fn(model, gen):
+            K = cached_operator(model, closure_impl, matvec_impl)
+            iq, ld = lo.inv_quad_logdet(K, y[:, None], logdet=True, generator=gen)
+            return 0.5 * (iq + ld + N * math.log(2.0 * math.pi)) / N
+
+        return loss_fn
+
+    def plain_closure(x1, x2, params, symmetric):
+        """rbf_fused_closure with the plain versions of K4 and K5."""
+        xs = (x1 / params["lengthscale"]).to(torch.float32).detach().contiguous()
+        tiles = rbf.rbf_build_sym_tiles_plain(xs, TILE)
+
+        def closure(rhs):
+            out = rbf.rbf_matvec_sym_cached_plain(tiles, rhs.to(torch.float32).contiguous(), N, TILE)
+            return (params["outputscale"] * out).to(rhs.dtype)
+
+        return closure
+
+    # (a) |bf16(K) - K|_2: 15 power iterations of v -> K5 v - K3 v, scaled
+    with torch.no_grad():
+        ls8, os8 = (float(_softplus(getattr(model, name))) for name in ("raw_lengthscale", "raw_outputscale"))
+        xs = (x / ls8).contiguous()
+        tiles = rbf.rbf_build_sym_tiles(xs, TILE)
+        v = randn(N, 1)
+        v /= torch.linalg.norm(v)
+        for _ in range(15):
+            e = os8 * (rbf.rbf_matvec_sym_cached(tiles, v, N, TILE) - rbf.kernel_matvec_sym(xs, v))
+            pert = float(torch.linalg.norm(e))
+            v = e / pert
+        del tiles, xs, v, e
+        torch.cuda.empty_cache()
+    say(f"tile-cache path N={N} d={D}: |bf16(K) - K|_2 = {pert:.4f} (15 power iterations), beside the noise "
+        f"{CACHE_NOISE} ({pert / CACHE_NOISE:.3f} of it) and the default noise 0.127 ({pert / 0.127:.3f} of it)")
+    if not pert < CACHE_NOISE / 2:
+        fail("|bf16(K) - K|_2 is not below half the noise: the cache's regime is wrong")
+
+    # (b) the training step on the cache, cold and warm
+    torch.cuda.reset_peak_memory_stats()
+    cached = {}
+    for label in ("cold", "warm"):
+        st = cached[label] = train_step(model, 1, loss_fn=cached_loss(rbf_fused_closure))
+        say(f"  cached training step ({label}): loss {st['loss']:.8f}, forward {st['fwd_s']:.3f} s "
+            f"(CG iterations {st['fwd_iters']}, launches {st['fwd']}), backward {st['bwd_s']:.3f} s "
+            f"(CG iterations {st['bwd_iters']}, launches {st['bwd']}), grad {st['grad'].tolist()}")
+        if not (math.isfinite(st["loss"]) and torch.isfinite(st["grad"]).all()):
+            fail("the cached training step's loss or gradients are not finite")
+        if st["fwd"] != dict(K1=0, K3=0, K2=0, K4=1, K5=sum(st["fwd_iters"])) or st["fwd"]["K5"] == 0:
+            fail("the cached forward did not run one K4 launch, one K5 launch per CG iteration and nothing else")
+        if st["bwd_iters"] or st["bwd"] != dict(K1=0, K3=1, K2=2, K4=0, K5=0):
+            fail("the cached backward did not make exactly two K2 launches and one K3 launch")
+    launches["K4"], launches["K5"] = cached["cold"]["fwd"]["K4"], cached["cold"]["fwd"]["K5"]
+    warm = cached["warm"]
+    k_s = stats["K4"]["ms"] / 1e3 + warm["fwd"]["K5"] * stats["K5"]["ms"] / 1e3
+    say(f"  cached forward: K4 1 x {stats['K4']['ms']:.3f} ms + K5 {warm['fwd']['K5']} x {stats['K5']['ms']:.3f} ms "
+        f"= {k_s:.3f} s, {100 * k_s / warm['fwd_s']:.1f}% of the warm forward; "
+        f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # (c) the same step with the plain versions of K4 and K5 and the blocked
+    # backward, on the same probes
+    st = train_step(model, 1, loss_fn=cached_loss(plain_closure, None))
+    rel = abs(st["loss"] - warm["loss"]) / abs(st["loss"])
+    err = float(torch.linalg.norm(warm["grad"] - st["grad"]) / torch.linalg.norm(st["grad"]))
+    say(f"  plain cached step: loss {st['loss']:.8f} (rel diff {rel:.2e}), forward {st['fwd_s']:.3f} s "
+        f"(CG iterations {st['fwd_iters']}), backward {st['bwd_s']:.3f} s, grad {st['grad'].tolist()} "
+        f"(|cached - plain| / |plain| = {err:.2e}), launches {counts()}")
+    if not (rel <= PATH_RTOL and err <= PATH_RTOL):
+        fail("the cached training step disagrees with its plain versions")
+    if any(counts().values()):
+        fail("the plain cached step launched a kernel")
+
+    # (d) the same step on the f32 K3 path: what bf16(K) costs
+    st = train_step(model, 1, loss_fn=cached_loss(None))
+    rel = abs(warm["loss"] - st["loss"]) / abs(st["loss"])
+    err = float(torch.linalg.norm(warm["grad"] - st["grad"]) / torch.linalg.norm(st["grad"]))
+    say(f"  f32 K3 step: loss {st['loss']:.8f}, forward {st['fwd_s']:.3f} s (CG iterations {st['fwd_iters']}), "
+        f"grad {st['grad'].tolist()}; bf16(K) moves the loss by {rel:.2e} and the gradient by {err:.2e} "
+        f"of its norm (reported, not held)")
+    torch.cuda.empty_cache()
+
+    # (e) a solve under the default settings (pivoted rank 15) to 1e-4, its
+    # residual taken on the cached operator itself
+    with settings.max_cholesky_size(0), settings.cg_tolerance(1e-4), settings.verbose_linalg(True), \
+            torch.no_grad():
+        reset_counts()
+        cg.counts.clear()
+        K = cached_operator(model, rbf_fused_closure)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sol = lo.solve(K, y[:, None])
+        torch.cuda.synchronize()
+        solve_s, solve_counts, solve_iters = time.perf_counter() - t0, counts(), list(cg.counts)
+        apply = rbf_fused_closure(x, x, K._linear_op.params, True)
+        resid = float(torch.linalg.norm(apply(sol) + K._diag_op._diagonal()[:, None] * sol - y[:, None])
+                      / torch.linalg.norm(y))
+        del K, apply
+    say(f"  default-settings solve, cg_tolerance 1e-4: {solve_s:.3f} s, CG iterations {solve_iters} "
+        f"(of at most {settings.max_cg_iterations.value()}), launches {solve_counts}, "
+        f"|(bf16(K) + noise I) x - y| / |y| = {resid:.2e}")
+    if not (torch.isfinite(sol).all() and resid <= 1e-3):
+        fail("the default-settings solve on the cache missed its 1e-3 residual")
+    if not (solve_iters and max(solve_iters) < settings.max_cg_iterations.value()):
+        fail("CG did not converge before max_cg_iterations")
+    if solve_counts["K4"] != 1 or solve_counts["K5"] != sum(solve_iters):
+        fail("the solve did not run one K4 launch and one K5 launch per CG iteration")
+
+    # (f) three Adam steps on the cached path, each with fresh probes
+    opt = torch.optim.Adam(model.parameters(), lr=0.05)
+    start = torch.stack([getattr(model, name).detach().clone() for name in raw])
+    for k in range(3):
+        st = train_step(model, 100 + k, loss_fn=cached_loss(rbf_fused_closure))
+        opt.step()
+        now = torch.stack([getattr(model, name).detach() for name in raw])
+        say(f"  cached Adam step {k}: loss {st['loss']:.8f}, (raw_lengthscale, raw_outputscale, raw_noise) "
+            f"{now.tolist()}, step {st['fwd_s'] + st['bwd_s']:.3f} s")
+        if not (math.isfinite(st["loss"]) and torch.isfinite(now).all()):
+            fail("a cached Adam step gave a non-finite loss or parameter")
+    if not bool((now != start).all()):
+        fail("the cached Adam steps did not move every parameter")
+
     # 7. the kernels line, then the result
     kernels = []
     for key, name, source, replaces in [
@@ -472,6 +817,10 @@ def main() -> None:
          "linear_operator_tpu/ops/rbf.py:432"),
         ("K2", "kernel_weighted", "linear_operator_tpu_torch/csrc/kernel_weighted.cu",
          "linear_operator_tpu/ops/rbf.py:305"),
+        ("K4", "rbf_build_sym_tiles", "linear_operator_tpu_torch/csrc/kernel_build_sym.cu",
+         "linear_operator_tpu/ops/rbf.py:513"),
+        ("K5", "rbf_matvec_sym_cached", "linear_operator_tpu_torch/csrc/kernel_matvec_cached.cu",
+         "linear_operator_tpu/ops/rbf.py:585"),
     ]:
         if launches[key] == 0:
             fail(f"{name} was never launched on the main path")

@@ -1,8 +1,9 @@
 // Stationary covariances k(d2) of inputs pre-scaled by the lengthscale, and
 // their derivatives dk/d(d2), shared by the K1 (kernel_matvec.cu), K3
-// (kernel_matvec_sym.cu) and K2 (kernel_weighted.cu) kernels.  The formulas,
-// and the sqrt(d2 + 1e-30) convention of the Matern kernels, are those of
-// ops/rbf.py's plain versions (TILE_COVARS).
+// (kernel_matvec_sym.cu), K2 (kernel_weighted.cu), K4 (kernel_build_sym.cu) and
+// K5 (kernel_matvec_cached.cu) kernels.  The formulas, and the
+// sqrt(d2 + 1e-30) convention of the Matern kernels, are those of ops/rbf.py's
+// plain versions (TILE_COVARS).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -275,6 +275,18 @@ class LinearOperator:
     # Indexing
     # ------------------------------------------------------------------
 
+    def pivoted_cholesky(self, rank: int, error_tol: float | None = None, return_pivots: bool = False):
+        """Partial pivoted Cholesky factor L (*b, n, rank), and the pivots
+        with ``return_pivots`` (see ``functions.pivoted_cholesky``)."""
+        from ..functions import pivoted_cholesky
+
+        return pivoted_cholesky(self, rank, error_tol=error_tol, return_pivots=return_pivots)
+
+    def _get_indices(self, row_index, col_index, *batch_indices) -> torch.Tensor:
+        """K[*batch_indices, row_index, col_index] elementwise over broadcast
+        index tensors (dense fallback; structured subclasses override)."""
+        return self.to_dense()[(*batch_indices, row_index, col_index)]
+
     def _select_cols(self, idx: torch.Tensor) -> "LinearOperator":
         """K[..., :, idx] (dense fallback; structured subclasses override)."""
         from .dense import DenseLinearOperator

@@ -3,8 +3,9 @@ linear_operator_tpu/operators/added_diag.py).
 
 The preconditioner is P = L L^T + D with L a rank-k factor of K, applied by
 the Woodbury identity, with log det P from the matrix determinant lemma.
-Only the Nystrom construction ("nystrom" and "auto" modes) is ported; the
-greedy pivoted Cholesky of the default "pivoted" mode is not.
+L is the greedy pivoted Cholesky factor (``solvers/pivoted_cholesky.py``) in
+the default "pivoted" mode, or a Nystrom factor in the "nystrom" and "auto"
+modes.
 """
 
 from __future__ import annotations
@@ -98,12 +99,9 @@ class AddedDiagLinearOperator(SumLinearOperator):
             return nystrom_factor(self._linear_op, rank=rank)
         if mode == "nystrom":
             return nystrom_factor(self._linear_op, rank=k)
-        raise NotImplementedError(
-            f"preconditioner_mode({mode!r}) needs the greedy pivoted Cholesky of "
-            "linear_operator_tpu/solvers/pivoted_cholesky.py, which a later "
-            "slice of the port brings; use preconditioner_mode('auto') or "
-            "('nystrom')"
-        )
+        from ..functions import pivoted_cholesky
+
+        return pivoted_cholesky(self._linear_op, rank=k)
 
     def _preconditioner(self):
         """(closure, precond_op, logdet_p), or (None, None, None) when gated

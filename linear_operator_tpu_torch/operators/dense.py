@@ -32,5 +32,8 @@ class DenseLinearOperator(LinearOperator):
     def to_dense(self) -> torch.Tensor:
         return self.tensor
 
+    def _get_indices(self, row_index, col_index, *batch_indices) -> torch.Tensor:
+        return self.tensor[(*batch_indices, row_index, col_index)]
+
     def _select_cols(self, idx) -> "DenseLinearOperator":
         return DenseLinearOperator(self.tensor[..., :, idx])

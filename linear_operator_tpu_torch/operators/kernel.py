@@ -6,7 +6,10 @@ at scale (counterpart of linear_operator_tpu/operators/kernel.py).
 kernels of ``ops/rbf.py`` (:func:`fused_covar_matvec`), which never form a
 kernel block in device memory.  ``_bilinear_derivative`` follows: one sweep
 of blocks, each differentiated inside the sweep, or autograd through the
-fused kernels, whose backward is K2.
+fused kernels, whose backward is K2.  ``_matmul_closure`` is the per-solve
+cache: a ``matvec_closure_impl`` (:func:`rbf_fused_closure`, the bf16 tile
+cache of K4 and K5) if one applies, else the dense f32 matrix if it fits,
+else streaming.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from ..ops.rbf import (
     TILE_COVARS,
     kernel_matvec,
     kernel_matvec_sym,
+    rbf_build_sym_tiles,
+    rbf_matvec_sym_cached,
     sq_dist as _sq_dist,
     sym_matvec_supported,
 )
@@ -40,6 +45,7 @@ class KernelLinearOperator(LinearOperator):
         symmetric: bool = False,
         matvec_impl: Callable | None = None,
         materialize_threshold: int | None = 2**30,
+        matvec_closure_impl: Callable | None = None,
     ):
         self.x1 = x1
         self.x2 = x2
@@ -53,24 +59,36 @@ class KernelLinearOperator(LinearOperator):
         # byte budget of the per-solve dense f32 K cache (_matmul_closure);
         # None disables it
         self.materialize_threshold = materialize_threshold
+        # matvec_closure_impl(x1, x2, params, symmetric) -> closure or None: a
+        # per-solve closure builder (rbf_fused_closure builds the bf16 tile
+        # cache once and streams it every iteration); None falls through to
+        # the dense f32 cache and streaming
+        self.matvec_closure_impl = matvec_closure_impl
 
-    def _shape(self) -> tuple[int, ...]:
+    def _batch_shape(self) -> tuple[int, ...]:
         # a hyperparameter's dims beyond its last two are batch dims
         param_batches = [tuple(p.shape[: max(0, p.ndim - 2)]) for p in self.params.values()]
-        batch = broadcast_shapes(self.x1.shape[:-2], self.x2.shape[:-2], *param_batches)
-        return (*batch, self.x1.shape[-2], self.x2.shape[-2])
+        return broadcast_shapes(self.x1.shape[:-2], self.x2.shape[:-2], *param_batches)
+
+    def _shape(self) -> tuple[int, ...]:
+        return (*self._batch_shape(), self.x1.shape[-2], self.x2.shape[-2])
 
     def _transpose(self) -> "KernelLinearOperator":
         return self._replace(x1=self.x2, x2=self.x1)
 
     def _matmul_closure(self):
-        """Per-solve K cache: when the f32 kernel matrix fits
-        ``materialize_threshold`` bytes, form it once and let every solver
-        iteration multiply by it; otherwise every iteration re-forms K
-        (streamed by ``_matmul``).  ``settings.memory_efficient`` turns the
-        cache off."""
+        """Per-solve K cache.  A ``matvec_closure_impl`` goes first (it gates
+        itself, and returns None where it does not apply); then, when the f32
+        kernel matrix fits ``materialize_threshold`` bytes, it is formed once
+        and every solver iteration multiplies by it; otherwise every iteration
+        re-forms K (streamed by ``_matmul``).  ``settings.memory_efficient``
+        turns both caches off."""
         if settings.memory_efficient.on():
             return self._matmul
+        if self.matvec_closure_impl is not None:
+            closure = self.matvec_closure_impl(self.x1, self.x2, self.params, self.symmetric)
+            if closure is not None:
+                return closure
         thr = self.materialize_threshold
         if thr is not None and math.prod(self.shape) * 4 <= thr:
             kd = self.to_dense().to(torch.float32)
@@ -135,17 +153,45 @@ class KernelLinearOperator(LinearOperator):
         return tuple(sums)
 
     def _diagonal(self) -> torch.Tensor:
-        # n shoved into a batch dim: the covariance of each point with itself
-        vals = self.covar_func(self.x1[..., :, None, :], self.x2[..., :, None, :], **self.params)
+        # n shoved into a batch dim: the covariance of each point with itself;
+        # a batched hyperparameter gains the n singleton before its last two dims
+        params = {k: v.unsqueeze(-3) if v.ndim > 2 else v for k, v in self.params.items()}
+        vals = self.covar_func(self.x1[..., :, None, :], self.x2[..., :, None, :], **params)
         return vals[..., 0, 0]
 
     def to_dense(self) -> torch.Tensor:
         return self.covar_func(self.x1, self.x2, **self.params)
 
+    def _index_param(self, val: torch.Tensor, batch_indices) -> torch.Tensor:
+        """val[*batch_indices, ...] with the hyperparameter broadcast to the
+        operator's batch shape first; its last two dims (or fewer) are not
+        batch dims and stay whole."""
+        if not batch_indices:
+            return val
+        nonbatch = tuple(val.shape[max(0, val.ndim - 2) :])
+        val = val.expand(*self._batch_shape(), *nonbatch)
+        return val[(*batch_indices, *([slice(None)] * len(nonbatch)))]
+
+    def _get_indices(self, row_index, col_index, *batch_indices) -> torch.Tensor:
+        """k(x1[i], x2[j]) elementwise over broadcast index tensors: the
+        pointwise evaluation pivoted Cholesky gathers its columns with."""
+        x1, x2 = self.x1, self.x2
+        if batch_indices:
+            batch = self._batch_shape()
+            x1 = x1.expand(*batch, *x1.shape[-2:])
+            x2 = x2.expand(*batch, *x2.shape[-2:])
+        x1 = x1[(*batch_indices, row_index, slice(None))]  # (*idx, d)
+        x2 = x2[(*batch_indices, col_index, slice(None))]
+        params = {name: self._index_param(val, batch_indices) for name, val in self.params.items()}
+        return self.covar_func(x1[..., None, :], x2[..., None, :], **params)[..., 0, 0]
+
     def _select_cols(self, idx) -> "KernelLinearOperator":
         """K[..., :, idx] stays a lazy kernel operator on the gathered points,
-        on the blocked path (the fused kernels take whole operators only)."""
-        return self._replace(x2=self.x2[..., idx, :], symmetric=False, matvec_impl=None)
+        on the blocked path (the fused kernels and the per-solve closure
+        builder take whole operators only)."""
+        return self._replace(
+            x2=self.x2[..., idx, :], symmetric=False, matvec_impl=None, matvec_closure_impl=None
+        )
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +256,62 @@ def fused_covar_matvec(covar: str, x1, x2, rhs, params, *, symmetric: bool = Fal
 
 def rbf_fused_matvec(x1, x2, rhs, params, *, symmetric: bool = False):
     return fused_covar_matvec("rbf", x1, x2, rhs, params, symmetric=symmetric)
+
+
+# Device-memory budget of the bf16 upper-triangle tile cache; tiles are
+# (tile, tile) bf16.  Below _RBF_CACHE_MIN_N points the dense f32 cache serves.
+RBF_TILE_CACHE_BUDGET = 11 * 2**30
+_RBF_TILE = 1024
+_RBF_CACHE_MIN_N = 24_576
+
+
+def _tile_cache_device(x: torch.Tensor) -> bool:
+    """Whether K4 and K5 can run on x: it lies on a CUDA device."""
+    return x.device.type == "cuda"
+
+
+def rbf_fused_closure(x1, x2, params, symmetric: bool):
+    """Per-solve closure builder for large symmetric RBF kernels (the JAX
+    package's ``rbf_pallas_closure``): K4 builds the bf16 upper-triangle tile
+    cache once (one exp sweep over n^2 / 2 entries), and every CG or Lanczos
+    iteration then streams the stored tiles through K5.
+
+    Opt-in, as in the JAX package: the cached operator is bf16(K), whose
+    elementwise rounding has a spectral norm of about 2 * 2^-9 * rms(K) *
+    sqrt(n) (~0.16 at n = 1e5 and the default lengthscale).  Where that
+    exceeds the noise diagonal, bf16(K) + D is indefinite and CG diverges; the
+    cache serves noise floors well above it (sigma^2 = 1 at n = 1e5).
+
+    Returns None (the caller falls back to the dense cache or streaming) when
+    the operator is not symmetric or is batched, when n < _RBF_CACHE_MIN_N,
+    when the cache would exceed RBF_TILE_CACHE_BUDGET, or when the kernels
+    cannot run: x1 is not on a CUDA device (the port's counterpart of the JAX
+    package's ``_use_interpret()``).  The JAX package also declines under a
+    device mesh; that gate waits for the port's ``parallel/``.
+
+    x is detached before K4 (the JAX package's ``stop_gradient``), so
+    gradients flow through the operator's ``_bilinear_derivative`` (K2 and
+    K3).  A batched or wider than 16-column rhs streams through
+    :func:`rbf_fused_matvec` instead."""
+    n = x1.shape[-2]
+    if not symmetric or x1.ndim != 2 or n < _RBF_CACHE_MIN_N:
+        return None
+    if not _tile_cache_device(x1):
+        return None
+    nblk = -(-n // _RBF_TILE)
+    if nblk * (nblk + 1) // 2 * _RBF_TILE * _RBF_TILE * 2 > RBF_TILE_CACHE_BUDGET:
+        return None
+
+    xs = (x1 / params["lengthscale"]).to(torch.float32).detach().contiguous()
+    tiles = rbf_build_sym_tiles(xs, _RBF_TILE)
+
+    def closure(rhs: torch.Tensor) -> torch.Tensor:
+        if rhs.ndim != 2 or not sym_matvec_supported(rhs.shape[-1]):
+            return rbf_fused_matvec(x1, x2, rhs, params, symmetric=symmetric)
+        out = rbf_matvec_sym_cached(tiles, rhs.to(torch.float32).contiguous(), n, _RBF_TILE, passes=2)
+        return (params["outputscale"] * out).to(rhs.dtype)
+
+    return closure
 
 
 def rbf_kernel_operator(

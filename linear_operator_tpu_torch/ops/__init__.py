@@ -5,6 +5,10 @@ from .rbf import (
     kernel_matvec_sym,
     kernel_weighted,
     kernel_weighted_plain,
+    rbf_build_sym_tiles,
+    rbf_build_sym_tiles_plain,
+    rbf_matvec_sym_cached,
+    rbf_matvec_sym_cached_plain,
     rq_tile_covar,
     sym_matvec_supported,
 )
@@ -16,6 +20,10 @@ __all__ = [
     "kernel_matvec_sym",
     "kernel_weighted",
     "kernel_weighted_plain",
+    "rbf_build_sym_tiles",
+    "rbf_build_sym_tiles_plain",
+    "rbf_matvec_sym_cached",
+    "rbf_matvec_sym_cached_plain",
     "rq_tile_covar",
     "sym_matvec_supported",
 ]

@@ -1,8 +1,8 @@
 """Fused stationary-kernel mat-vecs and their backward, written by hand in
 CUDA for Hopper.
 
-PyTorch counterpart of ``linear_operator_tpu/ops/rbf.py``.  Three kernels,
-none of which stores the kernel matrix:
+PyTorch counterpart of ``linear_operator_tpu/ops/rbf.py``.  Three kernels
+that never store the kernel matrix:
 
 * K1 :func:`kernel_matvec`, y = k(|x1_i - x2_j|^2) v, rectangular
   (``csrc/kernel_matvec.cu``), which replaces the Pallas kernel
@@ -13,7 +13,15 @@ none of which stores the kernel matrix:
 * K2 :func:`kernel_weighted`, W = k'(|x1_i - x2_j|^2) o (g v^T) reduced to
   W @ x2 and rowsum(W) (``csrc/kernel_weighted.cu``), which replaces
   ``_pallas_weighted``: the chain rule through the squared distance, which
-  gives K1 and K3 their x-gradients.
+  gives K1 and K3 their x-gradients;
+
+and the two of the bf16 tile cache, which stores its upper triangle once per
+solve:
+
+* K4 :func:`rbf_build_sym_tiles` (``csrc/kernel_build_sym.cu``), the bf16
+  upper-triangle tiles, which replaces ``rbf_build_sym_tiles``;
+* K5 :func:`rbf_matvec_sym_cached` (``csrc/kernel_matvec_cached.cu``),
+  bf16(K) v from those tiles, which replaces ``rbf_matvec_sym_cached``.
 
 Inputs are pre-scaled by the lengthscale and the result is scaled by the
 outputscale outside the kernels, in PyTorch.  ``covar`` names a
@@ -407,3 +415,163 @@ def kernel_weighted(x1, x2, g, v, covar: str = "rbf"):
 
 
 kernel_weighted.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The bf16 upper-triangle tile cache (K4 builds it, K5 streams it)
+# ---------------------------------------------------------------------------
+#
+# An iterative solve applies the same K some 20-300 times.  At n = 1e5 the
+# f32 matrix (40 GB) does not fit beside the solver, but its upper triangle in
+# bf16 does (9.47 GiB at tile 1024): K4 forms it once per solve, and every
+# mat-vec after that streams it (K5) instead of forming K again.  The cached
+# operator is exactly bf16(K), a fixed symmetric perturbation of K; v enters in
+# a hi and a lo bf16 part (passes=2), so the product is exact in v to ~2^-17.
+
+CACHE_TILE_EDGE = 128  # K4 and K5 take tiles that are multiples of this
+# f32 entries the plain versions form at a time (512 MiB), so that at n = 1e5
+# they hold a few GiB beside the 9.47 GiB cache
+_PLAIN_CHUNK_ENTRIES = 2**27
+
+
+def _triangle_maps(nblk: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(i, j) of each upper-triangle tile pair, row-major (i outer, j >= i
+    ascending), as int32: the JAX package's ``_triangle_maps`` order."""
+    ij = torch.triu_indices(nblk, nblk, device=device).to(torch.int32)
+    return ij[0].contiguous(), ij[1].contiguous()
+
+
+def _check_tile(tile: int) -> None:
+    if tile < CACHE_TILE_EDGE or tile % CACHE_TILE_EDGE:
+        raise ValueError(f"the tile cache takes tiles that are positive multiples of {CACHE_TILE_EDGE}, got {tile}")
+
+
+def rbf_build_sym_tiles_plain(x, tile: int = 1024, covar: str = "rbf") -> torch.Tensor:
+    """Plain version of K4: bf16 k(sq_dist) on the upper-triangle tile pairs
+    of x zero-padded to whole tiles, (npairs, tile, tile), formed a chunk of
+    tile pairs at a time."""
+    n, d = x.shape
+    nblk = _cdiv(n, tile)
+    xp = torch.zeros((nblk, tile, d), dtype=x.dtype, device=x.device)
+    xp.view(-1, d)[:n] = x
+    im, jm = (m.long() for m in _triangle_maps(nblk, x.device))
+    fn = TILE_COVARS[covar].fn
+    out = torch.empty((len(im), tile, tile), dtype=torch.bfloat16, device=x.device)
+    step = max(1, _PLAIN_CHUNK_ENTRIES // (tile * tile))
+    for s in range(0, len(im), step):
+        sl = slice(s, s + step)
+        out[sl] = fn(sq_dist(xp[im[sl]], xp[jm[sl]])).to(torch.bfloat16)
+    return out
+
+
+def _split_bf16(v: torch.Tensor, passes: int) -> list[torch.Tensor]:
+    """v as f32 values of its bf16 parts: [bf16(v)] or [hi, lo] with
+    hi = bf16(v), lo = bf16(v - hi)."""
+    hi = v.to(torch.bfloat16).float()
+    return [hi] if passes == 1 else [hi, (v - hi).to(torch.bfloat16).float()]
+
+
+def rbf_matvec_sym_cached_plain(tiles, v, n: int, tile: int = 1024, passes: int = 2) -> torch.Tensor:
+    """Plain version of K5: y = bf16(K) v from K4's tiles, v (n, t) f32.
+    Tile (i, j) adds K_ij v_j to block i and, for j > i, K_ij^T v_i to block
+    j; each bf16 part of v is one f32 product, and the parts add.  Tiles are
+    widened to f32 a chunk of tile pairs at a time."""
+    t = v.shape[-1]
+    nblk = _cdiv(n, tile)
+    vp = torch.zeros((nblk * tile, t), dtype=torch.float32, device=v.device)
+    vp[:n] = v
+    parts = [p.view(nblk, tile, t) for p in _split_bf16(vp, passes)]
+    im, jm = (m.long() for m in _triangle_maps(nblk, v.device))
+    out = torch.zeros((nblk, tile, t), dtype=torch.float32, device=v.device)
+    step = max(1, _PLAIN_CHUNK_ENTRIES // (tile * tile))
+    with highest_matmul_precision():
+        for s in range(0, len(im), step):
+            sl = slice(s, s + step)
+            k = tiles[sl].float()
+            i, j = im[sl], jm[sl]
+            off = j > i
+            for p in parts:
+                out.index_add_(0, i, torch.bmm(k, p[j]))
+                out.index_add_(0, j[off], torch.bmm(k[off].mT, p[i[off]]))
+    return out.view(-1, t)[:n]
+
+
+def rbf_build_sym_tiles(x, tile: int = 1024, covar: str = "rbf") -> torch.Tensor:
+    """K4: the bf16 upper-triangle tiles of k(|x_i - x_j|^2), (npairs, tile,
+    tile) with npairs = nblk (nblk + 1) / 2 and nblk = ceil(n / tile), in
+    the row-major triangle order of ``_triangle_maps``.
+
+    x (n, d) f32, pre-scaled by the lengthscale, is zero-padded to whole
+    tiles: the padded points give nonzero entries, which K5 multiplies by the
+    zero padding of v."""
+    _check_tile(tile)
+    if not _on_cuda(x):
+        return rbf_build_sym_tiles_plain(x, tile, covar)
+    spec = TILE_COVARS[covar]
+    if x.ndim != 2:
+        raise ValueError(f"K4 takes x of shape (n, d), got {tuple(x.shape)}")
+    n, d = x.shape
+    _check_kernel_inputs((x,), d)
+    nblk = _cdiv(n, tile)
+    npairs = nblk * (nblk + 1) // 2
+    if npairs * (tile // CACHE_TILE_EDGE) ** 2 >= 2**31:
+        raise ValueError(f"K4 takes fewer than 2^31 sub-blocks of 128 x 128, got n={n}, tile={tile}")
+    im, jm = _triangle_maps(nblk, x.device)
+    out = torch.empty((npairs, tile, tile), dtype=torch.bfloat16, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _launch(
+        "kernel_build_sym", "kernel_build_sym_tiles",
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+        x.data_ptr(), im.data_ptr(), jm.data_ptr(), out.data_ptr(),
+        n, d, tile, npairs, spec.covar_id, spec.alpha, stream,
+    )
+    rbf_build_sym_tiles.launches += 1
+    return out
+
+
+rbf_build_sym_tiles.launches = 0
+
+
+def rbf_matvec_sym_cached(tiles, v, n: int, tile: int = 1024, passes: int = 2) -> torch.Tensor:
+    """K5: y = bf16(K) v from the tiles of :func:`rbf_build_sym_tiles`.
+
+    v (n, t) f32 with 1 <= t <= SYM_MAX_COLUMNS -> (n, t) f32.  ``passes``
+    2 multiplies by the hi and lo bf16 parts of v (exact in v to ~2^-17), 1
+    by bf16(v) alone."""
+    _check_tile(tile)
+    if passes not in (1, 2):
+        raise ValueError(f"passes is 1 or 2, got {passes}")
+    nblk = _cdiv(n, tile)
+    npairs = nblk * (nblk + 1) // 2
+    if tuple(tiles.shape) != (npairs, tile, tile) or v.ndim != 2 or v.shape[0] != n:
+        raise ValueError(
+            f"shape mismatch: tiles {tuple(tiles.shape)}, v {tuple(v.shape)} for n={n}, tile={tile} "
+            f"({npairs} tile pairs)"
+        )
+    t = v.shape[1]
+    if not sym_matvec_supported(t):
+        raise ValueError(f"K5 takes 1..{SYM_MAX_COLUMNS} rhs columns, got {t}")
+    if not _on_cuda(tiles, v):
+        return rbf_matvec_sym_cached_plain(tiles, v, n, tile, passes)
+    if tiles.dtype != torch.bfloat16:
+        raise TypeError(f"K5 takes bfloat16 tiles, got {tiles.dtype}")
+    if v.dtype != torch.float32:
+        raise TypeError(f"the kernels take float32, got {v.dtype}")
+    if not (tiles.is_contiguous() and v.is_contiguous()):
+        raise ValueError("the kernels take contiguous tensors")
+    if npairs * (tile // CACHE_TILE_EDGE) >= 2**31:
+        raise ValueError(f"K5 takes fewer than 2^31 row strips, got n={n}, tile={tile}")
+    im, jm = _triangle_maps(nblk, v.device)
+    out_t = torch.zeros((t, n), dtype=torch.float32, device=v.device)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    _launch(
+        "kernel_matvec_cached", "kernel_matvec_sym_cached",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        tiles.data_ptr(), im.data_ptr(), jm.data_ptr(), v.data_ptr(), out_t.data_ptr(),
+        n, t, tile, npairs, passes, stream,
+    )
+    rbf_matvec_sym_cached.launches += 1
+    return out_t.mT
+
+
+rbf_matvec_sym_cached.launches = 0

@@ -277,9 +277,10 @@ class max_preconditioner_size(_value_context):
 class preconditioner_mode(_value_context):
     """CG preconditioner construction for AddedDiag operators.
 
-    "pivoted" (default): greedy pivoted Cholesky (not ported yet; see
-    ``operators/added_diag.py``).  "nystrom": uniformly strided Nystrom
-    factor of rank ``max_preconditioner_size``.  "auto": Nystrom with rank
+    "pivoted" (default): greedy pivoted Cholesky of rank
+    ``max_preconditioner_size`` (``solvers/pivoted_cholesky.py``).
+    "nystrom": uniformly strided Nystrom factor of rank
+    ``max_preconditioner_size``.  "auto": Nystrom with rank
     ``clip(n // 64, 50, 400)``, never below ``max_preconditioner_size``.
     """
 

@@ -1,0 +1,211 @@
+"""Batched greedy pivoted (partial) Cholesky (counterpart of
+linear_operator_tpu/solvers/pivoted_cholesky.py).
+
+Everything stays in the original index order and the pivots are tracked
+implicitly: each step argmaxes the residual diagonal on the device, gathers
+that column through the operator's ``_get_indices`` (a kernel operator
+evaluates k(X, x_pivot) and stores nothing), and writes one row of L.
+
+The strict variant runs a fixed ``rank`` steps and never reads a value back
+to the host: a batch element that has converged (trace tolerance, or a
+residual pivot <= 1e-12) writes a zero row and records pivot -1, as the JAX
+package's ``fori_loop`` does.  It is differentiable through autograd, with
+the argmax pivots as constants.  The blocked variant is forward-only.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import settings
+from ..utils.cholesky import highest_matmul_precision
+
+
+def pivoted_cholesky(op, rank: int, error_tol: float | None = None, block_size: int | None = None):
+    """L (*b, n, rank) with L L^T ~= K, by greedy trace pivoting.
+
+    ``block_size`` (default ``settings.pivoted_cholesky_block_size``) > 1
+    takes the blocked sweep of :func:`_blocked_pivoted_cholesky`, which is
+    forward-only; otherwise the strict greedy of
+    :func:`pivoted_cholesky_with_pivots`."""
+    if block_size is None:
+        block_size = settings.pivoted_cholesky_block_size.value()
+    if block_size and block_size > 1 and rank > block_size:
+        return _forward_only(op, lambda: _blocked_pivoted_cholesky(op, rank, error_tol, block_size))
+    L, _ = pivoted_cholesky_with_pivots(op, rank, error_tol)
+    return L
+
+
+_FORWARD_ONLY_MESSAGE = (
+    "The blocked pivoted Cholesky sweep "
+    "(settings.pivoted_cholesky_block_size) is forward-only: its adaptive "
+    "while_loop is not reverse-differentiable, and its pivot order differs "
+    "from the reference. Unset pivoted_cholesky_block_size (or pass "
+    "block_size=None) to differentiate through pivoted_cholesky."
+)
+
+
+class _ForwardOnly(torch.autograd.Function):
+    """Runs ``build`` without autograd; the result carries the operator's
+    tensors as inputs, so that a backward through it raises instead of
+    silently returning no gradient."""
+
+    @staticmethod
+    def forward(ctx, build, *leaves):
+        return build()
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(_FORWARD_ONLY_MESSAGE)
+
+
+def _forward_only(op, build):
+    return _ForwardOnly.apply(build, *op._leaves())
+
+
+def pivoted_cholesky_with_pivots(op, rank: int, error_tol: float | None = None):
+    """(L (*b, n, rank), pivots (*b, rank)); pivot -1 marks a step taken
+    after the element converged."""
+    if error_tol is None:
+        error_tol = settings.preconditioner_tolerance.value()
+    settings.record_linalg("pivoted_cholesky", op.shape)
+
+    d = op._diagonal()  # (*b, n)
+    batch = d.shape[:-1]
+    n = d.shape[-1]
+    rank = min(rank, n)
+    dtype = torch.promote_types(d.dtype, torch.float32)
+    d = d.to(dtype)
+    device = d.device
+
+    row = torch.arange(n, device=device).expand(*batch, n)
+    # broadcastable batch index arrays, each expanded to (*batch, n)
+    batch_idx = []
+    for i, b in enumerate(batch):
+        shape = [1] * (len(batch) + 1)
+        shape[i] = b
+        batch_idx.append(torch.arange(b, device=device).reshape(shape).expand(*batch, n))
+
+    tol_total = error_tol * torch.sum(d, dim=-1)  # (*b,)
+    rows, pivots = [], []
+    for _ in range(rank):
+        pivot = torch.argmax(d.detach(), dim=-1)  # (*b,)
+        dp = torch.take_along_dim(d, pivot[..., None], dim=-1)[..., 0]
+        active = (torch.sum(torch.clamp_min(d, 0.0), dim=-1) > tol_total) & (dp > 1e-12)
+
+        col = op._get_indices(row, pivot[..., None].expand(*batch, n), *batch_idx).to(dtype)
+        if rows:
+            L = torch.stack(rows, dim=-2)  # (*b, i, n)
+            Lp = torch.take_along_dim(L, pivot[..., None, None], dim=-1)[..., 0]  # (*b, i)
+            # full precision: the downdate accumulates over rank steps
+            with highest_matmul_precision():
+                col = col - torch.einsum("...kn,...k->...n", L, Lp)
+        li = col / torch.sqrt(torch.clamp_min(dp, 1e-30))[..., None]
+        li = torch.where(active[..., None], li, 0.0)
+
+        d = d - li * li
+        # bury the chosen pivot so that it is never selected again
+        d = torch.where(torch.arange(n, device=device) == pivot[..., None], -torch.inf, d)
+        rows.append(li)
+        pivots.append(torch.where(active, pivot, -1))
+
+    if rows:
+        L = torch.stack(rows, dim=-1)
+        piv = torch.stack(pivots, dim=-1).to(torch.int32)
+    else:
+        L = d.new_zeros((*batch, n, 0))
+        piv = torch.zeros((*batch, 0), dtype=torch.int32, device=device)
+    return L.to(op.dtype), piv
+
+
+def _blocked_pivoted_cholesky(op, rank: int, error_tol: float | None, bs: int, threshold: float = 0.5):
+    """Adaptive blocked greedy partial Cholesky (the JAX package's
+    ``_blocked_pivoted_cholesky``), forward only.
+
+    Each sweep takes the top ``2 bs`` residual-diagonal entries as a pool,
+    gathers their columns in one ``_get_indices`` call, runs the exact greedy
+    recursion on the pool's small residual Gram (accepting a pivot while its
+    residual is >= ``threshold`` x the pool's largest), and writes all
+    accepted rows at once from one triangular solve.  The sweep loop runs on
+    the host and reads one flag (and the row count) per sweep; the in-pool
+    steps stay on the device.  Batched operators fall back to strict greedy."""
+    d = op._diagonal()
+    if d.ndim > 1:
+        L, _ = pivoted_cholesky_with_pivots(op, rank, error_tol)
+        return L
+    if error_tol is None:
+        error_tol = settings.preconditioner_tolerance.value()
+    settings.record_linalg("pivoted_cholesky_blocked", op.shape, (bs,))
+
+    n = d.shape[-1]
+    rank = min(rank, n)
+    bs = min(bs, rank)
+    nc = min(2 * bs, n)  # candidate pool per sweep
+    dtype = torch.promote_types(d.dtype, torch.float32)
+    d = d.to(dtype).clone()
+    device = d.device
+
+    tol_total = error_tol * torch.sum(d)
+    # the factor is padded by one block so that a sweep's row write never clips
+    L = torch.zeros((rank + bs, n), dtype=dtype, device=device)
+    row_idx = torch.arange(n, device=device)
+    slots = torch.arange(bs, device=device)
+    count = torch.zeros((), dtype=torch.int64, device=device)
+    sweep = 0
+    while sweep < rank:
+        go, count_h = torch.stack([
+            ((torch.max(d) > 1e-12) & (torch.sum(torch.clamp_min(d, 0.0)) > tol_total)).to(torch.int64),
+            count,
+        ]).tolist()
+        if not go or count_h >= rank:
+            break
+        # top nc with ties in index order, as lax.top_k takes them (a
+        # stationary kernel's diagonal is all ties)
+        cand = torch.sort(d, descending=True, stable=True).indices[:nc]
+
+        C = op._get_indices(row_idx[:, None].expand(n, nc), cand[None, :].expand(n, nc)).to(dtype)
+        with highest_matmul_precision():
+            C = C - torch.einsum("kn,kc->nc", L, L[:, cand])
+        S = C[cand, :]  # (nc, nc) residual Gram of the pool
+        # the pool's residual diagonal and the sweep's scale come from the
+        # fresh panel, and the tracked diagonal is synced to it (see the JAX
+        # package's notes: stale tracked values can stall a sweep)
+        dS = torch.diagonal(S).clone()
+        d_global = torch.max(dS)
+        d[cand] = dS
+
+        T = torch.zeros((bs, nc), dtype=dtype, device=device)
+        sel = torch.full((bs,), -1, dtype=torch.int64, device=device)
+        k = torch.zeros((), dtype=torch.int64, device=device)
+        pool = torch.arange(nc, device=device)
+        for _ in range(bs):
+            c_rel = torch.argmax(dS)
+            dp = dS[c_rel]
+            accept = (count + k < rank) & (dp > 1e-12) & (dp >= threshold * d_global)
+            trow = torch.where(accept, S[c_rel, :] / torch.sqrt(torch.clamp_min(dp, 1e-30)), 0.0)
+            S = S - trow[:, None] * trow[None, :]
+            dS = dS - trow * trow
+            dS = torch.where(accept & (pool == c_rel), -torch.inf, dS)
+            # slot k holds zeros until accepted, so the masked write is a no-op
+            T = T.index_copy(0, torch.clamp_max(k, bs - 1)[None], trow[None, :])
+            sel = torch.where(accept & (slots == k), c_rel, sel)
+            k = k + accept.to(k.dtype)
+        valid = sel >= 0
+        sel_c = torch.where(valid, sel, 0)
+
+        # left-looking row formation: X M = G with M = triu(T[:, sel]); unused
+        # slots get a unit diagonal and zero columns, so their rows are zero
+        M = torch.triu(T[:, sel_c])
+        M = torch.where(valid[None, :], M, 0.0) + torch.diag(torch.where(valid, 0.0, 1.0).to(dtype))
+        G = torch.where(valid[None, :], C[:, sel_c], 0.0)  # (n, bs)
+        P = torch.linalg.solve_triangular(M.mT, G.mT, upper=False)  # (bs, n)
+
+        d = d - torch.sum(P * P, dim=0)
+        # bury the accepted pivots; unused slots point past the end, dropped
+        p_abs = torch.where(valid, cand[sel_c], n)
+        d = torch.cat([d, d.new_zeros(1)]).index_fill(0, p_abs, -torch.inf)[:n]
+
+        L[count_h : count_h + bs] = P
+        count = count + k
+        sweep += 1
+    return L[:rank].mT.to(op.dtype)

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1, K2, K3) and their backwards against their
-plain PyTorch versions, on the card.
+"""The port's CUDA kernels (K1-K5) and the backwards of K1 and K3 against
+their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and skips without one.  The file imports
 neither JAX nor the JAX package, so it runs on a machine that has only
@@ -11,6 +11,11 @@ PyTorch; there, from the repository root:
 relative to the largest entry of the plain result: both sides are f32 sums
 of up to n terms in different orders, so they agree to ~sqrt(n) eps of that
 scale; rtol 1e-4 leaves a wide margin and a wrong kernel misses it by orders.
+K4's bf16 tiles are held entry by entry: at most one bf16 ulp apart, and at
+least 99.9% bit-identical (CUDA's expf and torch's exp may differ by an f32
+ulp, which now and then crosses a bf16 rounding boundary).  K5 is compared
+with its plain version on K4's own tiles, so that it sees only summation
+order.
 """
 
 import numpy as np
@@ -203,3 +208,92 @@ def test_training_step_fused_matches_plain(cuda):
     assert torch.isfinite(grads[0]).all()
     err = float(torch.linalg.norm(grads[0] - grads[1]))
     assert err <= 1e-3 * float(torch.linalg.norm(grads[1])), (grads, err)
+
+
+def _tiles_close(got, want):
+    """K4's tiles: <= 1 bf16 ulp per entry, >= 99.9% bit-identical."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    diff = (got.view(torch.int16).int() - want.view(torch.int16).int()).abs()
+    assert int(diff.max()) <= 1, int(diff.max())
+    assert float((diff == 0).float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, tile", [(1000, 128), (3000, 1024)])
+@pytest.mark.parametrize("d", [3, 16])
+@pytest.mark.parametrize("covar", COVARS)
+def test_k4_k5_match_plain(cuda, covar, d, n, tile):
+    """K4 for each covariance, and K5 on K4's tiles for t in {1, 11, 16} and
+    both passes; n is ragged against the tile."""
+    (x,) = _data(cuda, 17, (n, d))
+    x = x / np.sqrt(d)
+    tiles = rbf.rbf_build_sym_tiles(x, tile, _name(covar))
+    _tiles_close(tiles, rbf.rbf_build_sym_tiles_plain(x, tile, _name(covar)))
+    for t in (1, 11, 16):
+        (v,) = _data(cuda, 18 + t, (n, t))
+        for passes in (1, 2):
+            _close(rbf.rbf_matvec_sym_cached(tiles, v, n, tile, passes),
+                   rbf.rbf_matvec_sym_cached_plain(tiles, v, n, tile, passes))
+
+
+@pytest.mark.cuda
+def test_k4_k5_past_32_bit_offsets(cuda):
+    """n = 64,600, tile 1024: 2080 tile pairs, 2.18e9 entries, so the last
+    tiles sit past 2^31 elements of the cache."""
+    n, tile = 64_600, 1024
+    x, v = _data(cuda, 30, (n, 3), (n, 11))
+    tiles = rbf.rbf_build_sym_tiles(x, tile)
+    assert tiles.numel() > 2**31
+    want = rbf.rbf_build_sym_tiles_plain(x, tile)
+    _tiles_close(tiles[-64:], want[-64:])
+    _tiles_close(tiles, want)
+    del want
+    _close(rbf.rbf_matvec_sym_cached(tiles, v, n, tile), rbf.rbf_matvec_sym_cached_plain(tiles, v, n, tile))
+
+
+@pytest.mark.cuda
+def test_k4_k5_refuse_what_they_do_not_take(cuda):
+    x, v = _data(cuda, 31, (300, 3), (300, 4))
+    with pytest.raises(TypeError, match="float32"):
+        rbf.rbf_build_sym_tiles(x.double(), 128)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        rbf.rbf_build_sym_tiles(x, 96)
+    tiles = rbf.rbf_build_sym_tiles(x, 128)
+    with pytest.raises(TypeError, match="bfloat16"):
+        rbf.rbf_matvec_sym_cached(tiles.float(), v, 300, 128)
+    with pytest.raises(TypeError, match="float32"):
+        rbf.rbf_matvec_sym_cached(tiles, v.double(), 300, 128)
+    with pytest.raises(ValueError, match="contiguous"):
+        rbf.rbf_matvec_sym_cached(tiles, v.mT.contiguous().mT, 300, 128)
+    with pytest.raises(ValueError, match="columns"):
+        rbf.rbf_matvec_sym_cached(tiles, torch.zeros(300, 17, device=cuda), 300, 128)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        rbf.rbf_matvec_sym_cached(tiles, v, 300, 256)
+    with pytest.raises(ValueError, match="CUDA"):
+        rbf.rbf_matvec_sym_cached(tiles, v.cpu(), 300, 128)
+
+
+@pytest.mark.cuda
+def test_tile_cache_operator_on_the_card(cuda):
+    """rbf_fused_closure on the card: one K4 launch per closure, one K5 launch
+    per narrow mat-vec, K1 for a wide one; bf16(K) v is ~2^-9 from K v."""
+    from linear_operator_tpu_torch.operators import kernel as tkernel
+
+    n = tkernel._RBF_CACHE_MIN_N
+    x, v, w = _data(cuda, 32, (n, 3), (n, 11), (n, 20))
+    op = tkernel.KernelLinearOperator(
+        x, x, {"lengthscale": torch.tensor(0.8, device=cuda), "outputscale": torch.tensor(1.3, device=cuda)},
+        covar_func=tkernel.rbf_covar, symmetric=True, matvec_impl=tkernel.rbf_fused_matvec,
+        matvec_closure_impl=tkernel.rbf_fused_closure,
+    )
+    counts = (rbf.rbf_build_sym_tiles.launches, rbf.rbf_matvec_sym_cached.launches, rbf.kernel_matvec.launches)
+    closure = op._matmul_closure()
+    cached = closure(v)
+    wide = closure(w)
+    assert (rbf.rbf_build_sym_tiles.launches, rbf.rbf_matvec_sym_cached.launches,
+            rbf.kernel_matvec.launches) == (counts[0] + 1, counts[1] + 1, counts[2] + 1)
+    exact = 1.3 * rbf.kernel_matvec_sym(x / 0.8, v)
+    err = float((cached - exact).abs().max()) / float(exact.abs().max())
+    assert 0 < err <= 2e-2, err
+    _close(wide, 1.3 * rbf.kernel_matvec_plain(x / 0.8, x / 0.8, w))

@@ -500,9 +500,35 @@ def test_softplus_matches_jax_above_torch_threshold():
     np.testing.assert_allclose(_np(_softplus(torch.from_numpy(xs))), _np(want), rtol=1e-14)
 
 
-def test_pivoted_mode_names_the_later_slice():
-    x, y, _ = (torch.from_numpy(a.astype(np.float32)) for a in _gp_data(13, n=64))
-    model = tlo.ExactGPRegression(device="cpu")
-    with _Both(**{**SLICE, "preconditioner_mode": "pivoted"}):
-        with pytest.raises(NotImplementedError, match="pivoted_cholesky.py"):
-            model.neg_mll(x, y, generator=torch.Generator())
+# ---------------------------------------------------------------------------
+# The default preconditioner: rank-15 pivoted Cholesky
+# ---------------------------------------------------------------------------
+
+# n = 2000 reaches the default min_preconditioning_size, so the pivoted factor
+# is built and applied; float64 on the blocked path, as the slice above
+PIVOTED = {**SLICE, "preconditioner_mode": "pivoted", "max_preconditioner_size": 15,
+           "min_preconditioning_size": 2000}
+
+
+def test_neg_mll_and_grads_under_pivoted_preconditioner(same_probes):
+    same_probes(np.float64)
+    x, y, _ = _gp_data(30, n=2000)
+    jmodel, params, tmodel = _models(False, np.float64)
+    with _Both(**PIVOTED):
+        want, jg = jax.jit(jax.value_and_grad(
+            lambda p: jmodel.neg_mll(p, jnp.asarray(x), jnp.asarray(y), key=jax.random.PRNGKey(0))
+        ))(params)
+        loss = tmodel.neg_mll(torch.from_numpy(x), torch.from_numpy(y), generator=torch.Generator())
+        loss.backward()
+    np.testing.assert_allclose(_np(loss), _np(want), rtol=1e-7)
+    _grad_close(_port_grads(tmodel), _jax_grads(jg), 1e-7)
+
+
+def test_posterior_under_pivoted_preconditioner():
+    x, y, x_star = _gp_data(31, n=2000)
+    jmodel, params, tmodel = _models(False, np.float64)
+    with _Both(**PIVOTED):
+        jmean, jvar = jmodel.posterior(params, jnp.asarray(x), jnp.asarray(y), jnp.asarray(x_star))
+        tmean, tvar = tmodel.posterior(*(torch.from_numpy(a) for a in (x, y, x_star)))
+    _close(tmean, jmean, 1e-7)
+    _close(tvar, jvar, 1e-7)

@@ -231,9 +231,11 @@ def test_backward_computes_only_what_is_needed(monkeypatch):
 def test_kernel_sources_hash_into_library_names():
     from linear_operator_tpu_torch import _build
 
-    assert _build.sources() == ["kernel_matvec", "kernel_matvec_sym", "kernel_weighted"]
+    assert _build.sources() == [
+        "kernel_build_sym", "kernel_matvec", "kernel_matvec_cached", "kernel_matvec_sym", "kernel_weighted",
+    ]
     paths = {_build.library_path(name) for name in _build.sources()}
-    assert len(paths) == 3 and all(p.parent == _build.BUILD_DIR for p in paths)
+    assert len(paths) == 5 and all(p.parent == _build.BUILD_DIR for p in paths)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
