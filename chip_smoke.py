@@ -7,9 +7,11 @@ Phases, each reported on its own line:
  1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` gives it;
  2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
  3. hold every kernel (K1, K3, K2) against its plain PyTorch version on the
-    card, for each covariance at small shapes, and the backwards of K1 and K3
-    against autograd through the plain version; then each RBF kernel at the
-    shapes of the main path, timed with CUDA events beside its bound;
+    card, for each covariance at small shapes (K1 and K3 against both plain
+    versions: full precision, and kernel_matvec_acc3_plain, their own 3-pass
+    bf16 arithmetic), and the backwards of K1 and K3 against autograd
+    through the plain version; then each RBF kernel at the shapes of the
+    main path, timed with CUDA events beside its bounds, and K3's symmetry;
     3c. the bf16 tile cache: K4 and K5 against their plain versions for each
     covariance (K5 on K4's own tiles), K5's symmetry, then both at
     N = 100,000, tile 1024, timed beside their bounds;
@@ -21,7 +23,8 @@ Phases, each reported on its own line:
     the card on the same probes;
     5b. neg_mll under the default settings (the rank-15 pivoted-Cholesky
     preconditioner) at the model's initial noise, reported beside the plain
-    path and an f64 run; at noise 1.0 held against the plain path;
+    path and an f64 run, with each f32 path's distance to the f64 one as run
+    and with CG to 1e-2; at noise 1.0 held against the plain path;
  6. the training step on the main path: neg_mll(...).backward() at the same
     size (the backward runs no CG, and must make two K2 launches and one K3
     launch, the bilinear form's own mat-vec), held against the plain path's
@@ -34,8 +37,9 @@ Phases, each reported on its own line:
     the plain versions of K4 and K5, held against (b); (d) the same step on
     the f32 K3 path, reported; (e) a default-settings solve to 1e-4, its
     residual on the cached operator; (f) three Adam steps;
- 7. one JSON line listing every ported kernel with its launches, error and
-    times, then, as the last line, {"ok": true, "device": {...}}.
+ 7. one JSON line listing every ported kernel with its launches, error,
+    times and bound (bound_basis: the f32 rate, or the tensor cores' for K1,
+    K3 and K5), then, as the last line, {"ok": true, "device": {...}}.
 
 Any failed check, or any exception, exits non-zero without the last line.
 Without a CUDA device, or without the package beside it, it fails at once.
@@ -47,7 +51,6 @@ import contextlib
 import json
 import logging
 import math
-import re
 import subprocess
 import sys
 import time
@@ -63,6 +66,11 @@ PEAK_BYTES_PER_S = 3.35e12
 
 N, D, M_STAR, PROBES = 100_000, 3, 64, 10
 KERNEL_RTOL = 1e-4  # |kernel - plain| <= KERNEL_RTOL * max|plain|, see check_kernel
+# K1 and K3 against kernel_matvec_acc3_plain, which repeats their three bf16
+# products: what is left is summation order and the tensor cores' truncating
+# accumulation (~2e-6 of the largest entry); against full precision they lie
+# ~1e-5 off (the dropped lo x lo product), inside KERNEL_RTOL
+ACC3_RTOL = 1e-5
 # Fused vs plain path (and card vs CPU) on the same probes.  Both are f32;
 # their mat-vecs differ by ~1e-7 relative, which ~20 iterations of
 # preconditioned CG carry into the MLL and the posterior (~1e-5 at n = 2500);
@@ -113,13 +121,6 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS) ->
     peak of their type (f32 by default) and the bytes over the memory rate."""
     t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
-
-
-def ptxas_summary(log: str) -> str:
-    """Most registers any kernel instantiation uses, and how many spill."""
-    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
-    spills = [ln for ln in log.splitlines() if "spill stores" in ln and " 0 bytes spill stores" not in ln]
-    return f"{len(regs)} kernels, at most {max(regs, default=0)} registers, {len(spills)} spill"
 
 
 class CGIterations(logging.Handler):
@@ -183,21 +184,25 @@ def main() -> None:
     say(f"build: {time.perf_counter() - t0:.1f} s wall, " + ", ".join(f"{k} {v:.1f} s" for k, v in times.items()))
     for name in _build.sources():
         if times[name]:
-            say(f"  {name}: {ptxas_summary(_build.library_path(name).with_suffix('.log').read_text())}")
+            say(f"  {name}: {_build.ptxas_summary(_build.library_path(name).with_suffix('.log').read_text())}")
+    for name, mangled in _build.MAIN_PATH_KERNELS.items():
+        log_path = _build.library_path(name).with_suffix(".log")
+        if log_path.is_file():
+            say(f"  {name} main-path instantiation: {_build.ptxas_report(log_path.read_text(), mangled)}")
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape):
         return torch.randn(shape, device=dev, generator=gen)
 
-    def check_kernel(label, got, want):
-        """|kernel - plain| <= KERNEL_RTOL * max|plain|.  Both are f32 sums
-        of up to n terms in different orders (~sqrt(n) eps relative); the
-        d > 8 quadratic form adds an order-dependent rounding near d2 = 0."""
+    def check_kernel(label, got, want, rtol=KERNEL_RTOL):
+        """|kernel - plain| <= rtol * max|plain|.  Both are f32 sums of up to
+        n terms in different orders (~sqrt(n) eps relative); the d > 8
+        quadratic form adds an order-dependent rounding near d2 = 0."""
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
-        ok = math.isfinite(err) and err <= KERNEL_RTOL * scale
+        ok = math.isfinite(err) and err <= rtol * scale
         say(f"  {label}: max_abs_err {err:.3e} (max|plain| {scale:.3e}, rel {err / scale:.2e}) {'ok' if ok else 'FAILED'}")
         if not ok:
             fail(f"{label}: kernel disagrees with its plain version")
@@ -212,22 +217,33 @@ def main() -> None:
         check_kernel(f"{label} rowsum(W)", ws, pws)
         return check_kernel(f"{label} dx", 2.0 * (ws[:, None] * x1 - wx), 2.0 * (pws[:, None] * x1 - pwx))
 
+    def check_both(label, got, x1, x2, v, covar="rbf"):
+        """K1 or K3 against both plain versions: its own arithmetic to
+        ACC3_RTOL, full precision to KERNEL_RTOL.  Returns the former error."""
+        err = check_kernel(f"{label} vs acc3", got, rbf.kernel_matvec_acc3_plain(x1, x2, v, covar), ACC3_RTOL)
+        check_kernel(f"{label} vs full", got, rbf.kernel_matvec_plain(x1, x2, v, covar))
+        return err
+
     # 3a. every covariance, at small shapes (n not a multiple of the tiles)
     say("kernels vs plain, each covariance:")
     rq = rbf.rq_tile_covar(1.5)
     for covar in ["rbf", "matern52", "matern32", "matern12", rq]:
         for d in (3, 16):
             x = randn(8192, d) / math.sqrt(d)
+            if d > 8:
+                # a 1/64 grid, where the quadratic form is exact in f32:
+                # elsewhere the plain versions leave a point ~1e-7 from
+                # itself, which Matern-1/2 turns into ~3e-4 of its diagonal
+                # entry (the kernels keep that distance exactly 0)
+                x = torch.round(64 * x) / 64
             v = randn(8192, 11)
-            check_kernel(f"K3 {covar} n=8192 d={d} t=11", rbf.kernel_matvec_sym(x, v, covar),
-                         rbf.kernel_matvec_plain(x, x, v, covar))
+            check_both(f"K3 {covar} n=8192 d={d} t=11", rbf.kernel_matvec_sym(x, v, covar), x, x, v, covar)
             # distinct x1 and x2 (Matern-1/2's k' is singular on a coincident
             # pair); m = 5000 spans two of K2's 4096-point partial sums
             x1, x2 = randn(3000, d) / math.sqrt(d), randn(5000, d) / math.sqrt(d)
             check_weighted(f"K2 {covar} n=3000 m=5000 d={d} t=11", x1, x2, randn(3000, 11), randn(5000, 11), covar)
         x1, x2, v = randn(6000, D), randn(8192, D), randn(8192, 65)
-        check_kernel(f"K1 {covar} n=6000 m=8192 d=3 t=65", rbf.kernel_matvec(x1, x2, v, covar),
-                     rbf.kernel_matvec_plain(x1, x2, v, covar))
+        check_both(f"K1 {covar} n=6000 m=8192 d=3 t=65", rbf.kernel_matvec(x1, x2, v, covar), x1, x2, v, covar)
     check_weighted("K2 rbf n=3000 m=5000 d=3 t=65 (three column chunks)", randn(3000, D), randn(5000, D),
                    randn(3000, 65), randn(5000, 65))
 
@@ -256,27 +272,64 @@ def main() -> None:
     v11, v65, g11 = randn(N, PROBES + 1), randn(N, M_STAR + 1), randn(N, PROBES + 1)
     t11 = PROBES + 1
     stats = {}
-    for key, t, kern, plain, flops, nbytes in [
-        ("K3", t11, lambda: rbf.kernel_matvec_sym(x, v11), lambda: rbf.kernel_matvec_plain(x, x, v11),
-         N * (N + 1) / 2 * (3 * D + 1 + 4 * t11), 4 * N * (D + 2 * t11)),
-        ("K1", M_STAR + 1, lambda: rbf.kernel_matvec(x, x, v65), lambda: rbf.kernel_matvec_plain(x, x, v65),
-         N * N * (3 * D + 1 + 2 * (M_STAR + 1)), 4 * (2 * N * D + 2 * N * (M_STAR + 1))),
-        # K2 as the training step calls it, K2(x, x, g, v): per pair d2 (3d),
-        # k' (2), g.v (2t), w (1), w x2 (2d), rowsum (1); reads x twice, g and
-        # v, writes W@x2 and rowsum(W)
-        ("K2", t11, lambda: rbf.kernel_weighted(x, x, g11, v11), lambda: rbf.kernel_weighted_plain(x, x, g11, v11),
-         N * N * (5 * D + 2 * t11 + 4), 4 * (3 * N * D + 2 * N * t11 + N)),
+    # K3 and K1: each entry costs its formation (distance and exponent, 3d + 1
+    # f32 operations) and its products (2t for K1; 4t for K3, rows and
+    # columns), which the kernels run as three bf16 passes on the tensor
+    # cores.  Two bounds: all in f32 outside the tensor cores, and the
+    # tensor-core bound, the larger of the formation at the f32 rate and the
+    # three passes at the bf16 rate (bound_ms of the kernels line, basis
+    # "tensor_core").  Beside them the exponent floor: one ex2 an entry on the
+    # special-function units, 16 results per SM and clock on compute
+    # capability 9.0 (CUDA C++ Programming Guide, arithmetic instructions), at
+    # the card's largest SM clock.
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+    exp_per_s = 16 * torch.cuda.get_device_properties(0).multi_processor_count * sm_mhz * 1e6
+    for key, t, kern, args, entries, prods in [
+        ("K3", t11, lambda: rbf.kernel_matvec_sym(x, v11), (x, x, v11), N * (N + 1) / 2, 4 * t11),
+        ("K1", M_STAR + 1, lambda: rbf.kernel_matvec(x, x, v65), (x, x, v65), N * N, 2 * (M_STAR + 1)),
     ]:
-        if key == "K2":
-            err = check_weighted(f"K2 rbf n={N} d={D} t={t}", x, x, g11, v11)
-        else:
-            err = check_kernel(f"{key} rbf n={N} d={D} t={t}", kern(), plain())
+        nbytes = 4 * (N * D + N * t + N * t) if key == "K3" else 4 * (2 * N * D + 2 * N * t)
+        form = entries * (3 * D + 1)
+        err = check_kernel(f"{key} rbf n={N} d={D} t={t} vs full", kern(), rbf.kernel_matvec_plain(*args))
+        check_kernel(f"{key} rbf n={N} d={D} t={t} vs acc3", kern(), rbf.kernel_matvec_acc3_plain(*args), ACC3_RTOL)
         ms = cuda_ms(torch, kern, 5)
-        plain_ms = cuda_ms(torch, plain, 2)
-        b_ms, b_by = bound_ms(flops, nbytes)
-        stats[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
-        say(f"  {key}: {ms:.3f} ms (plain {plain_ms:.1f} ms, bound {b_ms:.3f} ms by {b_by}, "
-            f"{100 * b_ms / ms:.1f}% of bound)")
+        plain_ms = cuda_ms(torch, lambda: rbf.kernel_matvec_plain(*args), 2)
+        f32_ms, _ = bound_ms(form + entries * prods, nbytes)
+        t_form, t_mma = 1e3 * form / PEAK_F32_FLOPS, 1e3 * 3 * entries * prods / PEAK_BF16_FLOPS
+        t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+        b_ms, b_by = max(t_form, t_mma, t_bytes), "operations" if max(t_form, t_mma) >= t_bytes else "bytes"
+        t_exp = 1e3 * entries / exp_per_s
+        stats[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          bound_basis="tensor_core")
+        say(f"  {key}: {ms:.3f} ms (plain {plain_ms:.1f} ms); f32 bound {f32_ms:.3f} ms, {100 * f32_ms / ms:.1f}% "
+            f"of it; tensor-core bound {b_ms:.3f} ms by {b_by} (formation {t_form:.3f} ms, three bf16 passes "
+            f"{t_mma:.3f} ms), {100 * b_ms / ms:.1f}% of it; exponent floor {t_exp:.3f} ms ({exp_per_s:.3e} "
+            f"a second at {sm_mhz:.0f} MHz), {100 * max(b_ms, t_exp) / ms:.1f}% of the larger")
+    # K3's operator is symmetric: u^T (K w) = w^T (K u), with u and w exact
+    # in bf16 (their lo parts are 0) and nonnegative (no cancelling sums)
+    u, w = (randn(N, 1).abs().to(torch.bfloat16).float() for _ in range(2))
+    kw, ku = (rbf.kernel_matvec_sym(x, a) for a in (w, u))
+    ukw, wku = float((u.double() * kw.double()).sum()), float((w.double() * ku.double()).sum())
+    asym = abs(ukw - wku) / abs(ukw)
+    say(f"  K3 symmetry n={N}: u^T(Kw) {ukw:.8e}, w^T(Ku) {wku:.8e}, relative difference {asym:.2e}")
+    if not asym <= 1e-5:
+        fail("K3 is not symmetric")
+    del u, w, kw, ku
+    # K2 as the training step calls it, K2(x, x, g, v): per pair d2 (3d),
+    # k' (2), g.v (2t), w (1), w x2 (2d), rowsum (1); reads x twice, g and
+    # v, writes W@x2 and rowsum(W)
+    err = check_weighted(f"K2 rbf n={N} d={D} t={t11}", x, x, g11, v11)
+    kern = lambda: rbf.kernel_weighted(x, x, g11, v11)  # noqa: E731
+    b_ms, b_by = bound_ms(N * N * (5 * D + 2 * t11 + 4), 4 * (3 * N * D + 2 * N * t11 + N))
+    stats["K2"] = dict(max_abs_err=err, ms=cuda_ms(torch, kern, 5),
+                       plain_ms=cuda_ms(torch, lambda: rbf.kernel_weighted_plain(x, x, g11, v11), 2),
+                       bound_ms=b_ms, bound_by=b_by, bound_basis="f32")
+    s2 = stats["K2"]
+    say(f"  K2: {s2['ms']:.3f} ms (plain {s2['plain_ms']:.1f} ms, bound {b_ms:.3f} ms by {b_by}, "
+        f"{100 * b_ms / s2['ms']:.1f}% of bound)")
     del x, v11, v65, g11
 
     # 3c. the bf16 tile cache
@@ -337,7 +390,7 @@ def main() -> None:
     b_ms, b_by = bound_ms(12 * tiles.numel(), cache_bytes + 4 * N * D)
     stats["K4"] = dict(max_abs_err=err4, ms=cuda_ms(torch, lambda: rbf.rbf_build_sym_tiles(x, TILE), 3),
                        plain_ms=once_ms(torch, lambda: rbf.rbf_build_sym_tiles_plain(x, TILE)),
-                       bound_ms=b_ms, bound_by=b_by)
+                       bound_ms=b_ms, bound_by=b_by, bound_basis="f32")
     torch.cuda.empty_cache()
     v11 = randn(N, t11)
     err5 = check_kernel(f"K5 rbf n={N} t={t11} passes=2", rbf.rbf_matvec_sym_cached(tiles, v11, N, TILE),
@@ -348,7 +401,7 @@ def main() -> None:
     b_ms, b_by = bound_ms(2 * npad * npad * t11 * 2, cache_bytes + 8 * N * t11, PEAK_BF16_FLOPS)
     stats["K5"] = dict(max_abs_err=err5, ms=cuda_ms(torch, lambda: rbf.rbf_matvec_sym_cached(tiles, v11, N, TILE), 5),
                        plain_ms=once_ms(torch, lambda: rbf.rbf_matvec_sym_cached_plain(tiles, v11, N, TILE)),
-                       bound_ms=b_ms, bound_by=b_by)
+                       bound_ms=b_ms, bound_by=b_by, bound_basis="tensor_core")
     for key in ("K4", "K5"):
         s = stats[key]
         say(f"  {key}: {s['ms']:.3f} ms (plain {s['plain_ms']:.1f} ms, bound {s['bound_ms']:.3f} ms by "
@@ -496,11 +549,15 @@ def main() -> None:
     # 5b. the repaired default: neg_mll under the default settings, whose
     # preconditioner is the rank-15 pivoted Cholesky, except that CG replaces
     # the Cholesky path at every size
-    def default_terms(model, dtype=torch.float32):
+    def default_terms(model, dtype=torch.float32, *overrides):
         """inv_quad_logdet of the model's training operator under the default
-        settings, the two terms neg_mll sums, per data point."""
+        settings (and ``overrides``), the two terms neg_mll sums, per data
+        point."""
         cg.counts.clear()
-        with settings.max_cholesky_size(0), settings.verbose_linalg(True), torch.no_grad():
+        with settings.max_cholesky_size(0), settings.verbose_linalg(True), torch.no_grad(), \
+                contextlib.ExitStack() as more:
+            for c in overrides:
+                more.enter_context(c)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             iq, ld = lo.inv_quad_logdet(model.train_operator(x.to(dtype)), y.to(dtype)[:, None], logdet=True,
@@ -550,12 +607,33 @@ def main() -> None:
     # logdet by ~5e-4 of itself on either path, and neg_mll = 0.5 (iq +
     # logdet) + 0.919 with logdet ~ -2 magnifies that ~40x, so no two f32
     # paths agree to PATH_RTOL there
-    runs = {label: default_terms(model, dtype=dtype) for label, model, dtype in [
-        ("fused", fused, torch.float32), ("plain", plain, torch.float32),
-        ("plain f64", lo.ExactGPRegression(block_rows=8192, use_fused_kernels=False, dtype=torch.float64),
-         torch.float64)]}
+    paths = [("fused", fused, torch.float32), ("plain", plain, torch.float32),
+             ("plain f64", lo.ExactGPRegression(block_rows=8192, use_fused_kernels=False, dtype=torch.float64),
+              torch.float64)]
+    runs = {label: default_terms(model, dtype) for label, model, dtype in paths}
     for label, r in runs.items():
         show(f"noise 0.127, {label} (reported)", r, None if label == "fused" else runs["fused"])
+
+    def distances(tag, runs):
+        """How far the f32 paths lie from the f64 one and from each other: in
+        the loss (relative to the f64 loss) and in each of its two terms
+        (relative to the f64 term)."""
+        ref = runs["plain f64"]
+        for a, b in (("fused", "plain f64"), ("plain", "plain f64"), ("fused", "plain")):
+            rel = {k: abs(runs[a][k] - runs[b][k]) / abs(ref[k]) for k in ("loss", "iq", "ld")}
+            say(f"  {tag}, {a} to {b}: loss {rel['loss']:.3e}, iq/n {rel['iq']:.3e}, logdet/n {rel['ld']:.3e} "
+                f"of the f64 value")
+
+    # the witness: the distances as run, then with CG run to 1e-2 (at most
+    # 250 iterations).  The logdet comes from the probes' first 20 Lanczos
+    # steps whatever the tolerance; the solve behind iq converges
+    distances("noise 0.127, cg_tolerance 1.0", runs)
+    tighter = {label: default_terms(model, dtype, settings.cg_tolerance(1e-2), settings.max_cg_iterations(250))
+               for label, model, dtype in paths}
+    for label, r in tighter.items():
+        show(f"noise 0.127, cg_tolerance 1e-2, {label} (reported)", r, None if label == "fused" else tighter["fused"])
+    distances("noise 0.127, cg_tolerance 1e-2", tighter)
+    del paths
     # held: the same settings at noise 1.0, where CG and Lanczos are
     # well-conditioned and the two paths must agree
     held = {label: default_terms(set_noise(lo.ExactGPRegression(block_rows=8192, use_fused_kernels=use), 1.0))

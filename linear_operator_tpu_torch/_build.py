@@ -13,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 import time
@@ -24,6 +25,12 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# The instantiation each source runs on the GP main path (RBF, d <= 4; K1 at
+# 72 columns, K3 at 16), by a part of its mangled name, for ptxas_report
+MAIN_PATH_KERNELS = {
+    "kernel_matvec": "matvec_kernelILi0ELi9ELi4E",
+    "kernel_matvec_sym": "sym_matvec_kernelILi0ELi2ELi4E",
+}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -33,7 +40,8 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """The path of the CUDA toolkit's nvcc."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
@@ -65,7 +73,7 @@ def build(names: list[str] | None = None) -> dict[str, float]:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         procs[name] = (proc, tmp, out, time.perf_counter())
     failures = []
@@ -83,11 +91,34 @@ def build(names: list[str] | None = None) -> dict[str, float]:
     return times
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    if name not in _loaded:
+def load(name: str, path: Path | None = None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed.  With
+    ``path``, the library there (another build of the same source) is loaded
+    and serves every later call in its place."""
+    if path is not None:
+        _loaded[name] = ctypes.CDLL(str(path))
+    elif name not in _loaded:
         path = library_path(name)
         if not path.exists():
             build([name])
         _loaded[name] = ctypes.CDLL(str(path))
     return _loaded[name]
+
+
+def ptxas_summary(log: str) -> str:
+    """How many kernel instantiations a ptxas report lists, the most
+    registers any of them uses, and how many spill."""
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+    spills = [ln for ln in log.splitlines() if "spill stores" in ln and " 0 bytes spill stores" not in ln]
+    return f"{len(regs)} kernels, at most {max(regs, default=0)} registers, {len(spills)} spill"
+
+
+def ptxas_report(log: str, mangled: str) -> str:
+    """The ptxas lines (stack frame and spills, registers) of the
+    instantiation whose mangled name contains ``mangled``."""
+    lines = log.splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and mangled in ln:
+            report = [x.strip() for x in lines[i + 1 : i + 4] if "bytes stack frame" in x or "Used" in x]
+            return "; ".join(r.replace("ptxas info    : ", "") for r in report)
+    return "not found"

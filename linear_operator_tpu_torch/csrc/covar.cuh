@@ -1,7 +1,8 @@
 // Stationary covariances k(d2) of inputs pre-scaled by the lengthscale, and
-// their derivatives dk/d(d2), shared by the K1 (kernel_matvec.cu), K3
-// (kernel_matvec_sym.cu), K2 (kernel_weighted.cu), K4 (kernel_build_sym.cu) and
-// K5 (kernel_matvec_cached.cu) kernels.  The formulas, and the
+// their derivatives dk/d(d2), for the K2 (kernel_weighted.cu) and K4
+// (kernel_build_sym.cu) kernels; the covariance ids, which K1 and K3 share
+// (their k(d2) is acc3_mma.cuh's covar_fast); axpy_row for K5
+// (kernel_matvec_cached.cu).  The formulas, and the
 // sqrt(d2 + 1e-30) convention of the Matern kernels, are those of ops/rbf.py's
 // plain versions (TILE_COVARS).
 #pragma once

@@ -27,9 +27,14 @@ Inputs are pre-scaled by the lengthscale and the result is scaled by the
 outputscale outside the kernels, in PyTorch.  ``covar`` names a
 ``TILE_COVARS`` entry.
 
-Each wrapper takes its kernel's plain PyTorch version (``*_plain``) for
-tensors on the CPU, launches the kernel for tensors on a CUDA device, and
-raises for anything else.  ``<wrapper>.launches`` counts the kernel launches.
+K1 and K3 contract on the tensor cores as the Pallas kernels do
+(``_dot_acc3``): three bf16 products with f32 accumulation;
+:func:`kernel_matvec_acc3_plain` repeats that arithmetic in PyTorch.
+
+Each wrapper takes its kernel's plain PyTorch version (``*_plain``, for K1
+and K3 the full-precision one) for tensors on the CPU, launches the kernel
+for tensors on a CUDA device, and raises for anything else.
+``<wrapper>.launches`` counts the kernel launches.
 K1 and K3 are ``torch.autograd.Function``s whose backward is K2 (x-gradients)
 and K1 / K3 (v-gradient), each computed only when its input needs it.
 """
@@ -166,6 +171,26 @@ def kernel_matvec_plain(x1, x2, v, covar: str = "rbf", block_entries: int = 2**2
     return torch.cat(out, dim=-2)
 
 
+def dot_acc3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the JAX package's ``_dot_acc3`` computes it: three bf16
+    products a_hi b_hi + a_hi b_lo + a_lo b_hi accumulated in f32, with hi =
+    bf16(a) and lo = bf16(a - hi) rounded to nearest even.  The arithmetic of
+    K1 and K3 on the card; the CPU path keeps the full-precision product."""
+    ah, al = _split_bf16(a, 2)
+    bh, bl = _split_bf16(b, 2)
+    with highest_matmul_precision():
+        return torch.matmul(ah, bh) + torch.matmul(ah, bl) + torch.matmul(al, bh)
+
+
+def kernel_matvec_acc3_plain(x1, x2, v, covar: str = "rbf", block_entries: int = 2**27) -> torch.Tensor:
+    """Plain version of K1 and K3 in their own arithmetic: the tiles of
+    :func:`kernel_matvec_plain`, contracted with :func:`dot_acc3`."""
+    fn = TILE_COVARS[covar].fn
+    rows = max(1, block_entries // max(1, x2.shape[-2]))
+    out = [dot_acc3(fn(sq_dist(x1[..., s : s + rows, :], x2)), v) for s in range(0, x1.shape[-2], rows)]
+    return torch.cat(out, dim=-2)
+
+
 def kernel_weighted_plain(x1, x2, g, v, covar: str = "rbf", block_entries: int = 2**27):
     """Plain version of K2: (W @ x2, rowsum(W)) with W = k'(sq_dist(x1, x2))
     o (g v^T), in full precision, formed in row blocks of at most
@@ -226,6 +251,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
+def _scratch(library: str, symbol: str, device, *shape_args: int) -> torch.Tensor:
+    """The scratch a kernel's launch takes, sized by its library's
+    ``<symbol>_scratch`` function of the same shapes."""
+    fn = getattr(_build.load(library), symbol + "_scratch")
+    fn.argtypes = [_I] * len(shape_args)
+    fn.restype = ctypes.c_longlong
+    nbytes = fn(*shape_args)
+    if nbytes < 0:
+        raise ValueError(f"{symbol} does not take the shapes {shape_args}")
+    return torch.empty(nbytes, dtype=torch.uint8, device=device)
+
+
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
@@ -249,16 +286,16 @@ def _kernel_matvec(x1, x2, v, covar):
     if b.shape != (nb, m, d) or w.shape[0] != nb:
         raise ValueError(f"shape mismatch: x1 {tuple(x1.shape)}, x2 {tuple(x2.shape)}, v {tuple(v.shape)}")
     _check_kernel_inputs((a, b, w), d)
-    # columns per CTA, 8, 16, 24 or 32: as few chunks as possible, each
-    # rounded up to a multiple of 8 (t = 65 runs as 3 chunks of 24)
-    tp = 8 * _cdiv(_cdiv(t, _cdiv(t, 32)), 8)
+    tp = _k1_columns(t)
     # the kernel writes one partial result per split of K1_SPLIT x2 points
     partial = torch.empty((_cdiv(m, K1_SPLIT), nb, n, t), dtype=torch.float32, device=a.device)
+    # x2 padded and v split into bf16 words by the launch's prepass
+    scratch = _scratch("kernel_matvec", "kernel_matvec_f32", a.device, nb, m, d, t, tp)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     _launch(
         "kernel_matvec", "kernel_matvec_f32",
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
-        a.data_ptr(), b.data_ptr(), w.data_ptr(), partial.data_ptr(),
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+        a.data_ptr(), b.data_ptr(), w.data_ptr(), partial.data_ptr(), scratch.data_ptr(),
         nb, n, m, d, t, tp, spec.covar_id, spec.alpha, stream,
     )
     kernel_matvec.launches += 1
@@ -267,6 +304,18 @@ def _kernel_matvec(x1, x2, v, covar):
 
 
 kernel_matvec.launches = 0
+
+# Columns per K1 CTA (8 NB in csrc/kernel_matvec.cu): its accumulators sit in
+# registers, so a rhs wider than 72 columns runs as several column chunks.
+K1_COLUMNS = (8, 16, 24, 32, 48, 72)
+
+
+def _k1_columns(t: int) -> int:
+    """K1's columns per CTA for a t-column v: as few chunks as possible (at
+    most 72 columns each), each as narrow as K1_COLUMNS allows (t = 11 runs
+    as one chunk of 16, t = 65 as one of 72, t = 73 as two of 48)."""
+    need = _cdiv(t, _cdiv(t, K1_COLUMNS[-1]))
+    return next(c for c in K1_COLUMNS if c >= need)
 
 
 class _KernelMatvec(torch.autograd.Function):
@@ -323,18 +372,21 @@ def _kernel_matvec_sym(x, v, covar):
     if w.shape[:2] != (nb, n):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, v {tuple(v.shape)}")
     _check_kernel_inputs((a, w), d)
-    if _cdiv(n, 128) > 65535 or nb > 65535:
-        raise ValueError(f"K3 takes n <= {65535 * 128} and batch <= 65535")
-    out_t = torch.zeros((nb, t, n), dtype=torch.float32, device=a.device)
+    if nb > 65535:
+        raise ValueError("K3 takes batch <= 65535")
+    # rows of n rounded up to 4 floats, for the kernel's 16-byte atomics
+    out_t = torch.zeros((nb, t, 4 * _cdiv(n, 4)), dtype=torch.float32, device=a.device)
+    # x padded and v split into bf16 words by the launch's prepass
+    scratch = _scratch("kernel_matvec_sym", "kernel_matvec_sym_f32", a.device, nb, n, d, t)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     _launch(
         "kernel_matvec_sym", "kernel_matvec_sym_f32",
-        [_P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
-        a.data_ptr(), w.data_ptr(), out_t.data_ptr(),
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+        a.data_ptr(), w.data_ptr(), out_t.data_ptr(), scratch.data_ptr(),
         nb, n, d, t, spec.covar_id, spec.alpha, stream,
     )
     kernel_matvec_sym.launches += 1
-    out = out_t.mT
+    out = out_t[..., :n].mT
     return out if batched else out[0]
 
 

@@ -11,6 +11,10 @@ PyTorch; there, from the repository root:
 relative to the largest entry of the plain result: both sides are f32 sums
 of up to n terms in different orders, so they agree to ~sqrt(n) eps of that
 scale; rtol 1e-4 leaves a wide margin and a wrong kernel misses it by orders.
+K1 and K3 contract as the TPU kernels do (three bf16 products, f32
+accumulation), ~1e-5 from full precision: they are held to 1e-4 against the
+full-precision plain version and to 1e-5 against ``kernel_matvec_acc3_plain``,
+which repeats their arithmetic.
 K4's bf16 tiles are held entry by entry: at most one bf16 ulp apart, and at
 least 99.9% bit-identical (CUDA's expf and torch's exp may differ by an f32
 ulp, which now and then crosses a bf16 rounding boundary).  K5 is compared
@@ -28,6 +32,7 @@ from linear_operator_tpu_torch.ops import rbf
 
 COVARS = ["rbf", "matern52", "matern32", "matern12", "rq"]
 RTOL = 1e-4
+ACC3_RTOL = 1e-5
 
 
 @pytest.fixture
@@ -46,12 +51,19 @@ def _data(dev, seed, *shapes):
     return [torch.from_numpy(rng.normal(size=s).astype(np.float32)).to(dev) for s in shapes]
 
 
-def _close(got, want):
+def _close(got, want, rtol=RTOL):
     torch.cuda.synchronize()
     got, want = got.cpu(), want.cpu()
     assert got.shape == want.shape and got.dtype == torch.float32
     err = float((got - want).abs().max())
-    assert err <= RTOL * float(want.abs().max()), err
+    assert err <= rtol * float(want.abs().max()), err
+
+
+def _both_close(got, x1, x2, v, name="rbf"):
+    """K1 or K3 against both plain versions: its own arithmetic to 1e-5,
+    full precision to 1e-4."""
+    _close(got, rbf.kernel_matvec_acc3_plain(x1, x2, v, name), ACC3_RTOL)
+    _close(got, rbf.kernel_matvec_plain(x1, x2, v, name))
 
 
 @pytest.mark.cuda
@@ -72,6 +84,51 @@ def test_kernels_match_plain(cuda, covar, d):
 def test_k3_every_column_width(cuda, t):
     x, v = _data(cuda, 7, (333, 3), (333, t))
     _close(rbf.kernel_matvec_sym(x, v), rbf.kernel_matvec_plain(x, x, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 3, 8, 9, 16])
+@pytest.mark.parametrize("covar", COVARS)
+def test_k1_k3_match_both_plain_versions(cuda, covar, d):
+    """Ragged edges: n = 1000 is no multiple of 16 or 128, m = 5000 no
+    multiple of 64 and spans two 4096-point splits; K3 at t = 1, 11, 16 (one
+    and two n8 blocks), K1 at t = 1, 65, 72 (one chunk) and 73 (two).  At
+    d > 8 the coordinates lie on a 1/64 grid, where the quadratic form is
+    exact in f32: otherwise the plain versions' rounding leaves a point
+    ~1e-7 from itself, which Matern-1/2's sqrt turns into ~3e-4 of its
+    diagonal entry (the kernels keep that distance exactly 0)."""
+    x, x2 = _data(cuda, 40 + d, (1000, d), (5000, d))
+    x, x2 = x / np.sqrt(d), x2 / np.sqrt(d)
+    if d > 8:
+        x, x2 = torch.round(64 * x) / 64, torch.round(64 * x2) / 64
+    name = _name(covar)
+    for t in (1, 11, 16):
+        (v,) = _data(cuda, 50 + t, (1000, t))
+        _both_close(rbf.kernel_matvec_sym(x, v, name), x, x, v, name)
+    for t in (1, 65, 72, 73):
+        (v,) = _data(cuda, 60 + t, (5000, t))
+        _both_close(rbf.kernel_matvec(x, x2, v, name), x, x2, v, name)
+
+
+@pytest.mark.cuda
+def test_k1_k3_batch_match_both_plain_versions(cuda):
+    x, v, v65 = _data(cuda, 70, (2, 700, 3), (2, 700, 11), (2, 700, 65))
+    for b in range(2):
+        _both_close(rbf.kernel_matvec_sym(x, v)[b], x[b], x[b], v[b])
+        _both_close(rbf.kernel_matvec(x, x, v65)[b], x[b], x[b], v65[b])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [3, 16])
+def test_k3_is_symmetric(cuda, d):
+    """u^T (K w) = w^T (K u) for u and w exact in bf16 (their lo parts are
+    0) and nonnegative (neither side is a cancelling sum): K3 forms each
+    off-diagonal pair once and uses it both ways."""
+    (x,) = _data(cuda, 71, (3000, d))
+    u, w = (a.abs().to(torch.bfloat16).float() for a in _data(cuda, 72, (3000, 1), (3000, 1)))
+    kw, ku = rbf.kernel_matvec_sym(x / np.sqrt(d), w), rbf.kernel_matvec_sym(x / np.sqrt(d), u)
+    a, b = float((u.double() * kw.double()).sum()), float((w.double() * ku.double()).sum())
+    assert abs(a - b) <= 1e-5 * abs(a), (a, b)
 
 
 @pytest.mark.cuda

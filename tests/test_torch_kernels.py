@@ -4,8 +4,10 @@ kernel (K2) and the backwards of K1 and K3 against the JAX package.
 On the CPU the port's wrappers run their kernels' plain PyTorch versions;
 the JAX side runs K1 and K2 in Pallas interpret mode (a 3-pass bf16 product,
 ~1e-5 relative to exact f32, hence rtol 1e-4 for K1, K2 and every gradient)
-and K3 through its dense f32 HIGHEST fallback (rtol 1e-5).  Errors are taken relative to the largest
-entry of the result (``atol = rtol * max|ref|``): a sum of signed terms has
+and K3 through its dense f32 HIGHEST fallback (rtol 1e-5).
+``kernel_matvec_acc3_plain``, which repeats the 3-pass product as the CUDA
+K1 and K3 compute it, is held to the Pallas K1 at 3e-6.  Errors are taken
+relative to the largest entry of the result (``atol = rtol * max|ref|``): a sum of signed terms has
 entries near 0 whose relative error means nothing.  Inputs are made with a
 seeded numpy generator and handed to both packages.
 
@@ -23,6 +25,7 @@ import pytest
 import torch
 
 from linear_operator_tpu.ops import rbf as jrbf
+from linear_operator_tpu_torch import _build, kernel_variants
 from linear_operator_tpu_torch.operators.kernel import rbf_kernel_operator
 from linear_operator_tpu_torch.ops import rbf as trbf
 
@@ -59,6 +62,40 @@ def test_k1_plain_matches_jax(covar, d):
     got = trbf.kernel_matvec(torch.from_numpy(x1), torch.from_numpy(x2), torch.from_numpy(v), tname)
     assert got.shape == (300, 7) and got.dtype == torch.float32
     _close(got, want, 1e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_dot_acc3_matches_jax(seed):
+    # the operands of a kernel tile contraction: entries in (0, 1] against a
+    # normal rhs, and a ragged inner dimension
+    k, v = _data(seed, (64, 300), (300, 11))
+    k = np.exp(-0.5 * k * k).astype(np.float32)
+    want = jrbf._dot_acc3(jnp.asarray(k), jnp.asarray(v), (((1,), (0,)), ((), ())))
+    got = trbf.dot_acc3(torch.from_numpy(k), torch.from_numpy(v))
+    _close(got, want, 3e-6)
+    # three bf16 passes are not the full-precision product: they drop lo x lo
+    full = k.astype(np.float64) @ v.astype(np.float64)
+    _close(got, full, 1e-4)
+    assert np.abs(got.numpy() - full).max() > 1e-7 * np.abs(full).max()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("d", [3, 16])
+@pytest.mark.parametrize("covar", COVARS)
+def test_k1_acc3_plain_matches_jax(covar, d, seed):
+    """The plain version in the kernels' own arithmetic against the Pallas
+    K1 in interpret mode, which contracts with _dot_acc3: 30x tighter than
+    the full-precision plain version's 1e-4, which it misses by ~1e-5."""
+    x1, x2, v = _data(seed, (300, d), (520, d), (520, 7))
+    scale = np.float32(1.0 / np.sqrt(d))
+    x1, x2 = x1 * scale, x2 * scale
+    jname, tname = _names(covar)
+    want = jrbf.kernel_matvec(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(v), 512, jname)
+    args = (torch.from_numpy(x1), torch.from_numpy(x2), torch.from_numpy(v), tname)
+    got = trbf.kernel_matvec_acc3_plain(*args)
+    assert got.shape == (300, 7) and got.dtype == torch.float32
+    _close(got, want, 3e-6)
+    _close(got, trbf.kernel_matvec_plain(*args), 1e-4)
 
 
 @pytest.mark.parametrize("d", [3, 16])
@@ -101,6 +138,15 @@ def test_sym_gate():
     x, v = _data(3, (50, 3), (50, 17))
     with pytest.raises(ValueError, match="rhs columns"):
         trbf.kernel_matvec_sym(torch.from_numpy(x), torch.from_numpy(v))
+
+
+def test_k1_column_chunks():
+    """K1 forms each entry once up to 72 columns (t = 65 in one chunk of 72);
+    a wider rhs runs in as few chunks as possible, each padded to a width the
+    kernel is built for."""
+    widths = [trbf._k1_columns(t) for t in (1, 8, 9, 11, 33, 65, 72, 73, 145)]
+    assert widths == [8, 8, 16, 16, 48, 72, 72, 48, 72]
+    assert all(w in trbf.K1_COLUMNS for w in widths)
 
 
 def _launch_counts():
@@ -229,14 +275,48 @@ def test_backward_computes_only_what_is_needed(monkeypatch):
 
 
 def test_kernel_sources_hash_into_library_names():
-    from linear_operator_tpu_torch import _build
-
     assert _build.sources() == [
         "kernel_build_sym", "kernel_matvec", "kernel_matvec_cached", "kernel_matvec_sym", "kernel_weighted",
     ]
     paths = {_build.library_path(name) for name in _build.sources()}
     assert len(paths) == 5 and all(p.parent == _build.BUILD_DIR for p in paths)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+_PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117sym_matvec_kernelILi0ELi2ELi4EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117sym_matvec_kernelILi0ELi2ELi4EEEvPKf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 142 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117sym_matvec_kernelILi0ELi1ELi0EEEvPKf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117sym_matvec_kernelILi0ELi1ELi0EEEvPKf
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+"""
+
+
+def test_ptxas_report_reads_the_main_path_instantiation():
+    mangled = _build.MAIN_PATH_KERNELS["kernel_matvec_sym"]
+    assert _build.ptxas_report(_PTXAS_LOG, mangled) == (
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads; Used 142 registers, used 1 barriers"
+    )
+    assert _build.ptxas_report(_PTXAS_LOG, "matvec_kernelILi0ELi9ELi4E") == "not found"
+    assert _build.ptxas_summary(_PTXAS_LOG) == "2 kernels, at most 168 registers, 1 spill"
+
+
+@pytest.mark.parametrize(
+    "src,variant", [(src, name) for src, names in kernel_variants.VARIANTS.items() for name in names]
+)
+def test_kernel_variant_still_applies(src, variant):
+    # each text a variant replaces is in its source exactly once, so an edit
+    # of K1 or K3 that moves one fails here rather than on the card
+    assert kernel_variants.patched(src, variant) != (_build.CSRC / f"{src}.cu").read_text()
+
+
+def test_kernel_variant_with_a_missing_text_raises(monkeypatch):
+    monkeypatch.setitem(kernel_variants.VARIANTS["kernel_matvec"], "gone", [("no such text", "")])
+    with pytest.raises(ValueError, match="exactly once"):
+        kernel_variants.patched("kernel_matvec", "gone")
 
 
 def _imports(path):
