@@ -7,14 +7,17 @@ Phases, each reported on its own line:
  1. the card, as ``nvidia-smi --query-gpu=name,power.limit`` gives it;
  2. build the CUDA kernels from csrc/ (one nvcc per source, in parallel);
  3. hold every kernel (K1, K3, K2) against its plain PyTorch version on the
-    card, for each covariance at small shapes (K1 and K3 against both plain
-    versions: full precision, and kernel_matvec_acc3_plain, their own 3-pass
-    bf16 arithmetic), and the backwards of K1 and K3 against autograd
-    through the plain version; then each RBF kernel at the shapes of the
-    main path, timed with CUDA events beside its bounds, and K3's symmetry;
+    card, for each covariance at small shapes (each against both plain
+    versions: full precision, and kernel_matvec_acc3_plain or
+    kernel_weighted_acc3_plain, their own 3-pass bf16 arithmetic), and the
+    backwards of K1 and K3 against autograd through the plain version; then
+    each RBF kernel at the shapes of the main path, timed with CUDA events
+    beside its bounds, and K3's symmetry;
     3c. the bf16 tile cache: K4 and K5 against their plain versions for each
-    covariance (K5 on K4's own tiles), K5's symmetry, then both at
-    N = 100,000, tile 1024, timed beside their bounds;
+    covariance (K5 on K4's own tiles), then both at N = 100,000, tile 1024,
+    timed beside their bounds (K5 at t = 11 and t = 1), K5's symmetry, and
+    one read-only pass over the cache with torch.amax as a measured
+    streaming rate (a reference, not a bound);
  4. check a small exact-GP MLL against the CPU run of the same model;
  5. the main path, through the entry points a user calls: the exact-GP
     negative MLL at N = 100,000, d = 3 with the benchmark's settings (K3 must
@@ -38,8 +41,9 @@ Phases, each reported on its own line:
     the f32 K3 path, reported; (e) a default-settings solve to 1e-4, its
     residual on the cached operator; (f) three Adam steps;
  7. one JSON line listing every ported kernel with its launches, error,
-    times and bound (bound_basis: the f32 rate, or the tensor cores' for K1,
-    K3 and K5), then, as the last line, {"ok": true, "device": {...}}.
+    times and bound (bound_basis: the f32 rate for K4, the tensor cores' for
+    K1, K2, K3 and K5; K5's t = 1 time as ms_t1), then, as the last line,
+    {"ok": true, "device": {...}}.
 
 Any failed check, or any exception, exits non-zero without the last line.
 Without a CUDA device, or without the package beside it, it fails at once.
@@ -210,12 +214,19 @@ def main() -> None:
 
     def check_weighted(label, x1, x2, g, v, covar="rbf"):
         """K2's two outputs, and the dx = 2 (ws x1 - wx) its callers assemble
-        from them (a difference of large sums), against the plain version."""
+        from them (a difference of large sums), against both plain versions:
+        its own arithmetic (g v^T through dot_acc3) to ACC3_RTOL, full
+        precision to KERNEL_RTOL.  Returns the former's dx error."""
         wx, ws = rbf.kernel_weighted(x1, x2, g, v, covar)
-        pwx, pws = rbf.kernel_weighted_plain(x1, x2, g, v, covar)
-        check_kernel(f"{label} W@x2", wx, pwx)
-        check_kernel(f"{label} rowsum(W)", ws, pws)
-        return check_kernel(f"{label} dx", 2.0 * (ws[:, None] * x1 - wx), 2.0 * (pws[:, None] * x1 - pwx))
+        dx = 2.0 * (ws[:, None] * x1 - wx)
+        errs = []
+        for tag, plain, rtol in (("acc3", rbf.kernel_weighted_acc3_plain, ACC3_RTOL),
+                                 ("full", rbf.kernel_weighted_plain, KERNEL_RTOL)):
+            pwx, pws = plain(x1, x2, g, v, covar)
+            check_kernel(f"{label} W@x2 vs {tag}", wx, pwx, rtol)
+            check_kernel(f"{label} rowsum(W) vs {tag}", ws, pws, rtol)
+            errs.append(check_kernel(f"{label} dx vs {tag}", dx, 2.0 * (pws[:, None] * x1 - pwx), rtol))
+        return errs[0]
 
     def check_both(label, got, x1, x2, v, covar="rbf"):
         """K1 or K3 against both plain versions: its own arithmetic to
@@ -244,7 +255,7 @@ def main() -> None:
             check_weighted(f"K2 {covar} n=3000 m=5000 d={d} t=11", x1, x2, randn(3000, 11), randn(5000, 11), covar)
         x1, x2, v = randn(6000, D), randn(8192, D), randn(8192, 65)
         check_both(f"K1 {covar} n=6000 m=8192 d=3 t=65", rbf.kernel_matvec(x1, x2, v, covar), x1, x2, v, covar)
-    check_weighted("K2 rbf n=3000 m=5000 d=3 t=65 (three column chunks)", randn(3000, D), randn(5000, D),
+    check_weighted("K2 rbf n=3000 m=5000 d=3 t=65 (five k-steps of 16)", randn(3000, D), randn(5000, D),
                    randn(3000, 65), randn(5000, 65))
 
     def grads(fn, inputs, weights):
@@ -320,16 +331,26 @@ def main() -> None:
     del u, w, kw, ku
     # K2 as the training step calls it, K2(x, x, g, v): per pair d2 (3d),
     # k' (2), g.v (2t), w (1), w x2 (2d), rowsum (1); reads x twice, g and
-    # v, writes W@x2 and rowsum(W)
+    # v, writes W@x2 and rowsum(W).  The f32 bound takes every operation at
+    # the f32 rate; the tensor-core bound (bound_ms, basis "tensor_core") the
+    # larger of the formation and reductions (5d + 4 a pair) at the f32 rate
+    # and g.v's three bf16 passes at the bf16 rate; beside them the exponent
+    # floor, one ex2 a pair
     err = check_weighted(f"K2 rbf n={N} d={D} t={t11}", x, x, g11, v11)
     kern = lambda: rbf.kernel_weighted(x, x, g11, v11)  # noqa: E731
-    b_ms, b_by = bound_ms(N * N * (5 * D + 2 * t11 + 4), 4 * (3 * N * D + 2 * N * t11 + N))
+    pairs, nbytes = N * N, 4 * (3 * N * D + 2 * N * t11 + N)
+    f32_ms, _ = bound_ms(pairs * (5 * D + 2 * t11 + 4), nbytes)
+    t_form, t_mma = 1e3 * pairs * (5 * D + 4) / PEAK_F32_FLOPS, 1e3 * 3 * pairs * 2 * t11 / PEAK_BF16_FLOPS
+    t_bytes, t_exp = 1e3 * nbytes / PEAK_BYTES_PER_S, 1e3 * pairs / exp_per_s
+    b_ms, b_by = max(t_form, t_mma, t_bytes), "operations" if max(t_form, t_mma) >= t_bytes else "bytes"
     stats["K2"] = dict(max_abs_err=err, ms=cuda_ms(torch, kern, 5),
                        plain_ms=cuda_ms(torch, lambda: rbf.kernel_weighted_plain(x, x, g11, v11), 2),
-                       bound_ms=b_ms, bound_by=b_by, bound_basis="f32")
+                       bound_ms=b_ms, bound_by=b_by, bound_basis="tensor_core")
     s2 = stats["K2"]
-    say(f"  K2: {s2['ms']:.3f} ms (plain {s2['plain_ms']:.1f} ms, bound {b_ms:.3f} ms by {b_by}, "
-        f"{100 * b_ms / s2['ms']:.1f}% of bound)")
+    say(f"  K2: {s2['ms']:.3f} ms (plain {s2['plain_ms']:.1f} ms); f32 bound {f32_ms:.3f} ms, "
+        f"{100 * f32_ms / s2['ms']:.1f}% of it; tensor-core bound {b_ms:.3f} ms by {b_by} (formation and "
+        f"reductions {t_form:.3f} ms, three bf16 passes {t_mma:.3f} ms), {100 * b_ms / s2['ms']:.1f}% of it; "
+        f"exponent floor {t_exp:.3f} ms, {100 * max(b_ms, t_exp) / s2['ms']:.1f}% of the larger")
     del x, v11, v65, g11
 
     # 3c. the bf16 tile cache
@@ -392,20 +413,33 @@ def main() -> None:
                        plain_ms=once_ms(torch, lambda: rbf.rbf_build_sym_tiles_plain(x, TILE)),
                        bound_ms=b_ms, bound_by=b_by, bound_basis="f32")
     torch.cuda.empty_cache()
-    v11 = randn(N, t11)
-    err5 = check_kernel(f"K5 rbf n={N} t={t11} passes=2", rbf.rbf_matvec_sym_cached(tiles, v11, N, TILE),
-                        rbf.rbf_matvec_sym_cached_plain(tiles, v11, N, TILE))
     # K5 reads the cache once, v once and writes y once; its products,
-    # npad^2 t multiply-adds per bf16 pass, are what a tensor core computes
+    # npad^2 t multiply-adds per bf16 pass, run on the tensor cores.  Timed at
+    # t = 11 (the cached step's CG) and t = 1 (a cached solve's)
     npad = -(-N // TILE) * TILE
-    b_ms, b_by = bound_ms(2 * npad * npad * t11 * 2, cache_bytes + 8 * N * t11, PEAK_BF16_FLOPS)
-    stats["K5"] = dict(max_abs_err=err5, ms=cuda_ms(torch, lambda: rbf.rbf_matvec_sym_cached(tiles, v11, N, TILE), 5),
-                       plain_ms=once_ms(torch, lambda: rbf.rbf_matvec_sym_cached_plain(tiles, v11, N, TILE)),
-                       bound_ms=b_ms, bound_by=b_by, bound_basis="tensor_core")
+    k5 = {}
+    for t in (t11, 1):
+        v = randn(N, t)
+        err5 = check_kernel(f"K5 rbf n={N} t={t} passes=2", rbf.rbf_matvec_sym_cached(tiles, v, N, TILE),
+                            rbf.rbf_matvec_sym_cached_plain(tiles, v, N, TILE))
+        b_ms, b_by = bound_ms(2 * npad * npad * t * 2, cache_bytes + 8 * N * t, PEAK_BF16_FLOPS)
+        k5[t] = dict(max_abs_err=err5, ms=cuda_ms(torch, lambda: rbf.rbf_matvec_sym_cached(tiles, v, N, TILE), 5),
+                     plain_ms=once_ms(torch, lambda: rbf.rbf_matvec_sym_cached_plain(tiles, v, N, TILE)),
+                     bound_ms=b_ms, bound_by=b_by)
+    stats["K5"] = dict(k5[t11], bound_basis="tensor_core", ms_t1=k5[1]["ms"], bound_ms_t1=k5[1]["bound_ms"])
     for key in ("K4", "K5"):
         s = stats[key]
         say(f"  {key}: {s['ms']:.3f} ms (plain {s['plain_ms']:.1f} ms, bound {s['bound_ms']:.3f} ms by "
             f"{s['bound_by']}, {100 * s['bound_ms'] / s['ms']:.1f}% of bound)")
+    say(f"  K5 at t=1: {k5[1]['ms']:.3f} ms (plain {k5[1]['plain_ms']:.1f} ms, bound {k5[1]['bound_ms']:.3f} ms by "
+        f"{k5[1]['bound_by']}, {100 * k5[1]['bound_ms'] / k5[1]['ms']:.1f}% of bound)")
+    # a reference for the byte bound: one read-only pass over the cache by a
+    # PyTorch reduction, the rate the card streams these bytes at
+    amax_ms = cuda_ms(torch, lambda: torch.amax(tiles.view(torch.int32)), 3)
+    say(f"  read-only pass over the cache (torch.amax, {cache_bytes / 1e9:.3f} GB): {amax_ms:.3f} ms, "
+        f"{cache_bytes / amax_ms / 1e9:.3f} TB/s ({100 * cache_bytes / amax_ms / 1e9 / (PEAK_BYTES_PER_S / 1e12):.1f}% "
+        f"of {PEAK_BYTES_PER_S / 1e12:.2f}); K5 at t=11 streams {cache_bytes / stats['K5']['ms'] / 1e9:.3f} TB/s, "
+        f"at t=1 {cache_bytes / k5[1]['ms'] / 1e9:.3f} TB/s")
     # the cached operator is symmetric: u^T (M w) = w^T (M u), with u and w
     # exact in bf16, so that the lo pass adds nothing, and nonnegative, so
     # that neither side is a cancelling sum
@@ -417,7 +451,7 @@ def main() -> None:
     if not asym <= 1e-5:
         fail("K5 is not symmetric")
     say(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    del x, tiles, v11, u, w, mw, mu
+    del x, tiles, v, u, w, mw, mu
     torch.cuda.empty_cache()
 
     def bench_settings():
@@ -862,9 +896,11 @@ def main() -> None:
         resid = float(torch.linalg.norm(apply(sol) + K._diag_op._diagonal()[:, None] * sol - y[:, None])
                       / torch.linalg.norm(y))
         del K, apply
+    k_s = stats["K4"]["ms"] / 1e3 + solve_counts["K5"] * stats["K5"]["ms_t1"] / 1e3
     say(f"  default-settings solve, cg_tolerance 1e-4: {solve_s:.3f} s, CG iterations {solve_iters} "
         f"(of at most {settings.max_cg_iterations.value()}), launches {solve_counts}, "
-        f"|(bf16(K) + noise I) x - y| / |y| = {resid:.2e}")
+        f"|(bf16(K) + noise I) x - y| / |y| = {resid:.2e}; K4 1 x {stats['K4']['ms']:.3f} ms + K5 "
+        f"{solve_counts['K5']} x {stats['K5']['ms_t1']:.3f} ms (t=1) = {k_s:.3f} s, {100 * k_s / solve_s:.1f}% of it")
     if not (torch.isfinite(sol).all() and resid <= 1e-3):
         fail("the default-settings solve on the cache missed its 1e-3 residual")
     if not (solve_iters and max(solve_iters) < settings.max_cg_iterations.value()):

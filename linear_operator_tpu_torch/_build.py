@@ -25,11 +25,14 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# The instantiation each source runs on the GP main path (RBF, d <= 4; K1 at
-# 72 columns, K3 at 16), by a part of its mangled name, for ptxas_report
+# The instantiation each source runs on the GP main path (RBF, d = 3; K1 at
+# 72 columns, K3 and K5 at 16, K2 at one k-step of 16), by a part of its
+# mangled name, for ptxas_report
 MAIN_PATH_KERNELS = {
     "kernel_matvec": "matvec_kernelILi0ELi9ELi4E",
     "kernel_matvec_sym": "sym_matvec_kernelILi0ELi2ELi4E",
+    "kernel_matvec_cached": "matvec_cached_kernelILi2E",
+    "kernel_weighted": "weighted_kernelILi0ELi1ELi3E",
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,5 +1,7 @@
 // The 3-pass bf16 contraction of the TPU kernels on Hopper's tensor cores,
-// shared by K1 (kernel_matvec.cu) and K3 (kernel_matvec_sym.cu).
+// shared by K1 (kernel_matvec.cu), K3 (kernel_matvec_sym.cu) and K2
+// (kernel_weighted.cu); K5 (kernel_matvec_cached.cu) takes its v split and
+// its bf16 product.
 //
 // The Pallas kernels contract a kernel tile with v through _dot_acc3
 // (linear_operator_tpu/ops/rbf.py): each f32 operand splits into hi =
@@ -138,6 +140,40 @@ __device__ __forceinline__ float covar_fast(float d2, float alpha) {
   } else {
     // (1 + d2 / (2 alpha))^-alpha
     return ex2_approx(-alpha * lg2_approx(1.0f + d2 / (2.0f * alpha)));
+  }
+}
+
+// dk/d(d2) of ops/rbf.py's TILE_COVARS dfn, for K2, divided by
+// dcovar_scale<COVAR>() (K2 multiplies its sums by that constant once, at the
+// end), with the exponent as covar_fast takes it.  Matern-1/2's weight is
+// singular at d = 0: a (near-)coincident pair gets weight 0, the plain
+// version's and the JAX package's convention.
+template <int COVAR>
+__device__ __forceinline__ constexpr float dcovar_scale() {
+  return COVAR == COVAR_RBF ? -0.5f : COVAR == COVAR_MATERN52 ? -5.0f / 6.0f : COVAR == COVAR_MATERN32 ? -1.5f : -0.5f;
+}
+
+template <int COVAR>
+__device__ __forceinline__ float dcovar_fast(float d2, float alpha) {
+  constexpr float LOG2E = 1.4426950408889634f;
+  if (COVAR == COVAR_RBF) {
+    // -(1/2) e^{-d2/2}
+    return ex2_approx(d2 * (-0.5f * LOG2E));
+  } else if (COVAR == COVAR_MATERN52) {
+    // -(5/6) (1 + sqrt5 d) e^{-sqrt5 d}
+    const float sd = 2.23606797749979f * sqrt_approx(d2 + 1e-30f);
+    return (1.0f + sd) * ex2_approx(-LOG2E * sd);
+  } else if (COVAR == COVAR_MATERN32) {
+    // -(3/2) e^{-sqrt3 d}
+    return ex2_approx((-LOG2E * 1.7320508075688772f) * sqrt_approx(d2 + 1e-30f));
+  } else if (COVAR == COVAR_MATERN12) {
+    // -e^{-d} / (2 d)
+    if (!(d2 > 1e-12f)) return 0.0f;
+    const float r = sqrt_approx(d2 + 1e-30f);
+    return __fdividef(ex2_approx(-LOG2E * r), r);
+  } else {
+    // -(1/2) (1 + d2 / (2 alpha))^(-alpha - 1)
+    return ex2_approx((-alpha - 1.0f) * lg2_approx(1.0f + d2 / (2.0f * alpha)));
   }
 }
 

@@ -4,179 +4,324 @@
 // Replaces the Pallas TPU kernel rbf_matvec_sym_cached /
 // _make_cached_matvec_kernel of linear_operator_tpu/ops/rbf.py.
 //
-// Tile pair s = (i, j), j >= i, adds K_ij v_j to the rows of block i and, for
+// Tile pair (i, j), j >= i, adds K_ij v_j to the rows of block i and, for
 // j > i only, K_ij^T v_i to the rows of block j; a diagonal tile holds its
-// whole symmetric block and adds once.
+// whole symmetric block and adds once.  With passes = 2, v splits into
+// hi = bf16(v) and lo = bf16(v - hi), as the TPU kernel splits it, and each
+// part is one bf16 product with f32 accumulation; passes = 1 takes hi alone.
 //
 // What bounds it on an H100: bytes.  At n = 1e5, tile 1024 it reads the 4851
 // tiles once, 1.02e10 bytes (3.04 ms at 3.35 TB/s); v and y are a few MB.  Its
-// products, 2 t multiply-adds per stored entry and bf16 pass, are what a
-// tensor core computes (0.45 ms at the bf16 peak for t = 11, two passes); on
-// the CUDA cores, as here, they cost ~6.6 ms at 67 TFLOP/s, so this kernel
-// cannot come within half of the byte bound.  A wgmma redesign is later work.
+// products, 2 t multiply-adds per stored entry, direction and pass, run on
+// the tensor cores (mma.sync m16n8k16, bf16 -> f32): ~0.65e12 flops at t = 11,
+// ~2 ms at the ~340 TFLOP/s mma.sync reaches, so they hide under the bytes.
 //
-// The two passes in one operand.  With passes = 2, v splits into hi = bf16(v)
-// and lo = bf16(v - hi), as the TPU kernel splits it; w = hi + lo is exact in
-// f32 (at most 17 significant bits), and an FMA forms K w without rounding
-// the product.  So one f32 FMA per entry and column computes what the TPU's
-// two bf16 x bf16 -> f32 passes compute, up to summation order (and without
-// their intermediate rounding).  passes = 1 takes w = hi.
-//
-// Design: the atomic one.  One CTA of 128 threads per (tile pair, strip of 128
-// rows of the tile); 64-bit offsets into the tiles, which hold more than 2^32
-// elements at n = 1e5.  The CTA walks the tile's columns in sub-blocks of 128:
-//  1. the 128 x 128 bf16 sub-block is staged in shared memory (16-byte
-//     streaming loads, a row pitch of 65 words against bank conflicts), with
-//     w of its columns (v_j) beside w of the strip's rows (v_i, staged once);
-//  2. thread c owns column c: it accumulates sum_r K[r][c] w_i[r] and adds it
-//     to y with atomicAdd (off-diagonal tiles only);
-//  3. thread r owns row r: it accumulates sum_c K[r][c] w_j[c] in registers
-//     over all sub-blocks, and adds it to y with one atomicAdd at the end.
-// y is carried transposed, (t, n), zeroed by the caller, so the atomics of a
-// warp land on consecutive addresses.  Rows and columns past n (the zero
-// padding of v) contribute nothing and receive nothing.  The order in which
+// Design: a stream of 128 x 128 sub-blocks into the tensor cores.
+//  - Work items are the sub-blocks (R, C) of 128-row strips R and 128-column
+//    blocks C with C in a tile at or right of R's tile, in row-major order,
+//    leaving out those wholly past n.  One persistent wave of CTAs (one per
+//    SM) takes an equal share each, so a CTA keeps one row strip for many
+//    items in a row.
+//  - Staging: a ring of NSTAGE shared-memory stages, each a sub-block (row
+//    pitch 272 bytes: the 8 rows an ldmatrix phase reads fall in 8 distinct
+//    16-byte bank groups, with or without .trans) and the split v of its
+//    columns, filled by 16-byte cp.async.cg.  NSTAGE - 1 items are in flight
+//    while one is consumed: ~130 KB a SM.
+//  - A prepass splits v into bf16 hi and lo B-fragment words once per launch
+//    (acc3_mma.cuh's split_v_kernel), zero past n and past t.  Padded points
+//    give nonzero kernel entries (K4 pads x with zeros), so only v's zeros
+//    keep them out of y.
+//  - Rows: warp w owns rows 16 w .. 16 w + 15 of the strip.  ldmatrix.x4
+//    gives the A fragments of K, the staged words of v_C are B.  t <= 8 takes
+//    one n8 block, 9-16 two.
+//  - Columns (off-diagonal tiles): warp w owns columns 16 w .. 16 w + 15 of
+//    the sub-block.  ldmatrix.x4.trans gives the A fragments of K^T from the
+//    same shared bytes; v_R's words are B, held in registers for the strip.
+//    A warp sums its columns over all 128 rows, so no cross-warp reduction
+//    is needed: it turns its column sums around in shared memory and adds
+//    them to y with one float4 atomicAdd per 4 columns and rhs.
+//  - The tensor cores truncate when they accumulate, so each sub-block's
+//    products go to fresh accumulators; the row ones are then added to the
+//    strip's row sums in f32 (round to nearest), which go to y with
+//    atomicAdd when the strip changes.
+// y is carried transposed, (t, ldo) with ldo = n rounded up to 4 (16-byte
+// aligned rows for the vector atomics), zeroed by the caller.  Offsets into the
+// cache are 64-bit: it holds 5.09e9 entries at n = 1e5.  The order in which
 // CTAs add to y varies from run to run: two runs differ in the last bits.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "covar.cuh"
+#include "acc3_mma.cuh"
 
 namespace {
 
-constexpr int SB = 128;           // sub-block edge, and threads per CTA
-constexpr int KP = SB / 2 + 1;    // row pitch of the staged sub-block, in 32-bit words
+constexpr int SB = 128;                      // sub-block edge
+constexpr int NW = 8;                        // warps per CTA: 16 rows and 16 columns each
+constexpr int NT = 32 * NW;                  // threads per CTA
+constexpr int NSTAGE = 4;                    // stages of the ring
+constexpr int KPITCH = SB * 2 + 16;          // bytes of a staged sub-block row
+constexpr int KBYTES = SB * KPITCH;          // bytes of a staged sub-block
+constexpr int VQ = 4 * (SB / 16) + 4;        // uint4 per rhs column of a staged v (+4: conflict-free loads)
+constexpr int TC = 16;                       // rhs columns, padded, at most
+constexpr int CP = 16 + 4;                   // floats a rhs of a warp's column sums (+4: conflict-free stores)
 
-// w = hi + lo (passes = 2) or hi (passes = 1), the bf16 parts of a, in f32
-__device__ __forceinline__ float split_bf16(float a, int passes) {
-  const float hi = __bfloat162float(__float2bfloat16_rn(a));
-  if (passes == 1) return hi;
-  return hi + __bfloat162float(__float2bfloat16_rn(a - hi));
+inline __host__ __device__ int out_stride(int n) { return (n + 3) & ~3; }
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
 }
 
-// rows [row0, row0 + SB) of v (n, t) as w, zero past n and past t, into s[SB][TP]
-template <int TP>
-__device__ __forceinline__ void stage_v(float* s, const float* v, int row0, int n, int t, int passes) {
-  for (int idx = threadIdx.x; idx < SB * TP; idx += SB) {
-    const int r = idx / TP, c = idx % TP;
-    s[idx] = (row0 + r < n && c < t) ? split_bf16(v[static_cast<size_t>(row0 + r) * t + c], passes) : 0.0f;
-  }
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&a)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
 }
 
-template <int TP>
-__global__ void __launch_bounds__(SB)
-matvec_cached_kernel(const __nv_bfloat16* __restrict__ tiles, const int* __restrict__ imap,
-                     const int* __restrict__ jmap, const float* __restrict__ v,
-                     float* __restrict__ out_t, int n, int t, int tile, int passes) {
+// The first item of row strip r: strips of tile row block b have ns - tb b
+// items each (ns strips and column blocks, tb of them a tile).
+__device__ __forceinline__ long long first_item(long long r, int ns, int tb) {
+  const long long b = r / tb, rr = r % tb;
+  return tb * (b * ns - tb * b * (b - 1) / 2) + rr * (ns - tb * b);
+}
+
+template <int TN>
+__global__ void __launch_bounds__(NT, 1)
+matvec_cached_kernel(const uint16_t* __restrict__ tiles, const uint4* __restrict__ vs, float* __restrict__ out_t,
+                     int n, int t, int tile, int nblk, int passes, long long nitems) {
+  constexpr int TP = 8 * TN;  // rhs columns, padded
   extern __shared__ float4 smem4[];
-  uint32_t* ks = reinterpret_cast<uint32_t*>(smem4);  // SB * KP words: bf16 pairs
-  float* wi = reinterpret_cast<float*>(ks + SB * KP);  // SB * TP, the strip's rows
-  float* wj = wi + SB * TP;                            // SB * TP, the sub-block's columns
+  unsigned char* kring = reinterpret_cast<unsigned char*>(smem4);          // NSTAGE x KBYTES
+  uint4* vring = reinterpret_cast<uint4*>(kring + NSTAGE * KBYTES);        // NSTAGE x TP x VQ
+  float* cpart = reinterpret_cast<float*>(vring + NSTAGE * TP * VQ);       // NW x TC x CP column sums
 
-  const int strips = tile / SB;
-  const long long pair = blockIdx.x / strips;
-  const int strip = blockIdx.x % strips;
-  const int bi = imap[pair], bj = jmap[pair];
-  const bool off_diag = bj > bi;
-  const int i0 = bi * tile + strip * SB;  // first row of the strip
-  if (i0 >= n) return;                    // a strip of padding rows
-  const int tid = threadIdx.x;
-  const __nv_bfloat16* strip_base =
-      tiles + static_cast<size_t>(pair) * tile * tile + static_cast<size_t>(strip * SB) * tile;
+  const int tb = tile / SB;           // sub-blocks a tile edge
+  const int ns = (n + SB - 1) / SB;   // strips (and column blocks) that hold points
+  const int m16 = ns * (SB / 16);     // 16-point chunks of the split v
+  const int ldo = out_stride(n);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, q = lane & 3;
 
-  stage_v<TP>(wi, v, i0, n, t, passes);
-  float acc_r[TP];
-#pragma unroll
-  for (int c = 0; c < TP; ++c) acc_r[c] = 0.0f;
+  // this CTA's share [i0, i1) of the items; item i0 is (r, c)
+  const long long i0 = nitems * blockIdx.x / gridDim.x;
+  const long long i1 = nitems * (blockIdx.x + 1) / gridDim.x;
+  if (i0 >= i1) return;
+  int lo = 0, hi = ns - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) / 2;
+    if (first_item(mid, ns, tb) <= i0) lo = mid; else hi = mid - 1;
+  }
+  int r = lo;
+  int c = static_cast<int>((r / tb) * tb + (i0 - first_item(r, ns, tb)));
 
-  for (int cb = 0; cb < strips; ++cb) {
-    const int j0 = bj * tile + cb * SB;  // first column of the sub-block
-    if (j0 >= n) break;                  // the rest of the tile is padding
-    __syncthreads();                     // the previous sub-block is consumed
-    stage_v<TP>(wj, v, j0, n, t, passes);
-    // 16 threads per row of 128 bf16, 8 rows per pass
-    for (int idx = tid; idx < SB * 16; idx += SB) {
-      const int r = idx / 16, q = idx % 16;
-      const uint4 u = __ldcs(reinterpret_cast<const uint4*>(strip_base + static_cast<size_t>(r) * tile +
-                                                             cb * SB) + q);
-      uint32_t* dst = ks + r * KP + 4 * q;
-      dst[0] = u.x;
-      dst[1] = u.y;
-      dst[2] = u.z;
-      dst[3] = u.w;
+  // copies of item (rr, cc) into stage st
+  auto stage = [&](int st, int rr, int cc) {
+    const int bi = rr / tb, bj = cc / tb;
+    const long long pair = static_cast<long long>(bi) * nblk - static_cast<long long>(bi) * (bi - 1) / 2 + (bj - bi);
+    const uint16_t* src = tiles + pair * tile * static_cast<long long>(tile) +
+                          static_cast<long long>(rr % tb) * SB * tile + (cc % tb) * SB;
+    unsigned char* dst = kring + st * KBYTES;
+    for (int idx = tid; idx < SB * 16; idx += NT) {
+      const int row = idx >> 4, ch = idx & 15;
+      cp_async16(dst + row * KPITCH + 16 * ch, src + static_cast<long long>(row) * tile + 8 * ch);
     }
-    __syncthreads();
+    uint4* vdst = vring + st * TP * VQ;
+    for (int idx = tid; idx < TP * 32; idx += NT) {
+      const int col = idx >> 5, e = idx & 31;
+      cp_async16(vdst + col * VQ + e, vs + (static_cast<size_t>(col) * m16 + 8 * cc) * 4 + e);
+    }
+  };
 
-    // 2. column c = tid, over the strip's rows
-    if (off_diag) {
-      const int c = tid;
-      float acc[TP];
+  float acc_r[TN][4];  // the strip's row sums: rows 16 warp + g (+8), rhs 8 nb + 2q (+1)
+  SplitB vr[SB / 16][TN];  // v of the strip as B: rows 16 kc + 2q (+8), rhs 8 nb + g
+  int cur = -1;            // the strip in the registers
+
+  auto flush_rows = [&]() {
 #pragma unroll
-      for (int k = 0; k < TP; ++k) acc[k] = 0.0f;
-      const int rend = min(SB, n - i0);
-      for (int r = 0; r < rend; ++r) {
-        const uint32_t word = ks[r * KP + (c >> 1)];
-        const float kv = __uint_as_float((c & 1) ? (word & 0xffff0000u) : (word << 16));
-        axpy_row<TP>(acc, kv, wi + r * TP);
+    for (int nb = 0; nb < TN; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = cur * SB + 16 * warp + g + 8 * (e >> 1);
+        const int col = 8 * nb + 2 * q + (e & 1);
+        if (row < n && col < t) atomicAdd(out_t + static_cast<size_t>(col) * ldo + row, acc_r[nb][e]);
       }
-      if (j0 + c < n) {
+  };
+
+  auto load_strip = [&]() {
 #pragma unroll
-        for (int k = 0; k < TP; ++k) {
-          if (k < t) atomicAdd(out_t + static_cast<size_t>(k) * n + j0 + c, acc[k]);
+    for (int kc = 0; kc < SB / 16; ++kc)
+#pragma unroll
+      for (int nb = 0; nb < TN; ++nb) {
+        const uint4 w = vs[(static_cast<size_t>(8 * nb + g) * m16 + r * (SB / 16) + kc) * 4 + q];
+        vr[kc][nb] = {{w.x, w.y}, {w.z, w.w}};
+      }
+#pragma unroll
+    for (int nb = 0; nb < TN; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_r[nb][e] = 0.0f;
+    cur = r;
+  };
+
+  // the item `ahead` places after (r, c), in row-major order
+  auto advance = [&](int& rr, int& cc) {
+    if (++cc == ns) {
+      ++rr;
+      cc = (rr / tb) * tb;
+    }
+  };
+
+  // fill the first NSTAGE - 1 stages
+  {
+    int rr = r, cc = c;
+    for (int s = 0; s < NSTAGE - 1; ++s) {
+      if (i0 + s < i1) stage(s, rr, cc);
+      cp_async_commit();
+      advance(rr, cc);
+    }
+  }
+  int pr = r, pc = c;  // the item whose copies are issued next
+  for (int s = 0; s < NSTAGE - 1; ++s) advance(pr, pc);
+
+  // lane addresses of ldmatrix: matrix lane / 8, its row lane % 8
+  const int mi = lane >> 3, mr = lane & 7;
+  const unsigned row_off = (16 * warp + mr + 8 * (mi & 1)) * KPITCH + 2 * 8 * (mi >> 1);  // + 32 kc
+  const unsigned col_off = (mr + 8 * (mi >> 1)) * KPITCH + 2 * (16 * warp + 8 * (mi & 1));  // + 16 kc KPITCH
+
+  for (long long it = i0; it < i1; ++it) {
+    const int st = static_cast<int>((it - i0) % NSTAGE);
+    asm volatile("cp.async.wait_group %0;" ::"n"(NSTAGE - 2));
+    __syncthreads();  // this item's copies have landed; the stage refilled below is consumed
+    if (it + NSTAGE - 1 < i1) stage(static_cast<int>((it - i0 + NSTAGE - 1) % NSTAGE), pr, pc);
+    cp_async_commit();
+    advance(pr, pc);
+    if (r != cur) {
+      if (cur >= 0) flush_rows();
+      load_strip();
+    }
+
+    const unsigned kbase = static_cast<unsigned>(__cvta_generic_to_shared(kring + st * KBYTES));
+    const uint4* vb = vring + st * TP * VQ;
+    const bool diag = c / tb == r / tb;
+
+    // rows: K (strip rows 16 warp.., columns 16 kc..) times v_c
+    float acc_t[TN][4];
+#pragma unroll
+    for (int nb = 0; nb < TN; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_t[nb][e] = 0.0f;
+#pragma unroll
+    for (int kc = 0; kc < SB / 16; ++kc) {
+      uint32_t a[4];
+      ldmatrix_x4(a, kbase + row_off + 32 * kc);
+#pragma unroll
+      for (int nb = 0; nb < TN; ++nb) {
+        const uint4 w = vb[(8 * nb + g) * VQ + 4 * kc + q];
+        mma_bf16(acc_t[nb], a, w.x, w.y);
+        if (passes == 2) mma_bf16(acc_t[nb], a, w.z, w.w);
+      }
+    }
+#pragma unroll
+    for (int nb = 0; nb < TN; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_r[nb][e] += acc_t[nb][e];
+
+    // columns: K^T (sub-block columns 16 warp.., strip rows 16 kc..) times v_r
+    if (!diag) {
+      float acc_c[TN][4];
+#pragma unroll
+      for (int nb = 0; nb < TN; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_c[nb][e] = 0.0f;
+#pragma unroll
+      for (int kc = 0; kc < SB / 16; ++kc) {
+        uint32_t a[4];
+        ldmatrix_x4_trans(a, kbase + col_off + 16 * KPITCH * kc);
+#pragma unroll
+        for (int nb = 0; nb < TN; ++nb) {
+          mma_bf16(acc_c[nb], a, vr[kc][nb].hi[0], vr[kc][nb].hi[1]);
+          if (passes == 2) mma_bf16(acc_c[nb], a, vr[kc][nb].lo[0], vr[kc][nb].lo[1]);
         }
       }
-    }
-
-    // 3. row r = tid, over the sub-block's columns
-    {
-      const int r = tid;
-      const uint32_t* row = ks + r * KP;
-      const int cend = min(SB, n - j0);
-      for (int c = 0; c < cend; c += 2) {
-        const uint32_t word = row[c >> 1];
-        axpy_row<TP>(acc_r, __uint_as_float(word << 16), wj + c * TP);
-        axpy_row<TP>(acc_r, __uint_as_float(word & 0xffff0000u), wj + (c + 1) * TP);
-      }
-    }
-  }
-  if (i0 + tid < n) {
+      // C fragment of acc_c: rows = columns 16 warp + g (+8) of the
+      // sub-block, columns = rhs 8 nb + 2q (+1); stored [rhs][column]
+      float* cw = cpart + warp * TC * CP;
 #pragma unroll
-    for (int k = 0; k < TP; ++k) {
-      if (k < t) atomicAdd(out_t + static_cast<size_t>(k) * n + i0 + tid, acc_r[k]);
+      for (int nb = 0; nb < TN; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cw[(8 * nb + 2 * q + (e & 1)) * CP + g + 8 * (e >> 1)] = acc_c[nb][e];
+      __syncwarp();
+      for (int idx = lane; idx < 4 * t; idx += 32) {
+        const int rhs = idx >> 2, j4 = idx & 3;
+        const int col = c * SB + 16 * warp + 4 * j4;
+        if (col < n)
+          atomicAdd(reinterpret_cast<float4*>(out_t + static_cast<size_t>(rhs) * ldo + col),
+                    *reinterpret_cast<const float4*>(cw + rhs * CP + 4 * j4));
+      }
+      __syncwarp();  // the sums are read before the next item's overwrite them
     }
+    advance(r, c);
   }
+  if (cur >= 0) flush_rows();
 }
 
-template <int TP>
-cudaError_t launch(const __nv_bfloat16* tiles, const int* imap, const int* jmap, const float* v,
-                   float* out_t, int n, int t, int tile, int npairs, int passes, cudaStream_t stream) {
-  const size_t smem = sizeof(uint32_t) * SB * KP + sizeof(float) * 2 * SB * TP;
-  auto kern = matvec_cached_kernel<TP>;
+int padded_columns(int t) { return t <= 8 ? 8 : 16; }
+
+// points of the split v: the strips that hold points
+long long padded_rows(int n) { return (static_cast<long long>(n) + SB - 1) / SB * SB; }
+
+template <int TN>
+cudaError_t launch(const uint16_t* tiles, const uint4* vs, float* out_t, int n, int t, int tile, int nblk,
+                   int passes, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(NSTAGE) * (KBYTES + sizeof(uint4) * 8 * TN * VQ) + sizeof(float) * NW * TC * CP;
+  auto kern = matvec_cached_kernel<TN>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const unsigned grid = static_cast<unsigned>(static_cast<long long>(npairs) * (tile / SB));
-  kern<<<grid, SB, smem, stream>>>(tiles, imap, jmap, v, out_t, n, t, tile, passes);
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) return err;
+  const int tb = tile / SB, ns = (n + SB - 1) / SB;
+  // items: strips of tile row block b (tb of them, fewer in the last) have ns - tb b each
+  long long nitems = 0;
+  for (int r = 0; r < ns; ++r) nitems += ns - (r / tb) * tb;
+  const unsigned grid = static_cast<unsigned>(nitems < sms ? nitems : sms);
+  kern<<<grid, NT, smem, stream>>>(tiles, vs, out_t, n, t, tile, nblk, passes, nitems);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// tiles (npairs, tile, tile) bf16 from kernel_build_sym_tiles; imap, jmap
-// (npairs,) int32; v (n, t) f32; out_t (t, n) f32 zeroed by the caller; all
-// contiguous on the device of `stream`.  1 <= t <= 16, passes 1 or 2, tile a
-// positive multiple of 128, npairs (tile / 128) < 2^31.  Returns the CUDA
-// error of the launch (0 when it was accepted).
-extern "C" int kernel_matvec_sym_cached(const void* tiles, const int* imap, const int* jmap,
-                                        const float* v, float* out_t, int n, int t, int tile,
-                                        int npairs, int passes, void* stream) {
-  if (n < 1 || t < 1 || t > 16 || tile < SB || tile % SB != 0 || npairs < 1 ||
-      (passes != 1 && passes != 2) || static_cast<long long>(npairs) * (tile / SB) >= (1LL << 31))
+// Bytes of the scratch that kernel_matvec_sym_cached takes for these shapes:
+// v split into bf16 words.
+extern "C" long long kernel_matvec_sym_cached_scratch(int n, int t) {
+  if (n < 1 || t < 1 || t > 16) return -1;
+  return static_cast<long long>(sizeof(uint4)) * padded_columns(t) * (padded_rows(n) / 16) * 4;
+}
+
+// tiles (npairs, tile, tile) bf16 from kernel_build_sym_tiles, in its
+// row-major triangle order (pair (i, j) at i nblk - i (i - 1) / 2 + j - i);
+// v (n, t) f32; out_t (t, ldo) f32 with ldo = n rounded up to a multiple of 4, zeroed
+// by the caller (columns past n are scratch); scratch of
+// kernel_matvec_sym_cached_scratch bytes, 16-byte aligned; all contiguous on
+// the device of `stream`.  1 <= t <= 16, passes 1 or 2, tile a positive
+// multiple of 128.  Returns the CUDA error of the launches (0 when they were
+// accepted).
+extern "C" int kernel_matvec_sym_cached(const void* tiles, const float* v, float* out_t, void* scratch, int n,
+                                        int t, int tile, int npairs, int passes, void* stream) {
+  const int nblk = tile >= SB ? (n + tile - 1) / tile : 0;
+  if (n < 1 || t < 1 || t > 16 || tile < SB || tile % SB != 0 || (passes != 1 && passes != 2) ||
+      static_cast<long long>(npairs) != static_cast<long long>(nblk) * (nblk + 1) / 2)
     return static_cast<int>(cudaErrorInvalidValue);
-  const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(tiles);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (t <= 4) return launch<4>(k, imap, jmap, v, out_t, n, t, tile, npairs, passes, s);
-  if (t <= 8) return launch<8>(k, imap, jmap, v, out_t, n, t, tile, npairs, passes, s);
-  if (t <= 12) return launch<12>(k, imap, jmap, v, out_t, n, t, tile, npairs, passes, s);
-  return launch<16>(k, imap, jmap, v, out_t, n, t, tile, npairs, passes, s);
+  const int tcols = padded_columns(t);
+  const int m16 = static_cast<int>(padded_rows(n) / 16);
+  uint4* vs = static_cast<uint4*>(scratch);
+  const long long work = static_cast<long long>(m16) * 4 * tcols;
+  split_v_kernel<<<static_cast<unsigned>(work / 256 + 1 < 8192 ? work / 256 + 1 : 8192), 256, 0, s>>>(
+      v, vs, 1, n, t, tcols, m16);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const uint16_t* k = static_cast<const uint16_t*>(tiles);
+  if (t <= 8) return static_cast<int>(launch<1>(k, vs, out_t, n, t, tile, nblk, passes, s));
+  return static_cast<int>(launch<2>(k, vs, out_t, n, t, tile, nblk, passes, s));
 }

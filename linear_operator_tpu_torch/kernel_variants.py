@@ -1,14 +1,19 @@
-"""Time variants of K1 and K3 beside the kernels as built, on one GPU.
+"""Time variants of the hand-written kernels beside the kernels as built, on
+one GPU.
 
-    python3 -m linear_operator_tpu_torch.kernel_variants
+    python3 -m linear_operator_tpu_torch.kernel_variants [source ...]
 
-Each variant is a copy of ``csrc/kernel_matvec.cu`` or
-``csrc/kernel_matvec_sym.cu`` with a textual change (:data:`VARIANTS`),
-compiled with the package's nvcc flags into ``_build/variants/`` and loaded
-in place of the built library.  At the main path's shapes (N = 100,000,
-d = 3, RBF; K3 at t = 11, K1 at t = 65) every library is timed with CUDA
-events, in turns, and held against ``kernel_matvec_acc3_plain``.  The
-variants say what holds each kernel back:
+Each variant is a copy of a kernel's source (``csrc/kernel_matvec.cu``,
+``kernel_matvec_sym.cu``, ``kernel_matvec_cached.cu`` or
+``kernel_weighted.cu``) with a textual change (:data:`VARIANTS`), compiled
+with the package's nvcc flags into ``_build/variants/`` and loaded in place of
+the built library.  At the main path's shapes (N = 100,000, d = 3, RBF; K3 at
+t = 11, K1 at t = 65, K2 at t = 11 on (x, x, g, v), K5 on the tile-1024 cache
+at t = 11 and t = 1, two passes) every library is timed with CUDA events, in
+turns, and held against its kernel's plain version in its own arithmetic
+(``kernel_matvec_acc3_plain``, ``kernel_weighted_acc3_plain`` on dx,
+``rbf_matvec_sym_cached_plain``).  The variants say what holds each kernel
+back ("wrong by design" ones are timed, not checked):
 
   K1 unroll2     the 16-point chunk loop unrolled twice (more overlap, more
                  registers);
@@ -20,12 +25,26 @@ variants say what holds each kernel back:
   K3 row_only    every tile treated as a diagonal one: no column
                  contribution, no column reduction (wrong by design);
   K3 no_atomic   the column sums are reduced but not added to y (wrong by
-                 design).
+                 design);
+  K5 no_mma      no products: the fragments are folded into the sums without
+                 an mma (wrong by design), so the stream alone is timed;
+  K5 no_staging  no copies of the tiles: the products run on whatever the
+                 ring holds (wrong by design), so the compute alone is timed;
+  K5 row_only    every sub-block treated as a diagonal one: no column half
+                 (wrong by design);
+  K5 no_atomic   the column sums are formed and turned around but not added
+                 to y (wrong by design);
+  K5 stages3     a ring of three stages instead of four;
+  K2 no_mma      no products: g and v's fragments are folded into s without
+                 an mma (wrong by design);
+  K2 no_form     no distance and no k': w = s (wrong by design);
+  K2 unroll2     the n8-block loop unrolled twice.
 
-Prints the main-path instantiation's ptxas report of each library, one line
-per library and round, then one JSON object of the medians.  Without a CUDA
-device it fails at once.  ``tests/test_torch_kernels.py`` checks that every
-variant still applies to its source.
+With source names (``kernel_matvec_cached kernel_weighted``), only their
+variants are built and timed.  Prints the main-path instantiation's ptxas report of each library, one line
+per library, call and round, then one JSON object of the medians.  Without a
+CUDA device it fails at once.  ``tests/test_torch_kernels.py`` checks that
+every variant still applies to its source.
 """
 
 from __future__ import annotations
@@ -58,6 +77,32 @@ VARIANTS = {
         "row_only": [("    const bool diag = bj == bi;", "    const bool diag = true;")],
         "no_atomic": [("        atomicAdd(reinterpret_cast<float4*>", "        if (s.x == 12345.0f) atomicAdd(reinterpret_cast<float4*>")],
     },
+    "kernel_matvec_cached": {
+        "no_mma": [
+            ("        mma_bf16(acc_t[nb], a, w.x, w.y);\n        if (passes == 2) mma_bf16(acc_t[nb], a, w.z, w.w);",
+             "        acc_t[nb][0] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ w.x ^ w.z);"),
+            ("          mma_bf16(acc_c[nb], a, vr[kc][nb].hi[0], vr[kc][nb].hi[1]);\n"
+             "          if (passes == 2) mma_bf16(acc_c[nb], a, vr[kc][nb].lo[0], vr[kc][nb].lo[1]);",
+             "          acc_c[nb][0] += __uint_as_float(a[0] ^ a[1] ^ a[2] ^ a[3] ^ vr[kc][nb].hi[0] ^ vr[kc][nb].lo[1]);"),
+        ],
+        "no_staging": [("      cp_async16(dst + row * KPITCH + 16 * ch, src + static_cast<long long>(row) * tile + 8 * ch);",
+                        "      if (row < 0) cp_async16(dst + row * KPITCH + 16 * ch, src + static_cast<long long>(row) * tile + 8 * ch);")],
+        "row_only": [("    const bool diag = c / tb == r / tb;", "    const bool diag = true;")],
+        "no_atomic": [("        if (col < n)\n          atomicAdd(", "        if (col < 0)\n          atomicAdd(")],
+        "stages3": [("constexpr int NSTAGE = 4;", "constexpr int NSTAGE = 3;")],
+    },
+    "kernel_weighted": {
+        "no_mma": [("        for (int mb = 0; mb < MB; ++mb) acc3(s[mb], ga[mb][ks], vf);",
+                    "        for (int mb = 0; mb < MB; ++mb) {\n"
+                    "          s[mb][0] += __uint_as_float(ga[mb][ks].hi[0] ^ ga[mb][ks].lo[1] ^ vf.hi[0]) * 1e-30f;\n"
+                    "          s[mb][1] += __uint_as_float(ga[mb][ks].hi[1] ^ ga[mb][ks].lo[2] ^ vf.hi[1]) * 1e-30f;\n"
+                    "          s[mb][2] += __uint_as_float(ga[mb][ks].hi[2] ^ ga[mb][ks].lo[3] ^ vf.lo[0]) * 1e-30f;\n"
+                    "          s[mb][3] += __uint_as_float(ga[mb][ks].hi[3] ^ ga[mb][ks].lo[0] ^ vf.lo[1]) * 1e-30f;\n"
+                    "        }")],
+        "no_form": [("            const float w = dcovar_fast<COVAR>(d2[r][c], alpha) * s[mb][2 * r + c];",
+                     "            const float w = s[mb][2 * r + c];")],
+        "unroll2": [("#pragma unroll 1\n    for (int nb", "#pragma unroll 2\n    for (int nb")],
+    },
 }
 
 
@@ -89,10 +134,14 @@ def main() -> None:
                          capture_output=True, text=True, check=True)
     print(f"card: {smi.stdout.strip().splitlines()[0]}", flush=True)
 
+    sources = sys.argv[1:] or list(VARIANTS)
+    if not set(sources) <= set(VARIANTS):
+        print(f"FAIL: sources are among {sorted(VARIANTS)}, got {sources}", file=sys.stderr, flush=True)
+        sys.exit(1)
     # the libraries as built, then one patched copy of the source per variant,
     # all compiled at once
-    _build.build(list(VARIANTS))
-    libs = {(src, "built"): _build.library_path(src) for src in VARIANTS}
+    _build.build(sources)
+    libs = {(src, "built"): _build.library_path(src) for src in sources}
     logs = {key: path.with_suffix(".log").read_text() for key, path in libs.items()}
     work = _build.BUILD_DIR / "variants"
     shutil.rmtree(work, ignore_errors=True)
@@ -100,8 +149,8 @@ def main() -> None:
     for header in _build.CSRC.glob("*.cuh"):
         shutil.copy(header, work / header.name)
     procs = {}
-    for src, variants in VARIANTS.items():
-        for name in variants:
+    for src in sources:
+        for name in VARIANTS[src]:
             cu = work / f"{src}-{name}.cu"
             cu.write_text(patched(src, name))
             cmd = [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)]
@@ -120,11 +169,28 @@ def main() -> None:
     gen = torch.Generator(device=dev).manual_seed(0)
     n, d = 100_000, 3
     x = torch.randn(n, d, device=dev, generator=gen) / (math.log(2.0) + 1e-6)
-    v = {"kernel_matvec_sym": torch.randn(n, 11, device=dev, generator=gen),
-         "kernel_matvec": torch.randn(n, 65, device=dev, generator=gen)}
-    calls = {"kernel_matvec_sym": lambda: rbf.kernel_matvec_sym(x, v["kernel_matvec_sym"]),
-             "kernel_matvec": lambda: rbf.kernel_matvec(x, x, v["kernel_matvec"])}
-    ref = {src: rbf.kernel_matvec_acc3_plain(x, x, v[src]) for src in VARIANTS}
+    v11, v65, g11, v1 = (torch.randn(n, t, device=dev, generator=gen) for t in (11, 65, 11, 1))
+
+    def dx(out):
+        wx, ws = out
+        return 2.0 * (ws[:, None] * x - wx)
+
+    # the K4 cache the K5 calls read: built by the kernel as built (9.47 GiB)
+    tiles = rbf.rbf_build_sym_tiles(x, 1024)
+    # source -> (label, call, its output as compared, the plain version's)
+    calls = {
+        "kernel_matvec_sym": [("t=11", lambda: rbf.kernel_matvec_sym(x, v11), lambda y: y,
+                               rbf.kernel_matvec_acc3_plain(x, x, v11))],
+        "kernel_matvec": [("t=65", lambda: rbf.kernel_matvec(x, x, v65), lambda y: y,
+                           rbf.kernel_matvec_acc3_plain(x, x, v65))],
+        "kernel_weighted": [("t=11", lambda: rbf.kernel_weighted(x, x, g11, v11), dx,
+                             dx(rbf.kernel_weighted_acc3_plain(x, x, g11, v11)))],
+        "kernel_matvec_cached": [
+            (f"t={v.shape[1]}", (lambda v=v: rbf.rbf_matvec_sym_cached(tiles, v, n, 1024)), lambda y: y,
+             rbf.rbf_matvec_sym_cached_plain(tiles, v, n, 1024))
+            for v in (v11, v1)
+        ],
+    }
 
     def cuda_ms(fn) -> float:
         fn()
@@ -137,21 +203,24 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / REPS
 
-    times = {key: [] for key in libs}
+    calls = {src: calls[src] for src in sources}
+    times = {(key, label): [] for key in libs for label, *_ in calls[key[0]]}
     errs = {}
     for rnd in range(ROUNDS):
         for key, path in libs.items():
             src = key[0]
             _build.load(src, path)
-            y = calls[src]()
-            torch.cuda.synchronize()
-            err = float((y - ref[src]).abs().max() / ref[src].abs().max())
-            errs[key] = err if math.isfinite(err) else None
-            times[key].append(cuda_ms(calls[src]))
-            print(f"round {rnd} {src} {key[1]}: {times[key][-1]:.3f} ms, vs acc3 {err:.2e}", flush=True)
-    print(json.dumps({f"{src} {name}": dict(ms=statistics.median(times[(src, name)]), err=errs[(src, name)],
-                                            ptxas=registers(logs[(src, name)], src))
-                      for src, name in libs}))
+            for label, call, out, ref in calls[src]:
+                y = out(call())
+                torch.cuda.synchronize()
+                err = float((y - ref).abs().max() / ref.abs().max())
+                errs[(key, label)] = err if math.isfinite(err) else None
+                times[(key, label)].append(cuda_ms(call))
+                print(f"round {rnd} {src} {key[1]} {label}: {times[(key, label)][-1]:.3f} ms, vs plain {err:.2e}",
+                      flush=True)
+    print(json.dumps({f"{src} {name} {label}": dict(ms=statistics.median(ts), err=errs[((src, name), label)],
+                                                    ptxas=registers(logs[(src, name)], src))
+                      for ((src, name), label), ts in times.items()}))
 
 
 if __name__ == "__main__":

@@ -27,12 +27,14 @@ Inputs are pre-scaled by the lengthscale and the result is scaled by the
 outputscale outside the kernels, in PyTorch.  ``covar`` names a
 ``TILE_COVARS`` entry.
 
-K1 and K3 contract on the tensor cores as the Pallas kernels do
-(``_dot_acc3``): three bf16 products with f32 accumulation;
-:func:`kernel_matvec_acc3_plain` repeats that arithmetic in PyTorch.
+K1 and K3 contract K v, and K2 forms g v^T, on the tensor cores as the
+Pallas kernels do (``_dot_acc3``): three bf16 products with f32
+accumulation; :func:`kernel_matvec_acc3_plain` and
+:func:`kernel_weighted_acc3_plain` repeat that arithmetic in PyTorch.  K5
+streams its bf16 tiles into the tensor cores, one product per bf16 part of v.
 
-Each wrapper takes its kernel's plain PyTorch version (``*_plain``, for K1
-and K3 the full-precision one) for tensors on the CPU, launches the kernel
+Each wrapper takes its kernel's plain PyTorch version (``*_plain``, for K1,
+K2 and K3 the full-precision one) for tensors on the CPU, launches the kernel
 for tensors on a CUDA device, and raises for anything else.
 ``<wrapper>.launches`` counts the kernel launches.
 K1 and K3 are ``torch.autograd.Function``s whose backward is K2 (x-gradients)
@@ -205,6 +207,22 @@ def kernel_weighted_plain(x1, x2, g, v, covar: str = "rbf", block_entries: int =
             w = dfn(sq_dist(x1[..., blk, :], x2)) * torch.matmul(g[..., blk, :], v.mT)
             wx.append(torch.matmul(w, x2))
             ws.append(torch.sum(w, dim=-1))
+    return torch.cat(wx, dim=-2), torch.cat(ws, dim=-1)
+
+
+def kernel_weighted_acc3_plain(x1, x2, g, v, covar: str = "rbf", block_entries: int = 2**27):
+    """Plain version of K2 in its own arithmetic: :func:`kernel_weighted_plain`
+    with g v^T contracted by :func:`dot_acc3`, as the TPU kernel's
+    ``_dot_acc3`` and the card's three bf16 products compute it."""
+    dfn = TILE_COVARS[covar].dfn
+    rows = max(1, block_entries // max(1, x2.shape[-2]))
+    wx, ws = [], []
+    for s in range(0, x1.shape[-2], rows):
+        blk = slice(s, s + rows)
+        w = dfn(sq_dist(x1[..., blk, :], x2)) * dot_acc3(g[..., blk, :], v.mT)
+        with highest_matmul_precision():
+            wx.append(torch.matmul(w, x2))
+        ws.append(torch.sum(w, dim=-1))
     return torch.cat(wx, dim=-2), torch.cat(ws, dim=-1)
 
 
@@ -417,17 +435,8 @@ class _KernelMatvecSym(torch.autograd.Function):
         return dx, dv, None
 
 
-# Columns of g and v per K2 CTA (TP in csrc/kernel_weighted.cu): g's rows sit
-# in registers, so a wide t runs as several column chunks whose partials add.
-WEIGHTED_COLUMNS = (4, 8, 12, 16, 24, 32)
-
-
-def _weighted_columns(t: int) -> int:
-    """K2's columns per CTA for a t-column g and v: as few chunks as possible
-    (at most 32 columns each), each as narrow as WEIGHTED_COLUMNS allows
-    (t = 11 runs as one chunk of 12, t = 65 as three of 24)."""
-    need = _cdiv(t, _cdiv(t, 32))
-    return next(c for c in WEIGHTED_COLUMNS if c >= need)
+# Columns of g and v that K2 takes (its k-steps of 16 sit in registers)
+WEIGHTED_MAX_COLUMNS = 128
 
 
 def kernel_weighted(x1, x2, g, v, covar: str = "rbf"):
@@ -435,8 +444,10 @@ def kernel_weighted(x1, x2, g, v, covar: str = "rbf"):
     never storing W.
 
     x1 (*b, n, d), x2 (*b, m, d), g (*b, n, t), v (*b, m, t) -> (*b, n, d),
-    (*b, n), with at most one batch dim.  The callers assemble
-    2 (rowsum(W) x1 - W @ x2), the x1-gradient of sum(g * (k(x1, x2) @ v))."""
+    (*b, n), with at most one batch dim; on the card t <= 128.  The callers
+    assemble 2 (rowsum(W) x1 - W @ x2), the x1-gradient of
+    sum(g * (k(x1, x2) @ v)).  g v^T runs as the TPU kernel's ``_dot_acc3``
+    (:func:`kernel_weighted_acc3_plain` repeats that arithmetic)."""
     if not _on_cuda(x1, x2, g, v):
         return kernel_weighted_plain(x1, x2, g, v, covar)
     spec = TILE_COVARS[covar]
@@ -449,17 +460,20 @@ def kernel_weighted(x1, x2, g, v, covar: str = "rbf"):
             f"g {tuple(g.shape)}, v {tuple(v.shape)}"
         )
     _check_kernel_inputs((a, b, gg, w), d)
-    tp = _weighted_columns(t)
-    # one partial result per (split of K1_SPLIT x2 points, column chunk)
-    parts = _cdiv(m, K1_SPLIT) * _cdiv(t, tp)
+    if t > WEIGHTED_MAX_COLUMNS:
+        raise ValueError(f"K2 takes 1..{WEIGHTED_MAX_COLUMNS} columns of g and v, got {t}")
+    # one partial result per split of K1_SPLIT x2 points
+    parts = _cdiv(m, K1_SPLIT)
     wx = torch.empty((parts, nb, n, d), dtype=torch.float32, device=a.device)
     ws = torch.empty((parts, nb, n), dtype=torch.float32, device=a.device)
+    # x2 padded and v split into bf16 words by the launch's prepass
+    scratch = _scratch("kernel_weighted", "kernel_weighted_f32", a.device, nb, m, d, t)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     _launch(
         "kernel_weighted", "kernel_weighted_f32",
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
-        a.data_ptr(), b.data_ptr(), gg.data_ptr(), w.data_ptr(), wx.data_ptr(), ws.data_ptr(),
-        nb, n, m, d, t, tp, spec.covar_id, spec.alpha, stream,
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+        a.data_ptr(), b.data_ptr(), gg.data_ptr(), w.data_ptr(), wx.data_ptr(), ws.data_ptr(), scratch.data_ptr(),
+        nb, n, m, d, t, spec.covar_id, spec.alpha, stream,
     )
     kernel_weighted.launches += 1
     wx, ws = (wx[0], ws[0]) if parts == 1 else (wx.sum(dim=0), ws.sum(dim=0))
@@ -611,19 +625,18 @@ def rbf_matvec_sym_cached(tiles, v, n: int, tile: int = 1024, passes: int = 2) -
         raise TypeError(f"the kernels take float32, got {v.dtype}")
     if not (tiles.is_contiguous() and v.is_contiguous()):
         raise ValueError("the kernels take contiguous tensors")
-    if npairs * (tile // CACHE_TILE_EDGE) >= 2**31:
-        raise ValueError(f"K5 takes fewer than 2^31 row strips, got n={n}, tile={tile}")
-    im, jm = _triangle_maps(nblk, v.device)
-    out_t = torch.zeros((t, n), dtype=torch.float32, device=v.device)
+    # rows of n rounded up to 4 floats, for the kernel's 16-byte atomics
+    out_t = torch.zeros((t, 4 * _cdiv(n, 4)), dtype=torch.float32, device=v.device)
+    # v split into bf16 words by the launch's prepass
+    scratch = _scratch("kernel_matvec_cached", "kernel_matvec_sym_cached", v.device, n, t)
     stream = torch.cuda.current_stream(v.device).cuda_stream
     _launch(
         "kernel_matvec_cached", "kernel_matvec_sym_cached",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        tiles.data_ptr(), im.data_ptr(), jm.data_ptr(), v.data_ptr(), out_t.data_ptr(),
-        n, t, tile, npairs, passes, stream,
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        tiles.data_ptr(), v.data_ptr(), out_t.data_ptr(), scratch.data_ptr(), n, t, tile, npairs, passes, stream,
     )
     rbf_matvec_sym_cached.launches += 1
-    return out_t.mT
+    return out_t[:, :n].mT
 
 
 rbf_matvec_sym_cached.launches = 0

@@ -19,7 +19,8 @@ K4's bf16 tiles are held entry by entry: at most one bf16 ulp apart, and at
 least 99.9% bit-identical (CUDA's expf and torch's exp may differ by an f32
 ulp, which now and then crosses a bf16 rounding boundary).  K5 is compared
 with its plain version on K4's own tiles, so that it sees only summation
-order.
+order.  K2 forms g v^T as K1 and K3 contract (three bf16 products): it is
+held to ``kernel_weighted_acc3_plain`` at 1e-5 and to full precision at 1e-4.
 """
 
 import numpy as np
@@ -170,32 +171,45 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 
 
 def _weighted_close(x1, x2, g, v, name="rbf"):
-    """K2's two outputs and the assembled dx = 2 (ws x1 - wx) against the
-    plain version: dx is a difference of large sums, so it is held too."""
+    """K2's two outputs and the assembled dx = 2 (ws x1 - wx) against both
+    plain versions: its own arithmetic (g v^T through dot_acc3) to 1e-5, full
+    precision to 1e-4.  dx is a difference of large sums, so it is held too."""
     wx, ws = rbf.kernel_weighted(x1, x2, g, v, name)
-    pwx, pws = rbf.kernel_weighted_plain(x1, x2, g, v, name)
-    _close(wx, pwx)
-    _close(ws, pws)
-    _close(2.0 * (ws[..., None] * x1 - wx), 2.0 * (pws[..., None] * x1 - pwx))
+    dx = 2.0 * (ws[..., None] * x1 - wx)
+    for plain, rtol in ((rbf.kernel_weighted_acc3_plain, ACC3_RTOL), (rbf.kernel_weighted_plain, RTOL)):
+        pwx, pws = plain(x1, x2, g, v, name)
+        _close(wx, pwx, rtol)
+        _close(ws, pws, rtol)
+        _close(dx, 2.0 * (pws[..., None] * x1 - pwx), rtol)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [3, 16])
+@pytest.mark.parametrize("d", [1, 3, 8, 9, 16])
 @pytest.mark.parametrize("covar", COVARS)
 def test_k2_matches_plain(cuda, covar, d):
-    # ragged n != m of distinct points (Matern-1/2's k' is singular on a
-    # coincident pair); t = 11 runs as one column chunk of 12, t = 65 as three
-    # of 24; d = 16 takes the quadratic form
-    x1, x2, g11, v11, g65, v65 = _data(
-        cuda, 12, (700, d), (1000, d), (700, 11), (1000, 11), (700, 65), (1000, 65)
-    )
+    """Ragged n = 700 against m = 5000 points, which span two of K2's
+    4096-point partial sums; t = 1, 11, 16 take one k-step of 16, t = 33 and
+    65 several.  d > 8 takes the quadratic form, on a 1/64 grid where it is
+    exact in f32.  At d = 1, x2 lies on a 1/8 grid and x1 on that grid
+    shifted by 1/16: Matern-1/2's k' = -e^{-r} / (2r) is unbounded as a pair
+    closes, and 3.5e6 random pairs on a line come within r ~ 1e-6 (weight
+    ~5e5), where the f32 rounding of ws x1 and W x2 (each ~5e5) swamps their
+    difference dx (~1e2) in any two summation orders: there the f32 plain
+    version lies 1.5e-3 of dx from an f64 run, on a 1/64 grid shifted by
+    1/128 still 1.1e-5, on this one 3e-6 (measured on the CPU)."""
+    x1, x2 = _data(cuda, 12 + d, (700, d), (5000, d))
     x1, x2 = x1 / np.sqrt(d), x2 / np.sqrt(d)
-    for g, v in ((g11, v11), (g65, v65)):
+    if d > 8:
+        x1, x2 = torch.round(64 * x1) / 64, torch.round(64 * x2) / 64
+    elif d == 1:
+        x1, x2 = (torch.round(8 * x1) + 0.5) / 8, torch.round(8 * x2) / 8
+    for t in (1, 11, 16, 33, 65):
+        g, v = _data(cuda, 100 + t, (700, t), (5000, t))
         _weighted_close(x1, x2, g, v, _name(covar))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("t", [1, 5, 33])
+@pytest.mark.parametrize("t", range(1, rbf.WEIGHTED_MAX_COLUMNS + 1))
 def test_k2_every_column_width(cuda, t):
     x1, x2, g, v = _data(cuda, 13, (333, 3), (444, 3), (333, t), (444, t))
     _weighted_close(x1, x2, g, v)
@@ -207,10 +221,18 @@ def test_k2_two_splits_and_batch(cuda):
     # grid dimension
     x1, x2, g, v = _data(cuda, 14, (2, 300, 3), (2, 5000, 3), (2, 300, 11), (2, 5000, 11))
     wx, ws = rbf.kernel_weighted(x1, x2, g, v)
-    want = [rbf.kernel_weighted_plain(x1[b], x2[b], g[b], v[b]) for b in range(2)]
-    _close(wx, torch.stack([w[0] for w in want]))
-    _close(ws, torch.stack([w[1] for w in want]))
+    for plain, rtol in ((rbf.kernel_weighted_acc3_plain, ACC3_RTOL), (rbf.kernel_weighted_plain, RTOL)):
+        want = [plain(x1[b], x2[b], g[b], v[b]) for b in range(2)]
+        _close(wx, torch.stack([w[0] for w in want]), rtol)
+        _close(ws, torch.stack([w[1] for w in want]), rtol)
     _weighted_close(x1[0], x2[0], g[0], v[0])
+
+
+@pytest.mark.cuda
+def test_k2_refuses_what_it_does_not_take(cuda):
+    x, g = _data(cuda, 33, (64, 3), (64, rbf.WEIGHTED_MAX_COLUMNS + 1))
+    with pytest.raises(ValueError, match="columns"):
+        rbf.kernel_weighted(x, x, g, g)
 
 
 def _grads(fn, *inputs, weights):
@@ -292,6 +314,33 @@ def test_k4_k5_match_plain(cuda, covar, d, n, tile):
         for passes in (1, 2):
             _close(rbf.rbf_matvec_sym_cached(tiles, v, n, tile, passes),
                    rbf.rbf_matvec_sym_cached_plain(tiles, v, n, tile, passes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", range(1, rbf.SYM_MAX_COLUMNS + 1))
+def test_k5_every_column_width(cuda, t):
+    """K5 at every t, both passes, on ragged n for tile 128 (n = 1000: a
+    ragged 128-row strip) and tile 1024 (n = 2500: a ragged last tile)."""
+    for n, tile in ((1000, 128), (2500, 1024)):
+        x, v = _data(cuda, 34 + t, (n, 3), (n, t))
+        tiles = rbf.rbf_build_sym_tiles(x, tile)
+        for passes in (1, 2):
+            _close(rbf.rbf_matvec_sym_cached(tiles, v, n, tile, passes),
+                   rbf.rbf_matvec_sym_cached_plain(tiles, v, n, tile, passes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, tile", [(3000, 128), (5000, 1024)])
+def test_k5_is_symmetric(cuda, n, tile):
+    """u^T (M w) = w^T (M u) for the cached operator M, with u and w exact in
+    bf16 (the lo pass adds nothing) and nonnegative (no cancelling sums): K5
+    uses each off-diagonal sub-block for rows and, transposed, for columns."""
+    (x,) = _data(cuda, 73, (n, 3))
+    u, w = (a.abs().to(torch.bfloat16).float() for a in _data(cuda, 74, (n, 1), (n, 1)))
+    tiles = rbf.rbf_build_sym_tiles(x, tile)
+    mw, mu = (rbf.rbf_matvec_sym_cached(tiles, a, n, tile) for a in (w, u))
+    a, b = float((u.double() * mw.double()).sum()), float((w.double() * mu.double()).sum())
+    assert abs(a - b) <= 1e-5 * abs(a), (a, b)
 
 
 @pytest.mark.cuda

@@ -6,7 +6,9 @@ the JAX side runs K1 and K2 in Pallas interpret mode (a 3-pass bf16 product,
 ~1e-5 relative to exact f32, hence rtol 1e-4 for K1, K2 and every gradient)
 and K3 through its dense f32 HIGHEST fallback (rtol 1e-5).
 ``kernel_matvec_acc3_plain``, which repeats the 3-pass product as the CUDA
-K1 and K3 compute it, is held to the Pallas K1 at 3e-6.  Errors are taken
+K1 and K3 compute it, is held to the Pallas K1 at 3e-6, and
+``kernel_weighted_acc3_plain`` (g v^T as the CUDA K2 forms it) to the Pallas
+K2's rowsum(W) at 1e-6.  Errors are taken
 relative to the largest entry of the result (``atol = rtol * max|ref|``): a sum of signed terms has
 entries near 0 whose relative error means nothing.  Inputs are made with a
 seeded numpy generator and handed to both packages.
@@ -193,8 +195,11 @@ def _dx(wx, ws, x1):
 
 
 # every covariance at d = 3, the quadratic form (d = 16) for two, and a wide
-# rhs (t = 65, the posterior gradient's width)
-K2_CASES = [(c, 3, 11) for c in COVARS] + [("rbf", 16, 11), ("matern12", 16, 11), ("matern32", 3, 65)]
+# rhs (t = 65, the posterior gradient's width, which the card runs as five
+# k-steps of one pass)
+K2_CASES = [(c, 3, 11) for c in COVARS] + [
+    ("rbf", 16, 11), ("matern12", 16, 11), ("matern32", 3, 65), ("rbf", 3, 65),
+]
 
 
 @pytest.mark.parametrize("covar, d, t", K2_CASES)
@@ -211,6 +216,36 @@ def test_k2_plain_matches_jax(covar, d, t):
     _close(ws, jws, 1e-4)
     # the assembled gradient, a difference of the two sums
     _close(_dx(wx, ws, x1), _dx(jwx, jws, x1), 1e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("d", [3, 16])
+@pytest.mark.parametrize("covar", COVARS)
+def test_k2_acc3_plain_matches_jax(covar, d, seed):
+    """The plain version of K2 in the card's arithmetic (g v^T through
+    dot_acc3) against the Pallas K2 in interpret mode, which forms g v^T with
+    _dot_acc3 too.  rowsum(W) agrees to 1e-6, 5x tighter than the
+    full-precision plain version's ~5e-6; W x2 and dx only to 3e-5, because
+    the TPU kernel also contracts W with x2 by _dot_acc3 (~1e-5), where the
+    card and this plain version sum W x2 in f32."""
+    x1, x2, g, v = _data(seed, (300, d), (520, d), (300, 11), (520, 11))
+    scale = np.float32(1.0 / np.sqrt(d))
+    x1, x2 = x1 * scale, x2 * scale
+    if d > 8:
+        # a 1/16 grid, where the quadratic form is exact in f32 (see
+        # test_k3_backward_matches_jax: Matern-1/2 on coincident points)
+        x1, x2 = (np.round(16 * a).astype(np.float32) / np.float32(16) for a in (x1, x2))
+    jname, tname = _names(covar)
+    jwx, jws = jrbf._pallas_weighted(*map(jnp.asarray, (x1, x2, g, v)), 512, jname)
+    args = [torch.from_numpy(a) for a in (x1, x2, g, v)]
+    wx, ws = trbf.kernel_weighted_acc3_plain(*args, tname)
+    assert wx.shape == (300, d) and ws.shape == (300,) and wx.dtype == torch.float32
+    _close(ws, jws, 1e-6)
+    _close(wx, jwx, 3e-5)
+    _close(_dx(wx, ws, x1), _dx(jwx, jws, x1), 3e-5)
+    pwx, pws = trbf.kernel_weighted_plain(*args, tname)
+    _close(wx, pwx, 1e-4)
+    _close(ws, pws, 1e-4)
 
 
 def _torch_grads(fn, inputs, weights):
