@@ -10,14 +10,17 @@ Phases, each reported on its own line:
     card, for each covariance at small shapes (each against both plain
     versions: full precision, and kernel_matvec_acc3_plain or
     kernel_weighted_acc3_plain, their own 3-pass bf16 arithmetic), and the
-    backwards of K1 and K3 against autograd through the plain version; then
-    each RBF kernel at the shapes of the main path, timed with CUDA events
-    beside its bounds, and K3's symmetry;
+    backwards of K1 and K3 against autograd through the plain version; K1,
+    K2, K3 and K4 at d = 200, K1 and K3 at a batch of 65537 (two launches
+    each); then each RBF kernel at the shapes of the main path, timed with
+    CUDA events beside its bounds, K3's symmetry, and K2 at t = 201 (two
+    launches, 128 + 73 columns);
     3c. the bf16 tile cache: K4 and K5 against their plain versions for each
     covariance (K5 on K4's own tiles), then both at N = 100,000, tile 1024,
-    timed beside their bounds (K5 at t = 11 and t = 1), K5's symmetry, and
-    one read-only pass over the cache with torch.amax as a measured
-    streaming rate (a reference, not a bound);
+    timed beside their bounds (K4 over 5 launches, K5 at t = 11 and t = 1),
+    K5's symmetry, and as measured rates (references, not bounds) one
+    write-only pass over a tensor of the cache's size (fill_) beside K4 and
+    one read-only pass over the cache (torch.amax) beside K5;
  4. check a small exact-GP MLL against the CPU run of the same model;
  5. the main path, through the entry points a user calls: the exact-GP
     negative MLL at N = 100,000, d = 3 with the benchmark's settings (K3 must
@@ -32,6 +35,13 @@ Phases, each reported on its own line:
     size (the backward runs no CG, and must make two K2 launches and one K3
     launch, the bilinear form's own mat-vec), held against the plain path's
     gradients on the same probes, then three Adam steps;
+    6b. the posterior backward at N = 100,000, m = 200 query points:
+    (sum(mean) + sum(var)).backward(), whose two K2 calls of 201 columns must
+    make two launches each; at N = 20,000 with CG run to 1e-5, its gradient
+    held at noise 1.0 against the plain path and against the exact gradient
+    (f64, Cholesky): no further from it than the plain f32 path, plus
+    PATH_RTOL; at noise 0.127 reported so, and held so with K1's launches in
+    full precision (K2's chunked launches kept);
  8. the tile-cache path at N = 100,000, noise 1.0: a kernel operator with
     matvec_closure_impl=rbf_fused_closure, through inv_quad_logdet and
     solve.  (a) |bf16(K) - K|_2 by power iteration; (b) the training step
@@ -42,7 +52,8 @@ Phases, each reported on its own line:
     residual on the cached operator; (f) three Adam steps;
  7. one JSON line listing every ported kernel with its launches, error,
     times and bound (bound_basis: the f32 rate for K4, the tensor cores' for
-    K1, K2, K3 and K5; K5's t = 1 time as ms_t1), then, as the last line,
+    K1, K2, K3 and K5; K5's t = 1 time as ms_t1, the write-only pass beside
+    K4 as write_only_ms), then, as the last line,
     {"ok": true, "device": {...}}.
 
 Any failed check, or any exception, exits non-zero without the last line.
@@ -212,6 +223,28 @@ def main() -> None:
             fail(f"{label}: kernel disagrees with its plain version")
         return err
 
+    def check_tiles(label, got, want, chunk=256):
+        """K4's tiles: at most one bf16 ulp from the plain version's, and at
+        least 99.9% bit-identical (the kernel's ex2.approx and torch.exp
+        differ by a few f32 ulps, which now and then crosses a bf16 rounding
+        boundary).  Compared in chunks of tile pairs; returns the largest
+        absolute difference."""
+        torch.cuda.synchronize()
+        ulp, same, err = 0, 0, 0.0
+        for s in range(0, got.shape[0], chunk):
+            a, b = got[s : s + chunk], want[s : s + chunk]
+            diff = (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
+            ulp = max(ulp, int(diff.max()))
+            same += int((diff == 0).sum())
+            err = max(err, float((a.float() - b.float()).abs().max()))
+        share = same / got.numel()
+        ok = got.shape == want.shape and ulp <= 1 and share >= 0.999
+        say(f"  {label}: max {ulp} bf16 ulp, {100 * share:.4f}% bit-identical, max_abs_err {err:.3e} "
+            f"{'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"{label}: K4 disagrees with its plain version")
+        return err
+
     def check_weighted(label, x1, x2, g, v, covar="rbf"):
         """K2's two outputs, and the dx = 2 (ws x1 - wx) its callers assemble
         from them (a difference of large sums), against both plain versions:
@@ -257,6 +290,29 @@ def main() -> None:
         check_both(f"K1 {covar} n=6000 m=8192 d=3 t=65", rbf.kernel_matvec(x1, x2, v, covar), x1, x2, v, covar)
     check_weighted("K2 rbf n=3000 m=5000 d=3 t=65 (five k-steps of 16)", randn(3000, D), randn(5000, D),
                    randn(3000, 65), randn(5000, 65))
+
+    # widths past the card's old limits, which the JAX package takes: d = 200
+    # (on a 1/64 grid, where the quadratic form is exact in f32), and a batch
+    # of 65537 GPs, which K1 and K3 run in two launches each (the batch is a
+    # grid dimension of at most 65535)
+    say("kernels past 128 dimensions and past a batch of 65535 vs plain:")
+    dw = 200
+    x1, x2 = (torch.round(64 * randn(n, dw) / math.sqrt(dw)) / 64 for n in (2000, 3000))
+    v, g, w = randn(3000, 11), randn(2000, 11), randn(2000, 11)
+    check_both(f"K1 rbf n=2000 m=3000 d={dw} t=11", rbf.kernel_matvec(x1, x2, v), x1, x2, v)
+    check_both(f"K3 rbf n=2000 d={dw} t=11", rbf.kernel_matvec_sym(x1, w), x1, x1, w)
+    check_weighted(f"K2 rbf n=2000 m=3000 d={dw} t=11", x1, x2, g, v)
+    check_tiles(f"K4 rbf n=2000 d={dw} tile={TILE}", rbf.rbf_build_sym_tiles(x1, TILE),
+                rbf.rbf_build_sym_tiles_plain(x1, TILE))
+    xb, vb = randn(65537, 16, D), randn(65537, 16, 5)
+    before = counts()
+    check_both("K1 rbf batch=65537 n=16 t=5", rbf.kernel_matvec(xb, xb, vb), xb, xb, vb)
+    check_both("K3 rbf batch=65537 n=16 t=5", rbf.kernel_matvec_sym(xb, vb), xb, xb, vb)
+    split = {key: counts()[key] - before[key] for key in ("K1", "K3")}
+    say(f"  batch of 65537: launches {split}")
+    if split != dict(K1=2, K3=2):
+        fail("a batch of 65537 did not run in two launches of K1 and of K3")
+    del x1, x2, v, g, w, xb, vb
 
     def grads(fn, inputs, weights):
         leaves = [t.clone().requires_grad_() for t in inputs]
@@ -351,30 +407,18 @@ def main() -> None:
         f"{100 * f32_ms / s2['ms']:.1f}% of it; tensor-core bound {b_ms:.3f} ms by {b_by} (formation and "
         f"reductions {t_form:.3f} ms, three bf16 passes {t_mma:.3f} ms), {100 * b_ms / s2['ms']:.1f}% of it; "
         f"exponent floor {t_exp:.3f} ms, {100 * max(b_ms, t_exp) / s2['ms']:.1f}% of the larger")
-    del x, v11, v65, g11
+    # K2 at t = 201, the width of the posterior backward at m = 200: two
+    # launches, of 128 and 73 columns, whose sums add
+    g201, v201 = randn(N, 201), randn(N, 201)
+    k2 = rbf.kernel_weighted.launches
+    check_weighted(f"K2 rbf n={N} d={D} t=201", x, x, g201, v201)
+    if rbf.kernel_weighted.launches - k2 != 2:
+        fail("K2 at t = 201 did not run as two launches")
+    say(f"  K2 at t=201 (two launches, 128 + 73 columns): "
+        f"{cuda_ms(torch, lambda: rbf.kernel_weighted(x, x, g201, v201), 3):.3f} ms")
+    del x, v11, v65, g11, g201, v201
 
     # 3c. the bf16 tile cache
-    def check_tiles(label, got, want, chunk=256):
-        """K4's tiles: at most one bf16 ulp from the plain version's, and at
-        least 99.9% bit-identical (expf and torch.exp may differ by an f32
-        ulp, which now and then crosses a bf16 rounding boundary).  Compared
-        in chunks of tile pairs; returns the largest absolute difference."""
-        torch.cuda.synchronize()
-        ulp, same, err = 0, 0, 0.0
-        for s in range(0, got.shape[0], chunk):
-            a, b = got[s : s + chunk], want[s : s + chunk]
-            diff = (a.view(torch.int16).int() - b.view(torch.int16).int()).abs()
-            ulp = max(ulp, int(diff.max()))
-            same += int((diff == 0).sum())
-            err = max(err, float((a.float() - b.float()).abs().max()))
-        share = same / got.numel()
-        ok = got.shape == want.shape and ulp <= 1 and share >= 0.999
-        say(f"  {label}: max {ulp} bf16 ulp, {100 * share:.4f}% bit-identical, max_abs_err {err:.3e} "
-            f"{'ok' if ok else 'FAILED'}")
-        if not ok:
-            fail(f"{label}: K4 disagrees with its plain version")
-        return err
-
     say("tile cache (K4, K5) vs plain, each covariance (K5 on K4's own tiles):")
     for covar in ["rbf", "matern52", "matern32", "matern12", rq]:
         for d in (3, 16):
@@ -409,9 +453,15 @@ def main() -> None:
     # K4 writes the cache once and reads x; ~12 f32 operations an entry
     # (d2 by differences 3d, the exponent 2, exp ~4, the bf16 rounding 1)
     b_ms, b_by = bound_ms(12 * tiles.numel(), cache_bytes + 4 * N * D)
-    stats["K4"] = dict(max_abs_err=err4, ms=cuda_ms(torch, lambda: rbf.rbf_build_sym_tiles(x, TILE), 3),
+    stats["K4"] = dict(max_abs_err=err4, ms=cuda_ms(torch, lambda: rbf.rbf_build_sym_tiles(x, TILE), 5),
                        plain_ms=once_ms(torch, lambda: rbf.rbf_build_sym_tiles_plain(x, TILE)),
                        bound_ms=b_ms, bound_by=b_by, bound_basis="f32")
+    torch.cuda.empty_cache()
+    # a reference for K4's byte bound: a write-only pass over a tensor of the
+    # cache's size by a PyTorch fill, the rate the card writes these bytes at
+    sink = torch.empty_like(tiles)
+    stats["K4"]["write_only_ms"] = cuda_ms(torch, lambda: sink.fill_(0), 5)
+    del sink
     torch.cuda.empty_cache()
     # K5 reads the cache once, v once and writes y once; its products,
     # npad^2 t multiply-adds per bf16 pass, run on the tensor cores.  Timed at
@@ -431,6 +481,11 @@ def main() -> None:
         s = stats[key]
         say(f"  {key}: {s['ms']:.3f} ms (plain {s['plain_ms']:.1f} ms, bound {s['bound_ms']:.3f} ms by "
             f"{s['bound_by']}, {100 * s['bound_ms'] / s['ms']:.1f}% of bound)")
+    wo = stats["K4"]["write_only_ms"]
+    say(f"  write-only pass over a tensor of the cache's size (fill_, {cache_bytes / 1e9:.3f} GB): {wo:.3f} ms, "
+        f"{cache_bytes / wo / 1e9:.3f} TB/s ({100 * cache_bytes / wo / 1e9 / (PEAK_BYTES_PER_S / 1e12):.1f}% of "
+        f"{PEAK_BYTES_PER_S / 1e12:.2f}); K4 writes {cache_bytes / stats['K4']['ms'] / 1e9:.3f} TB/s, "
+        f"{100 * wo / stats['K4']['ms']:.1f}% of the write-only rate")
     say(f"  K5 at t=1: {k5[1]['ms']:.3f} ms (plain {k5[1]['plain_ms']:.1f} ms, bound {k5[1]['bound_ms']:.3f} ms by "
         f"{k5[1]['bound_by']}, {100 * k5[1]['bound_ms'] / k5[1]['ms']:.1f}% of bound)")
     # a reference for the byte bound: one read-only pass over the cache by a
@@ -781,6 +836,136 @@ def main() -> None:
             fail("an Adam step gave a non-finite loss or parameter")
     if not bool((now != start).all()):
         fail("the Adam steps did not move every parameter")
+
+    # 6b. the posterior backward at m = 200 query points: the solve's 201
+    # columns go to K1; its backward solves with the transpose (CG without a
+    # preconditioner, as in the JAX package), makes the bilinear form's own
+    # K1 mat-vec, and K1's backward makes two K2 calls of 201 columns, each
+    # two launches (128 + 73 columns)
+    x_200 = torch.randn(200, D, device=dev, generator=torch.Generator(device=dev).manual_seed(11))
+    chunks = []
+    launch_weighted = rbf._launch_weighted
+
+    def record_chunk(a, b, gg, w, spec):
+        chunks.append(gg.shape[-1])
+        return launch_weighted(a, b, gg, w, spec)
+
+    def posterior_step(model, n, *overrides, dtype=torch.float32):
+        """The gradient of sum(mean) + sum(var) of the posterior on the first
+        n training points (cast to ``dtype``), under the benchmark's settings
+        (and ``overrides``), with its forward and backward apart; the widths
+        of K2's launches recorded."""
+        model.zero_grad(set_to_none=True)
+        reset_counts()
+        cg.counts.clear()
+        chunks.clear()
+        rbf._launch_weighted = record_chunk
+        try:
+            with bench_settings(), settings.verbose_linalg(True), contextlib.ExitStack() as more:
+                for c in overrides:
+                    more.enter_context(c)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mean, var = model.posterior(x[:n].to(dtype), y[:n].to(dtype), x_200.to(dtype))
+                loss = mean.sum() + var.sum()
+                val = float(loss.detach())
+                t1 = time.perf_counter()
+                fwd, fwd_iters = counts(), list(cg.counts)
+                loss.backward()
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+        finally:
+            rbf._launch_weighted = launch_weighted
+        bwd = {k: v - fwd[k] for k, v in counts().items()}
+        grad = torch.stack([getattr(model, name).grad for name in raw]).double()
+        return dict(loss=val, grad=grad, fwd_s=t1 - t0, bwd_s=t2 - t1, fwd=fwd, bwd=bwd, fwd_iters=fwd_iters,
+                    bwd_iters=cg.counts[len(fwd_iters):], chunks=list(chunks))
+
+    for label in ("cold", "warm"):
+        st = posterior_step(fused, N)
+        say(f"posterior backward ({label}) N={N} m=200: sum(mean) + sum(var) {st['loss']:.6f}, forward "
+            f"{st['fwd_s']:.3f} s (CG iterations {st['fwd_iters']}, launches {st['fwd']}), backward {st['bwd_s']:.3f} s "
+            f"(CG iterations {st['bwd_iters']}, launches {st['bwd']}, K2 launch widths {st['chunks']}), "
+            f"grad {st['grad'].tolist()}")
+        if not (math.isfinite(st["loss"]) and torch.isfinite(st["grad"]).all()):
+            fail("the posterior backward's value or gradient is not finite")
+        if st["fwd"]["K1"] != sum(st["fwd_iters"]) or st["fwd"]["K2"] != 0:
+            fail("the posterior forward did not run one K1 launch per CG iteration")
+        if st["bwd"]["K2"] != 4 or st["chunks"] != [128, 73, 128, 73]:
+            fail("the posterior backward did not make two K2 calls of 201 columns, two launches each")
+        if label == "cold":
+            launches["K1"] += st["fwd"]["K1"] + st["bwd"]["K1"]
+            launches["K2"] += st["bwd"]["K2"]
+    # against the full-precision plain path on the same inputs, fresh models
+    # without the dense cache, with CG run to 1e-5, at N = 20,000 (the plain
+    # K1 at 201 columns would take minutes at N = 1e5), and against the exact
+    # gradient, the plain path in f64 through a Cholesky solve.  At noise 1.0
+    # the fused path is held to the plain one and may lie no further from the
+    # exact gradient than the plain f32 path does, plus PATH_RTOL.  At the
+    # model's noise 0.127 the conditioning of K + 0.127 I carries K1's three
+    # bf16 products (~1e-5 of a mat-vec, the TPU kernels' _dot_acc3) into the
+    # gradient at ~5e-3, far above the plain f32 path's distance: so there
+    # the fused path runs twice more, with K1's launches replaced by its
+    # full-precision plain version (K2's chunked launches kept), which is
+    # held as the fused path is at noise 1.0, and by its plain version in the
+    # kernel's own arithmetic (kernel_matvec_acc3_plain), reported
+    n_held = 20_000
+
+    @contextlib.contextmanager
+    def k1_as(plain_k1):
+        """K1's launches replaced by a plain version on the card."""
+        launch = rbf._launch_matvec
+        rbf._launch_matvec = lambda a, b, w, spec: plain_k1(a, b, w)
+        try:
+            yield
+        finally:
+            rbf._launch_matvec = launch
+
+    def fused_step(noise, *overrides):
+        model = set_noise(lo.ExactGPRegression(block_rows=8192, materialize_threshold=None), noise)
+        return posterior_step(model, n_held, settings.cg_tolerance(1e-5), settings.max_cg_iterations(1000),
+                              *overrides)
+
+    for noise in (1.0, 0.127):
+        fused_st = fused_step(noise)
+        plain_st = posterior_step(
+            set_noise(lo.ExactGPRegression(block_rows=8192, use_fused_kernels=False, materialize_threshold=None),
+                      noise),
+            n_held, settings.cg_tolerance(1e-5), settings.max_cg_iterations(1000))
+        exact = posterior_step(
+            set_noise(lo.ExactGPRegression(block_rows=8192, use_fused_kernels=False, materialize_threshold=None,
+                                           dtype=torch.float64), noise),
+            n_held, settings.max_cholesky_size(n_held), dtype=torch.float64)
+        fg, pg, eg = fused_st["grad"], plain_st["grad"], exact["grad"]
+
+        def dist(g, ref=eg):
+            return float(torch.linalg.norm(g - ref) / torch.linalg.norm(ref))
+
+        err, err_f, err_p = dist(fg, pg), dist(fg), dist(pg)
+        say(f"  N={n_held} (not N={N}: the plain path's cost), noise {noise}, CG to 1e-5: fused grad {fg.tolist()} "
+            f"(CG iterations {fused_st['fwd_iters']} + {fused_st['bwd_iters']}, "
+            f"{fused_st['fwd_s'] + fused_st['bwd_s']:.3f} s), plain {pg.tolist()} (CG iterations "
+            f"{plain_st['fwd_iters']} + {plain_st['bwd_iters']}, {plain_st['fwd_s'] + plain_st['bwd_s']:.3f} s), "
+            f"exact (f64 Cholesky, {exact['fwd_s'] + exact['bwd_s']:.3f} s) {eg.tolist()}: |fused - plain| / |plain| "
+            f"= {err:.2e}, |fused - exact| / |exact| = {err_f:.2e}, |plain - exact| / |exact| = {err_p:.2e} "
+            f"({'held' if noise == 1.0 else 'reported'})")
+        if noise == 1.0 and not (err <= PATH_RTOL and err_f <= err_p + PATH_RTOL):
+            fail("the posterior backward's gradient disagrees with the plain path or the exact one")
+        if noise == 1.0:
+            continue
+        k1_full = fused_step(noise, k1_as(rbf.kernel_matvec_plain))
+        k1_acc3 = fused_step(noise, k1_as(rbf.kernel_matvec_acc3_plain))
+        if k1_full["chunks"] != [128, 73, 128, 73]:
+            fail("the posterior backward with a plain K1 did not make two K2 calls of 201 columns")
+        err_k2 = dist(k1_full["grad"])
+        say(f"    K1 in full precision, K2's chunked launches kept: grad {k1_full['grad'].tolist()}, |. - exact| / "
+            f"|exact| = {err_k2:.2e} (held); K1 as kernel_matvec_acc3_plain: grad {k1_acc3['grad'].tolist()}, "
+            f"|. - exact| / |exact| = {dist(k1_acc3['grad']):.2e}, |. - fused| / |fused| = "
+            f"{dist(k1_acc3['grad'], fg):.2e} (reported)")
+        if not err_k2 <= err_p + PATH_RTOL:
+            fail("with K1 in full precision, the posterior backward's gradient lies further from the exact one "
+                 "than the plain path's")
+    del x_200, fused_st, plain_st, exact, k1_full, k1_acc3
 
     # 8. the tile-cache path at noise 1.0: bf16(K) + D stays positive definite
     # only where the noise exceeds |bf16(K) - K|_2 (indefinite at n = 1e5 and

@@ -26,13 +26,14 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 # The instantiation each source runs on the GP main path (RBF, d = 3; K1 at
-# 72 columns, K3 and K5 at 16, K2 at one k-step of 16), by a part of its
-# mangled name, for ptxas_report
+# 72 columns, K3 and K5 at 16, K2 at one k-step of 16, K4 with d unpadded),
+# by a part of its mangled name, for ptxas_report
 MAIN_PATH_KERNELS = {
     "kernel_matvec": "matvec_kernelILi0ELi9ELi4E",
     "kernel_matvec_sym": "sym_matvec_kernelILi0ELi2ELi4E",
     "kernel_matvec_cached": "matvec_cached_kernelILi2E",
     "kernel_weighted": "weighted_kernelILi0ELi1ELi3E",
+    "kernel_build_sym": "build_sym_tiles_kernelILi0ELi3E",
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

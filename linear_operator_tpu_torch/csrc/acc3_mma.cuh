@@ -118,28 +118,37 @@ __device__ __forceinline__ float sqrt_approx(float x) {
   return y;
 }
 
-// k(d2) of covar.cuh's covar_fn, with the exponent as one ex2.approx on an
+// k(d2) of ops/rbf.py's TILE_COVARS fn, with the exponent as one ex2.approx on an
 // argument pre-scaled by log2(e) (and sqrt, log as their .approx forms):
 // a relative error of a few 2^-23, far below the 2^-16 that the bf16 split
-// leaves.  Only K1 and K3 call it; covar_fn, which K4 needs bit for bit
-// beside its plain version, stays as it is.  alpha is the rational
-// quadratic's.
-template <int COVAR>
+// of K1 and K3 leaves and below the bf16 rounding of K4's tiles.  FTZ (K1,
+// K3) takes 2^y as ex2.approx.ftz, which flushes subnormal results to 0; K4
+// (FTZ = false) keeps them, as the plain version's bf16 entries do, by
+// taking 2^y = (2^(y/2))^2: the square, an f32 multiply, rounds a subnormal
+// result correctly (2^y >= 2^-149 needs y/2 >= -75, where 2^(y/2) is normal),
+// and the 1/2 folds into each exponent's constant factor.  alpha is the
+// rational quadratic's.
+template <int COVAR, bool FTZ = true>
 __device__ __forceinline__ float covar_fast(float d2, float alpha) {
   constexpr float LOG2E = 1.4426950408889634f;
+  constexpr float H = FTZ ? 1.0f : 0.5f;  // the exponent's factor
+  auto ex2 = [](float y) {
+    const float e = ex2_approx(y);
+    return FTZ ? e : e * e;
+  };
   if (COVAR == COVAR_RBF) {
-    return ex2_approx(d2 * (-0.5f * LOG2E));
+    return ex2(d2 * (-0.5f * LOG2E * H));
   } else if (COVAR == COVAR_MATERN52) {
     const float sd = 2.23606797749979f * sqrt_approx(d2 + 1e-30f);
-    return (1.0f + sd + (5.0f / 3.0f) * d2) * ex2_approx(-LOG2E * sd);
+    return (1.0f + sd + (5.0f / 3.0f) * d2) * ex2((-LOG2E * H) * sd);
   } else if (COVAR == COVAR_MATERN32) {
     const float sd = 1.7320508075688772f * sqrt_approx(d2 + 1e-30f);
-    return (1.0f + sd) * ex2_approx(-LOG2E * sd);
+    return (1.0f + sd) * ex2((-LOG2E * H) * sd);
   } else if (COVAR == COVAR_MATERN12) {
-    return ex2_approx(-LOG2E * sqrt_approx(d2 + 1e-30f));
+    return ex2((-LOG2E * H) * sqrt_approx(d2 + 1e-30f));
   } else {
     // (1 + d2 / (2 alpha))^-alpha
-    return ex2_approx(-alpha * lg2_approx(1.0f + d2 / (2.0f * alpha)));
+    return ex2((-alpha * H) * lg2_approx(1.0f + d2 / (2.0f * alpha)));
   }
 }
 

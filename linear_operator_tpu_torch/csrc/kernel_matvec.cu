@@ -239,12 +239,13 @@ extern "C" long long kernel_matvec_f32_scratch(int batch, int m, int d, int t, i
 // batch, n, t) with splits = ceil(m / 4096), the caller summing over splits,
 // and scratch of kernel_matvec_f32_scratch bytes; all f32 (scratch 16-byte
 // aligned), contiguous, on the device of `stream`.  tp, the columns per CTA,
-// is 8, 16, 24, 32, 48 or 72; d <= 128.  Returns the CUDA error of the
+// is 8, 16, 24, 32, 48 or 72; batch <= 65535 (grid.z: ops/rbf.py launches a
+// larger batch in groups).  Returns the CUDA error of the
 // launches (0 when they were accepted).
 extern "C" int kernel_matvec_f32(const float* x1, const float* x2, const float* v, float* out, void* scratch,
                                  int batch, int n, int m, int d, int t, int tp, int covar, float alpha,
                                  void* stream) {
-  if (n < 1 || m < 1 || t < 1 || d < 1 || d > 128 || batch < 1 || batch > 65535 || !valid_tp(tp) ||
+  if (n < 1 || m < 1 || t < 1 || d < 1 || batch < 1 || batch > 65535 || !valid_tp(tp) ||
       static_cast<long long>((t + tp - 1) / tp) * ((m + MS - 1) / MS) > 65535 || covar < 0 ||
       covar >= NUM_COVARS)
     return static_cast<int>(cudaErrorInvalidValue);

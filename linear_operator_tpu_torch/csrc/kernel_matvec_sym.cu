@@ -342,11 +342,12 @@ extern "C" long long kernel_matvec_sym_f32_scratch(int batch, int n, int d, int 
 // rounded up to a multiple of 4, zeroed by the caller (columns past n are
 // scratch), and scratch of kernel_matvec_sym_f32_scratch bytes; all f32
 // (scratch 16-byte aligned), contiguous, on the device of `stream`.
-// 1 <= t <= 16, d <= 128.  Returns the CUDA error of the launches (0 when
+// 1 <= t <= 16, batch <= 65535 (grid.y: ops/rbf.py launches a larger batch in
+// groups).  Returns the CUDA error of the launches (0 when
 // they were accepted).
 extern "C" int kernel_matvec_sym_f32(const float* x, const float* v, float* out_t, void* scratch, int batch,
                                      int n, int d, int t, int covar, float alpha, void* stream) {
-  if (t < 1 || t > TC || d < 1 || d > 128 || n < 1 || batch < 1 || batch > 65535 || covar < 0 ||
+  if (t < 1 || t > TC || d < 1 || n < 1 || batch < 1 || batch > 65535 || covar < 0 ||
       covar >= NUM_COVARS)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

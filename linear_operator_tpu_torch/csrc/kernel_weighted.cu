@@ -354,7 +354,7 @@ cudaError_t by_steps(const float* x1, const float* g, const float* xp, const flo
 }
 
 bool valid(int batch, int m, int d, int t) {
-  return batch >= 1 && batch <= 65535 && m >= 1 && d >= 1 && d <= 128 && t >= 1 && k_steps(t) > 0;
+  return batch >= 1 && batch <= 65535 && m >= 1 && d >= 1 && t >= 1 && k_steps(t) > 0;
 }
 
 }  // namespace
@@ -369,8 +369,9 @@ extern "C" long long kernel_weighted_f32_scratch(int batch, int m, int d, int t)
 // (splits, batch, n, d) and ws (splits, batch, n) with splits = ceil(m /
 // 4096), one partial per split, the caller summing them; scratch of
 // kernel_weighted_f32_scratch bytes (16-byte aligned); all f32, contiguous,
-// on the device of `stream`.  t <= 128, d <= 128.  Returns the CUDA error of
-// the launches (0 when they were accepted).
+// on the device of `stream`.  t <= 128 and batch <= 65535 (grid.z): ops/rbf.py
+// launches a wider g and v in column chunks and a larger batch in groups.
+// Returns the CUDA error of the launches (0 when they were accepted).
 extern "C" int kernel_weighted_f32(const float* x1, const float* x2, const float* g, const float* v, float* wx,
                                    float* ws, void* scratch, int batch, int n, int m, int d, int t, int covar,
                                    float alpha, void* stream) {

@@ -4,16 +4,19 @@ one GPU.
     python3 -m linear_operator_tpu_torch.kernel_variants [source ...]
 
 Each variant is a copy of a kernel's source (``csrc/kernel_matvec.cu``,
-``kernel_matvec_sym.cu``, ``kernel_matvec_cached.cu`` or
-``kernel_weighted.cu``) with a textual change (:data:`VARIANTS`), compiled
+``kernel_matvec_sym.cu``, ``kernel_matvec_cached.cu``, ``kernel_weighted.cu``
+or ``kernel_build_sym.cu``) with a textual change (:data:`VARIANTS`), compiled
 with the package's nvcc flags into ``_build/variants/`` and loaded in place of
 the built library.  At the main path's shapes (N = 100,000, d = 3, RBF; K3 at
 t = 11, K1 at t = 65, K2 at t = 11 on (x, x, g, v), K5 on the tile-1024 cache
-at t = 11 and t = 1, two passes) every library is timed with CUDA events, in
-turns, and held against its kernel's plain version in its own arithmetic
-(``kernel_matvec_acc3_plain``, ``kernel_weighted_acc3_plain`` on dx,
-``rbf_matvec_sym_cached_plain``).  The variants say what holds each kernel
-back ("wrong by design" ones are timed, not checked):
+at t = 11 and t = 1, two passes, K4 building that cache) every library is
+timed with CUDA events, in turns, and held against its kernel's plain version
+in its own arithmetic (``kernel_matvec_acc3_plain``,
+``kernel_weighted_acc3_plain`` on dx, ``rbf_matvec_sym_cached_plain``; K4's
+tiles against ``rbf_build_sym_tiles_plain`` in bf16 ulps and the share of
+entries not bit-identical).  Beside K4, a write-only pass over a tensor of the
+cache's size (``fill_``) is timed once.  The variants say what holds each
+kernel back ("wrong by design" ones are timed, not checked):
 
   K1 unroll2     the 16-point chunk loop unrolled twice (more overlap, more
                  registers);
@@ -38,10 +41,23 @@ back ("wrong by design" ones are timed, not checked):
   K2 no_mma      no products: g and v's fragments are folded into s without
                  an mma (wrong by design);
   K2 no_form     no distance and no k': w = s (wrong by design);
-  K2 unroll2     the n8-block loop unrolled twice.
+  K2 unroll2     the n8-block loop unrolled twice;
+  K4 no_exp      the distance stored in place of k (wrong by design): no
+                 covariance;
+  K4 no_form     a constant stored in place of every entry (wrong by
+                 design): no distance, no covariance, the stores alone;
+  K4 no_store    every entry formed, no store issued (wrong by design):
+                 the formation alone;
+  K4 bulk_store  the store method not taken: each work item staged in
+                 shared memory and written by the bulk-copy engine;
+  K4 occupancy3  three CTAs an SM (launch bounds) in place of two;
+  K4 rows128     work items of 128 x 128 in place of 16 x 1024;
+  K4 ftz         2^y as one ex2.approx.ftz in place of (2^(y/2))^2:
+                 subnormal entries flushed to 0 (timed; its tiles miss the
+                 check at N = 1e5).
 
-With source names (``kernel_matvec_cached kernel_weighted``), only their
-variants are built and timed.  Prints the main-path instantiation's ptxas report of each library, one line
+With source names (``kernel_build_sym kernel_matvec_cached
+kernel_weighted``), only their variants are built and timed.  Prints the main-path instantiation's ptxas report of each library, one line
 per library, call and round, then one JSON object of the medians.  Without a
 CUDA device it fails at once.  ``tests/test_torch_kernels.py`` checks that
 every variant still applies to its source.
@@ -90,6 +106,67 @@ VARIANTS = {
         "row_only": [("    const bool diag = c / tb == r / tb;", "    const bool diag = true;")],
         "no_atomic": [("        if (col < n)\n          atomicAdd(", "        if (col < 0)\n          atomicAdd(")],
         "stages3": [("constexpr int NSTAGE = 4;", "constexpr int NSTAGE = 3;")],
+    },
+    "kernel_build_sym": {
+        "no_exp": [("        for (int q = 0; q < CPT; ++q) e[q] = covar_fast<COVAR, false>(exact_d2<DS>(xr, xc[q]), alpha);",
+                    "        for (int q = 0; q < CPT; ++q) e[q] = exact_d2<DS>(xr, xc[q]);")],
+        "no_form": [("        for (int q = 0; q < CPT; ++q) e[q] = covar_fast<COVAR, false>(exact_d2<DS>(xr, xc[q]), alpha);",
+                     "        for (int q = 0; q < CPT; ++q) e[q] = 0.5f;")],
+        "no_store": [("{ st_global_cs(gbase", "{ if (alpha == 12345.0f) st_global_cs(gbase")],
+        # each item into a 32 KiB staging buffer in shared memory,
+        # double-buffered, handed to the bulk-copy engine (one copy of 32 KiB
+        # when C = tile, else one per row, by R threads) while the next is
+        # formed; a buffer's copies are waited on (wait_group.read) before it
+        # is written again: one barrier per item
+        "bulk_store": [
+            ("constexpr int ITEM = 16384;                // entries of a work item, R x C\n",
+             "constexpr int ITEM = 16384;                // entries of a work item, R x C\n"
+             "constexpr int BUF_WORDS = ITEM / 8;        // uint4 of a staging buffer (32 KiB)\n"
+             "__device__ __forceinline__ void fence_proxy_async() { asm volatile(\"fence.proxy.async.shared::cta;\" ::: \"memory\"); }\n"
+             "__device__ __forceinline__ void bulk_store(void* gmem, const void* smem, int bytes) {\n"
+             "  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));\n"
+             "  asm volatile(\"cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\" ::\"l\"(gmem), \"r\"(s), \"r\"(bytes)\n"
+             "               : \"memory\");\n"
+             "}\n"
+             "__device__ __forceinline__ void bulk_commit() { asm volatile(\"cp.async.bulk.commit_group;\" ::: \"memory\"); }\n"
+             "__device__ __forceinline__ void bulk_wait_read() { asm volatile(\"cp.async.bulk.wait_group.read 0;\" ::: \"memory\"); }\n"
+             "__device__ __forceinline__ void bulk_wait() { asm volatile(\"cp.async.bulk.wait_group 0;\" ::: \"memory\"); }\n"),
+            ("  constexpr int DP = DS == 8 ? 8 : 4;  // floats of a padded point (DS > 0)\n",
+             "  constexpr int DP = DS == 8 ? 8 : 4;  // floats of a padded point (DS > 0)\n"
+             "  extern __shared__ uint4 stage[];     // two staging buffers\n"),
+            ("    // the word of row r, straight to the cache\n"
+             "    auto emit = [&](int r, const uint4& w) { st_global_cs(gbase + static_cast<size_t>(r) * tile + c0, w); };",
+             "    // the word of row r, into the staging buffer\n"
+             "    uint4* buf = stage + ((p - p0) & 1) * BUF_WORDS;\n"
+             "    auto emit = [&](int r, const uint4& w) { buf[r * groups + cg] = w; };"),
+            ("    if (++blk == blocks) {",
+             "    fence_proxy_async();\n"
+             "    if (tid < rows) bulk_wait_read();\n"
+             "    __syncthreads();\n"
+             "    if (cols == tile) {\n"
+             "      if (tid == 0) {\n"
+             "        bulk_store(gbase, buf, ITEM * 2);\n"
+             "        bulk_commit();\n"
+             "      }\n"
+             "    } else if (tid < rows) {\n"
+             "      bulk_store(gbase + static_cast<size_t>(tid) * tile, buf + tid * groups, cols * 2);\n"
+             "      bulk_commit();\n"
+             "    }\n"
+             "    if (++blk == blocks) {"),
+            ("}\n\n// C, the columns of a work item", "  if (tid < rows) bulk_wait();\n}\n\n// C, the columns of a work item"),
+            ("  cudaError_t err;\n",
+             "  const size_t smem = 2 * BUF_WORDS * sizeof(uint4);\n"
+             "  cudaError_t err =\n"
+             "      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));\n"
+             "  if (err != cudaSuccess) return err;\n"),
+            ("(&per_sm, kern, NT, 0)", "(&per_sm, kern, NT, smem)"),
+            ("kern<<<grid, NT, 0, stream>>>", "kern<<<grid, NT, smem, stream>>>"),
+        ],
+        "occupancy3": [("__launch_bounds__(NT, DS > 0 && DS <= 4 ? 2 : 1)", "__launch_bounds__(NT, DS > 0 && DS <= 4 ? 3 : 1)")],
+        "rows128": [("  while (cols * 2 <= 1024 && tile % (cols * 2) == 0) cols *= 2;",
+                     "  while (cols * 2 <= 128 && tile % (cols * 2) == 0) cols *= 2;")],
+        "ftz": [("        for (int q = 0; q < CPT; ++q) e[q] = covar_fast<COVAR, false>(exact_d2<DS>(xr, xc[q]), alpha);",
+                 "        for (int q = 0; q < CPT; ++q) e[q] = covar_fast<COVAR, true>(exact_d2<DS>(xr, xc[q]), alpha);")],
     },
     "kernel_weighted": {
         "no_mma": [("        for (int mb = 0; mb < MB; ++mb) acc3(s[mb], ga[mb][ks], vf);",
@@ -175,21 +252,49 @@ def main() -> None:
         wx, ws = out
         return 2.0 * (ws[:, None] * x - wx)
 
-    # the K4 cache the K5 calls read: built by the kernel as built (9.47 GiB)
-    tiles = rbf.rbf_build_sym_tiles(x, 1024)
-    # source -> (label, call, its output as compared, the plain version's)
+    def rel(ref, out=lambda y: y):
+        """Its output's largest difference from the plain version's, relative
+        to the plain version's largest entry."""
+        def err(y):
+            e = float((out(y) - ref).abs().max() / ref.abs().max())
+            return e if math.isfinite(e) else None
+        return err
+
+    def tile_err(ref):
+        """K4's tiles against the plain version's: the largest difference in
+        bf16 ulps and the share of entries not bit-identical."""
+        def err(y):
+            ulp, differ = 0, 0
+            for s in range(0, y.shape[0], 256):
+                diff = (y[s : s + 256].view(torch.int16).int() - ref[s : s + 256].view(torch.int16).int()).abs()
+                ulp, differ = max(ulp, int(diff.max())), differ + int((diff != 0).sum())
+            return dict(ulp=ulp, differ=differ / y.numel())
+        return err
+
+    # source -> [(label, call, its error against the plain version)]
+    def k5_calls():
+        # the cache the K5 calls read: built by K4 as built (9.47 GiB)
+        tiles = rbf.rbf_build_sym_tiles(x, 1024)
+        return [(f"t={v.shape[1]}", (lambda v=v: rbf.rbf_matvec_sym_cached(tiles, v, n, 1024)),
+                 rel(rbf.rbf_matvec_sym_cached_plain(tiles, v, n, 1024))) for v in (v11, v1)]
+
+    def k4_calls():
+        ref = rbf.rbf_build_sym_tiles_plain(x, 1024)
+        # a reference for the byte bound: a write-only pass over a tensor of the
+        # cache's size, the rate the card writes these bytes at
+        print(f"write-only pass over the cache (fill_, {2 * ref.numel() / 1e9:.3f} GB): "
+              f"{cuda_ms(lambda: torch.empty_like(ref).fill_(0)):.3f} ms", flush=True)
+        return [("N=1e5 tile=1024", lambda: rbf.rbf_build_sym_tiles(x, 1024), tile_err(ref))]
+
     calls = {
-        "kernel_matvec_sym": [("t=11", lambda: rbf.kernel_matvec_sym(x, v11), lambda y: y,
-                               rbf.kernel_matvec_acc3_plain(x, x, v11))],
-        "kernel_matvec": [("t=65", lambda: rbf.kernel_matvec(x, x, v65), lambda y: y,
-                           rbf.kernel_matvec_acc3_plain(x, x, v65))],
-        "kernel_weighted": [("t=11", lambda: rbf.kernel_weighted(x, x, g11, v11), dx,
-                             dx(rbf.kernel_weighted_acc3_plain(x, x, g11, v11)))],
-        "kernel_matvec_cached": [
-            (f"t={v.shape[1]}", (lambda v=v: rbf.rbf_matvec_sym_cached(tiles, v, n, 1024)), lambda y: y,
-             rbf.rbf_matvec_sym_cached_plain(tiles, v, n, 1024))
-            for v in (v11, v1)
-        ],
+        "kernel_matvec_sym": lambda: [("t=11", lambda: rbf.kernel_matvec_sym(x, v11),
+                                       rel(rbf.kernel_matvec_acc3_plain(x, x, v11)))],
+        "kernel_matvec": lambda: [("t=65", lambda: rbf.kernel_matvec(x, x, v65),
+                                   rel(rbf.kernel_matvec_acc3_plain(x, x, v65)))],
+        "kernel_weighted": lambda: [("t=11", lambda: rbf.kernel_weighted(x, x, g11, v11),
+                                     rel(dx(rbf.kernel_weighted_acc3_plain(x, x, g11, v11)), dx))],
+        "kernel_matvec_cached": k5_calls,
+        "kernel_build_sym": k4_calls,
     }
 
     def cuda_ms(fn) -> float:
@@ -203,20 +308,17 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / REPS
 
-    calls = {src: calls[src] for src in sources}
+    calls = {src: calls[src]() for src in sources}
     times = {(key, label): [] for key in libs for label, *_ in calls[key[0]]}
     errs = {}
     for rnd in range(ROUNDS):
         for key, path in libs.items():
             src = key[0]
             _build.load(src, path)
-            for label, call, out, ref in calls[src]:
-                y = out(call())
-                torch.cuda.synchronize()
-                err = float((y - ref).abs().max() / ref.abs().max())
-                errs[(key, label)] = err if math.isfinite(err) else None
+            for label, call, err_fn in calls[src]:
+                err = errs[(key, label)] = err_fn(call())
                 times[(key, label)].append(cuda_ms(call))
-                print(f"round {rnd} {src} {key[1]} {label}: {times[(key, label)][-1]:.3f} ms, vs plain {err:.2e}",
+                print(f"round {rnd} {src} {key[1]} {label}: {times[(key, label)][-1]:.3f} ms, vs plain {err}",
                       flush=True)
     print(json.dumps({f"{src} {name} {label}": dict(ms=statistics.median(ts), err=errs[((src, name), label)],
                                                     ptxas=registers(logs[(src, name)], src))

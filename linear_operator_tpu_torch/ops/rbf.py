@@ -35,7 +35,10 @@ streams its bf16 tiles into the tensor cores, one product per bf16 part of v.
 
 Each wrapper takes its kernel's plain PyTorch version (``*_plain``, for K1,
 K2 and K3 the full-precision one) for tensors on the CPU, launches the kernel
-for tensors on a CUDA device, and raises for anything else.
+for tensors on a CUDA device, and raises for anything else.  On the card the
+kernels take every d and batch the JAX package takes, and K2 every t: a batch
+above 65535 (a grid dimension) runs in groups and K2's columns above 128 in
+chunks, one launch each (:func:`_in_groups`).
 ``<wrapper>.launches`` counts the kernel launches.
 K1 and K3 are ``torch.autograd.Function``s whose backward is K2 (x-gradients)
 and K1 / K3 (v-gradient), each computed only when its input needs it.
@@ -57,7 +60,9 @@ _SQRT3 = 3.0**0.5
 # Column limit of K3, which keeps each tile's rhs rows in shared memory and
 # its accumulators in registers; wider rhs go to K1.
 SYM_MAX_COLUMNS = 16
-MAX_DIM = 128  # input dimensions the kernels take (shared-memory sizing)
+# Batch elements one launch of K1, K2 or K3 takes: the batch is a grid
+# dimension (grid.y or grid.z), so a larger batch runs in groups
+MAX_GRID_BATCH = 65535
 # x2 points per partial sum of K1 and K2 (MS in csrc/kernel_matvec.cu and
 # csrc/kernel_weighted.cu)
 K1_SPLIT = 4096
@@ -252,8 +257,8 @@ def _check_kernel_inputs(tensors, d: int) -> None:
             raise TypeError(f"the kernels take float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the kernels take contiguous tensors")
-    if not 1 <= d <= MAX_DIM:
-        raise ValueError(f"the kernels take 1 <= d <= {MAX_DIM}, got d={d}")
+    if d < 1:
+        raise ValueError(f"the kernels take d >= 1, got d={d}")
 
 
 def _launch(library: str, symbol: str, argtypes, *args) -> None:
@@ -285,25 +290,60 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _in_groups(launch, tensors, columns=(), max_batch=MAX_GRID_BATCH, max_columns=None):
+    """``launch(*tensors)`` over groups of at most ``max_batch`` along dim 0
+    of every tensor and, with ``max_columns``, over chunks of at most that
+    many columns (the last dim) of the tensors at the positions ``columns``:
+    full chunks first, the remainder last (t = 201 runs as 128 + 73).  The
+    outputs (a tensor or a tuple of them) are summed over column chunks and
+    concatenated over batch groups.  A batch and a width inside the limits
+    make one call on the tensors as given."""
+    nb = tensors[0].shape[0]
+    t = tensors[columns[0]].shape[-1] if columns else 1
+    width = t if max_columns is None else max_columns
+    groups = []
+    for b0 in range(0, nb, max_batch):
+        group = [a[b0 : b0 + max_batch] for a in tensors]
+        total = None
+        for c0 in range(0, max(t, 1), max(width, 1)):
+            args = list(group)
+            if width < t:
+                for k in columns:
+                    args[k] = args[k][..., c0 : c0 + width].contiguous()
+            out = launch(*args)
+            out = out if isinstance(out, tuple) else (out,)
+            total = out if total is None else tuple(a + b for a, b in zip(total, out))
+        groups.append(total)
+    outs = groups[0] if len(groups) == 1 else tuple(torch.cat(parts, dim=0) for parts in zip(*groups))
+    return outs if len(outs) > 1 else outs[0]
+
+
 def kernel_matvec(x1, x2, v, covar: str = "rbf") -> torch.Tensor:
     """K1: y = k(|x1_i - x2_j|^2) @ v, never storing the kernel matrix.
 
     x1 (*b, n, d), x2 (*b, m, d), v (*b, m, t) -> (*b, n, t), with at most
-    one batch dim, which becomes a grid dimension of the kernel.
-    Differentiable in x1, x2 and v."""
+    one batch dim, a grid dimension of the kernel (launched in groups of at
+    most MAX_GRID_BATCH).  Differentiable in x1, x2 and v."""
     return _KernelMatvec.apply(x1, x2, v, covar)
 
 
 def _kernel_matvec(x1, x2, v, covar):
     if not _on_cuda(x1, x2, v):
         return kernel_matvec_plain(x1, x2, v, covar)
-    spec = TILE_COVARS[covar]
     batched, (a, b, w) = _as_batched(x1, x2, v)
     nb, n, d = a.shape
-    m, t = w.shape[-2:]
+    m = w.shape[-2]
     if b.shape != (nb, m, d) or w.shape[0] != nb:
         raise ValueError(f"shape mismatch: x1 {tuple(x1.shape)}, x2 {tuple(x2.shape)}, v {tuple(v.shape)}")
     _check_kernel_inputs((a, b, w), d)
+    out = _in_groups(lambda a, b, w: _launch_matvec(a, b, w, TILE_COVARS[covar]), [a, b, w])
+    return out if batched else out[0]
+
+
+def _launch_matvec(a, b, w, spec):
+    """One launch of K1 on (batch, n, d), (batch, m, d), (batch, m, t)."""
+    nb, n, d = a.shape
+    m, t = w.shape[-2:]
     tp = _k1_columns(t)
     # the kernel writes one partial result per split of K1_SPLIT x2 points
     partial = torch.empty((_cdiv(m, K1_SPLIT), nb, n, t), dtype=torch.float32, device=a.device)
@@ -317,8 +357,7 @@ def _kernel_matvec(x1, x2, v, covar):
         nb, n, m, d, t, tp, spec.covar_id, spec.alpha, stream,
     )
     kernel_matvec.launches += 1
-    out = partial[0] if partial.shape[0] == 1 else partial.sum(dim=0)
-    return out if batched else out[0]
+    return partial[0] if partial.shape[0] == 1 else partial.sum(dim=0)
 
 
 kernel_matvec.launches = 0
@@ -383,15 +422,19 @@ def _kernel_matvec_sym(x, v, covar):
         raise ValueError(f"K3 takes 1..{SYM_MAX_COLUMNS} rhs columns, got {v.shape[-1]}")
     if not _on_cuda(x, v):
         return kernel_matvec_plain(x, x, v, covar)
-    spec = TILE_COVARS[covar]
     batched, (a, w) = _as_batched(x, v)
     nb, n, d = a.shape
-    t = w.shape[-1]
     if w.shape[:2] != (nb, n):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, v {tuple(v.shape)}")
     _check_kernel_inputs((a, w), d)
-    if nb > 65535:
-        raise ValueError("K3 takes batch <= 65535")
+    out = _in_groups(lambda a, w: _launch_matvec_sym(a, w, TILE_COVARS[covar]), [a, w])
+    return out if batched else out[0]
+
+
+def _launch_matvec_sym(a, w, spec):
+    """One launch of K3 on (batch, n, d), (batch, n, t)."""
+    nb, n, d = a.shape
+    t = w.shape[-1]
     # rows of n rounded up to 4 floats, for the kernel's 16-byte atomics
     out_t = torch.zeros((nb, t, 4 * _cdiv(n, 4)), dtype=torch.float32, device=a.device)
     # x padded and v split into bf16 words by the launch's prepass
@@ -404,8 +447,7 @@ def _kernel_matvec_sym(x, v, covar):
         nb, n, d, t, spec.covar_id, spec.alpha, stream,
     )
     kernel_matvec_sym.launches += 1
-    out = out_t[..., :n].mT
-    return out if batched else out[0]
+    return out_t[..., :n].mT
 
 
 kernel_matvec_sym.launches = 0
@@ -435,7 +477,8 @@ class _KernelMatvecSym(torch.autograd.Function):
         return dx, dv, None
 
 
-# Columns of g and v that K2 takes (its k-steps of 16 sit in registers)
+# Columns of g and v that one launch of K2 takes (its k-steps of 16 sit in
+# registers); a wider g and v run in column chunks of this width
 WEIGHTED_MAX_COLUMNS = 128
 
 
@@ -444,13 +487,14 @@ def kernel_weighted(x1, x2, g, v, covar: str = "rbf"):
     never storing W.
 
     x1 (*b, n, d), x2 (*b, m, d), g (*b, n, t), v (*b, m, t) -> (*b, n, d),
-    (*b, n), with at most one batch dim; on the card t <= 128.  The callers
-    assemble 2 (rowsum(W) x1 - W @ x2), the x1-gradient of
-    sum(g * (k(x1, x2) @ v)).  g v^T runs as the TPU kernel's ``_dot_acc3``
-    (:func:`kernel_weighted_acc3_plain` repeats that arithmetic)."""
+    (*b, n), with at most one batch dim.  On the card, t above 128 runs as
+    one launch per chunk of at most 128 columns, whose sums add: W is linear
+    in g v^T = sum_c g_c v_c^T.  The callers assemble 2 (rowsum(W) x1 -
+    W @ x2), the x1-gradient of sum(g * (k(x1, x2) @ v)).  g v^T runs as the
+    TPU kernel's ``_dot_acc3`` (:func:`kernel_weighted_acc3_plain` repeats
+    that arithmetic)."""
     if not _on_cuda(x1, x2, g, v):
         return kernel_weighted_plain(x1, x2, g, v, covar)
-    spec = TILE_COVARS[covar]
     batched, (a, b, gg, w) = _as_batched(x1, x2, g, v)
     nb, n, d = a.shape
     m, t = w.shape[-2:]
@@ -460,8 +504,18 @@ def kernel_weighted(x1, x2, g, v, covar: str = "rbf"):
             f"g {tuple(g.shape)}, v {tuple(v.shape)}"
         )
     _check_kernel_inputs((a, b, gg, w), d)
-    if t > WEIGHTED_MAX_COLUMNS:
-        raise ValueError(f"K2 takes 1..{WEIGHTED_MAX_COLUMNS} columns of g and v, got {t}")
+    wx, ws = _in_groups(
+        lambda a, b, gg, w: _launch_weighted(a, b, gg, w, TILE_COVARS[covar]), [a, b, gg, w],
+        columns=(2, 3), max_columns=WEIGHTED_MAX_COLUMNS,
+    )
+    return (wx, ws) if batched else (wx[0], ws[0])
+
+
+def _launch_weighted(a, b, gg, w, spec):
+    """One launch of K2 on (batch, n, d), (batch, m, d), (batch, n, t),
+    (batch, m, t), t <= WEIGHTED_MAX_COLUMNS."""
+    nb, n, d = a.shape
+    m, t = w.shape[-2:]
     # one partial result per split of K1_SPLIT x2 points
     parts = _cdiv(m, K1_SPLIT)
     wx = torch.empty((parts, nb, n, d), dtype=torch.float32, device=a.device)
@@ -476,8 +530,7 @@ def kernel_weighted(x1, x2, g, v, covar: str = "rbf"):
         nb, n, m, d, t, spec.covar_id, spec.alpha, stream,
     )
     kernel_weighted.launches += 1
-    wx, ws = (wx[0], ws[0]) if parts == 1 else (wx.sum(dim=0), ws.sum(dim=0))
-    return (wx, ws) if batched else (wx[0], ws[0])
+    return (wx[0], ws[0]) if parts == 1 else (wx.sum(dim=0), ws.sum(dim=0))
 
 
 kernel_weighted.launches = 0
@@ -579,17 +632,14 @@ def rbf_build_sym_tiles(x, tile: int = 1024, covar: str = "rbf") -> torch.Tensor
     n, d = x.shape
     _check_kernel_inputs((x,), d)
     nblk = _cdiv(n, tile)
-    npairs = nblk * (nblk + 1) // 2
-    if npairs * (tile // CACHE_TILE_EDGE) ** 2 >= 2**31:
-        raise ValueError(f"K4 takes fewer than 2^31 sub-blocks of 128 x 128, got n={n}, tile={tile}")
-    im, jm = _triangle_maps(nblk, x.device)
-    out = torch.empty((npairs, tile, tile), dtype=torch.bfloat16, device=x.device)
+    out = torch.empty((nblk * (nblk + 1) // 2, tile, tile), dtype=torch.bfloat16, device=x.device)
+    # x padded to whole tiles (and its squared norms) by the launch's prepass
+    scratch = _scratch("kernel_build_sym", "kernel_build_sym_tiles", x.device, n, d, tile)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _launch(
         "kernel_build_sym", "kernel_build_sym_tiles",
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
-        x.data_ptr(), im.data_ptr(), jm.data_ptr(), out.data_ptr(),
-        n, d, tile, npairs, spec.covar_id, spec.alpha, stream,
+        [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
+        x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, d, tile, spec.covar_id, spec.alpha, stream,
     )
     rbf_build_sym_tiles.launches += 1
     return out

@@ -16,8 +16,8 @@ accumulation), ~1e-5 from full precision: they are held to 1e-4 against the
 full-precision plain version and to 1e-5 against ``kernel_matvec_acc3_plain``,
 which repeats their arithmetic.
 K4's bf16 tiles are held entry by entry: at most one bf16 ulp apart, and at
-least 99.9% bit-identical (CUDA's expf and torch's exp may differ by an f32
-ulp, which now and then crosses a bf16 rounding boundary).  K5 is compared
+least 99.9% bit-identical (the kernel's ex2.approx and torch's exp differ by
+a few f32 ulps, which now and then crosses a bf16 rounding boundary).  K5 is compared
 with its plain version on K4's own tiles, so that it sees only summation
 order.  K2 forms g v^T as K1 and K3 contract (three bf16 products): it is
 held to ``kernel_weighted_acc3_plain`` at 1e-5 and to full precision at 1e-4.
@@ -229,10 +229,46 @@ def test_k2_two_splits_and_batch(cuda):
 
 
 @pytest.mark.cuda
-def test_k2_refuses_what_it_does_not_take(cuda):
-    x, g = _data(cuda, 33, (64, 3), (64, rbf.WEIGHTED_MAX_COLUMNS + 1))
-    with pytest.raises(ValueError, match="columns"):
-        rbf.kernel_weighted(x, x, g, g)
+@pytest.mark.parametrize("t", [129, 201, 256])
+def test_k2_past_128_columns(cuda, t):
+    """t above 128 runs as column chunks of at most 128, one launch each,
+    whose sums add: t = 129 as 128 + 1, 201 as 128 + 73, 256 as 128 + 128."""
+    x1, x2, g, v = _data(cuda, 33, (700, 3), (5000, 3), (700, t), (5000, t))
+    k2 = rbf.kernel_weighted.launches
+    _weighted_close(x1, x2, g, v)
+    assert rbf.kernel_weighted.launches == k2 + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [129, 200, 256])
+def test_kernels_past_128_dimensions(cuda, d):
+    """K1, K2, K3 and K4 at d > 128, on a 1/64 grid where the quadratic form
+    is exact in f32."""
+    x1, x2 = (torch.round(64 * a / np.sqrt(d)) / 64 for a in _data(cuda, 80 + d, (700, d), (900, d)))
+    v, g, w = _data(cuda, 81, (900, 11), (700, 11), (700, 11))
+    _both_close(rbf.kernel_matvec(x1, x2, v), x1, x2, v)
+    _both_close(rbf.kernel_matvec_sym(x1, w), x1, x1, w)
+    _weighted_close(x1, x2, g, v)
+    for tile in (128, 1024):
+        _tiles_close(rbf.rbf_build_sym_tiles(x1, tile), rbf.rbf_build_sym_tiles_plain(x1, tile))
+
+
+@pytest.mark.cuda
+def test_batch_past_the_grid_limit(cuda):
+    """A batch of 65537 runs K1, K2 and K3 in two launches each (65535 + 2):
+    the batch is a grid dimension of at most 65535."""
+    x, v = _data(cuda, 82, (65537, 16, 3), (65537, 16, 5))
+    counts = (rbf.kernel_matvec.launches, rbf.kernel_matvec_sym.launches, rbf.kernel_weighted.launches)
+    _both_close(rbf.kernel_matvec(x, x, v), x, x, v)
+    _both_close(rbf.kernel_matvec_sym(x, v), x, x, v)
+    wx, ws = rbf.kernel_weighted(x, x, v, v)
+    for plain, rtol in ((rbf.kernel_weighted_acc3_plain, ACC3_RTOL), (rbf.kernel_weighted_plain, RTOL)):
+        pwx, pws = plain(x, x, v, v)
+        _close(wx, pwx, rtol)
+        _close(ws, pws, rtol)
+    assert (rbf.kernel_matvec.launches, rbf.kernel_matvec_sym.launches, rbf.kernel_weighted.launches) == tuple(
+        c + 2 for c in counts
+    )
 
 
 def _grads(fn, *inputs, weights):
@@ -299,12 +335,15 @@ def _tiles_close(got, want):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n, tile", [(1000, 128), (3000, 1024)])
-@pytest.mark.parametrize("d", [3, 16])
+@pytest.mark.parametrize("n, tile", [(1000, 128), (600, 256), (700, 384), (1300, 512), (3000, 1024), (2500, 2048)])
+@pytest.mark.parametrize("d", [1, 3, 8, 9, 16])
 @pytest.mark.parametrize("covar", COVARS)
 def test_k4_k5_match_plain(cuda, covar, d, n, tile):
     """K4 for each covariance, and K5 on K4's tiles for t in {1, 11, 16} and
-    both passes; n is ragged against the tile."""
+    both passes; n is ragged against the tile.  K4's work items are R x C =
+    16384 entries with C the widest of 1024, 512, 256, 128 that divides the
+    tile: 16 whole tile rows at tile 1024, two column blocks a band at tile
+    2048, C = 512 at tile 512, 256 at tile 256, 128 at tiles 128 and 384."""
     (x,) = _data(cuda, 17, (n, d))
     x = x / np.sqrt(d)
     tiles = rbf.rbf_build_sym_tiles(x, tile, _name(covar))
@@ -356,6 +395,48 @@ def test_k4_k5_past_32_bit_offsets(cuda):
     _tiles_close(tiles, want)
     del want
     _close(rbf.rbf_matvec_sym_cached(tiles, v, n, tile), rbf.rbf_matvec_sym_cached_plain(tiles, v, n, tile))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("covar", COVARS)
+def test_k4_every_covariance_past_32_bit_offsets(cuda, covar):
+    """K4 for each covariance at n = 64,600, tile 1024 (2.18e9 entries), on
+    points spread as the GP main path's (a lengthscale of 0.69): far pairs
+    reach the subnormal tail of k, which K4 keeps as the plain version does."""
+    n, tile = 64_600, 1024
+    (x,) = _data(cuda, 83, (n, 3))
+    x = x / 0.69
+    tiles = rbf.rbf_build_sym_tiles(x, tile, _name(covar))
+    assert tiles.numel() > 2**31
+    want = rbf.rbf_build_sym_tiles_plain(x, tile, _name(covar))
+    for s in range(0, tiles.shape[0], 256):
+        _tiles_close(tiles[s : s + 256], want[s : s + 256])
+
+
+@pytest.mark.cuda
+def test_posterior_backward_matches_plain(cuda):
+    """The gradient of sum(mean) + sum(var) of the posterior at m = 200 query
+    points: the solve's 201 columns go to K1, and its backward (an
+    unpreconditioned CG on the transpose, then K1's backward) makes two K2
+    calls of 201 columns, two launches each.  Against the plain model on the
+    same inputs, to 1e-3 of the gradient's norm, with CG run to 1e-4."""
+    rng = np.random.default_rng(84)
+    x = torch.from_numpy(rng.normal(size=(3000, 3)).astype(np.float32)).to(cuda)
+    y = torch.sin(3.0 * x[:, 0]) + 0.1 * torch.from_numpy(rng.normal(size=3000).astype(np.float32)).to(cuda)
+    x_star = torch.from_numpy(rng.normal(size=(200, 3)).astype(np.float32)).to(cuda)
+    grads = []
+    for fused in (True, False):
+        model = ExactGPRegression(use_fused_kernels=fused, materialize_threshold=None)
+        with settings.max_cholesky_size(0), settings.preconditioner_mode("auto"), \
+                settings.max_cg_iterations(1000), settings.cg_tolerance(1e-4):
+            mean, var = model.posterior(x, y, x_star)
+            k2 = rbf.kernel_weighted.launches
+            (mean.sum() + var.sum()).backward()
+        assert rbf.kernel_weighted.launches == k2 + (4 if fused else 0)
+        grads.append(torch.stack([model.raw_lengthscale.grad, model.raw_outputscale.grad, model.raw_noise.grad]))
+    assert torch.isfinite(grads[0]).all()
+    err = float(torch.linalg.norm(grads[0] - grads[1]))
+    assert err <= 1e-3 * float(torch.linalg.norm(grads[1])), (grads, err)
 
 
 @pytest.mark.cuda

@@ -207,21 +207,23 @@ def test_stochastic_forward_on_identical_probes():
 
 @pytest.fixture
 def same_probes(monkeypatch):
-    """Both packages' preconditioner draws return one numpy array."""
+    """Both packages' preconditioner draws return one numpy array (one per
+    shape: (num_samples, *batch, n))."""
 
     def install(dtype):
         state = {}
 
-        def draws(num_samples, n):
-            if "z" not in state:
-                state["z"] = np.random.default_rng(8).normal(size=(num_samples, n)).astype(dtype)
-            return state["z"]
+        def draws(num_samples, batch, n):
+            shape = (num_samples, *batch, n)
+            if shape not in state:
+                state[shape] = np.random.default_rng(8).normal(size=shape).astype(dtype)
+            return state[shape]
 
         def jax_draw(self, num_samples, *, key=None):
-            return jnp.asarray(draws(num_samples, self.shape[-1]))
+            return jnp.asarray(draws(num_samples, tuple(self.batch_shape), self.shape[-1]))
 
         def torch_draw(self, num_samples, *, generator=None):
-            return torch.from_numpy(draws(num_samples, self.shape[-1])).to(self.device)
+            return torch.from_numpy(draws(num_samples, tuple(self.batch_shape), self.shape[-1])).to(self.device)
 
         monkeypatch.setattr(JaxLowRank, "zero_mean_mvn_samples", jax_draw)
         monkeypatch.setattr(TorchLowRank, "zero_mean_mvn_samples", torch_draw)

@@ -151,6 +151,51 @@ def test_k1_column_chunks():
     assert all(w in trbf.K1_COLUMNS for w in widths)
 
 
+@pytest.mark.parametrize("t", [3, 4, 7])
+def test_column_chunks_and_batch_groups_match_one_call(t):
+    """The card runs K2's columns in chunks of at most 128 (summed) and the
+    batches of K1, K2 and K3 in groups of at most 65535 (concatenated), all
+    through ``_in_groups``.  Driven here with the plain versions at a chunk of
+    2 columns and groups of 2 over a batch of 5, against one call."""
+    x1, x2, g, v = (torch.from_numpy(a) for a in _data(9, (5, 40, 3), (5, 50, 3), (5, 40, t), (5, 50, t)))
+    launches = []
+
+    def plain_k2(*args):
+        launches.append(args[2].shape)
+        return trbf.kernel_weighted_plain(*args)
+
+    wx, ws = trbf._in_groups(plain_k2, [x1, x2, g, v], columns=(2, 3), max_batch=2, max_columns=2)
+    assert len(launches) == 3 * -(-t // 2)
+    assert {s[-1] for s in launches} == ({2, 1} if t % 2 else {2})
+    pwx, pws = trbf.kernel_weighted_plain(x1, x2, g, v)
+    _close(wx, pwx, 1e-6)
+    _close(ws, pws, 1e-6)
+    _close(trbf._in_groups(trbf.kernel_matvec_plain, [x1, x2, v], max_batch=2),
+           trbf.kernel_matvec_plain(x1, x2, v), 1e-6)
+    _close(trbf._in_groups(lambda a, w: trbf.kernel_matvec_plain(a, a, w), [x1, g], max_batch=2),
+           trbf.kernel_matvec_plain(x1, x1, g), 1e-6)
+
+
+@pytest.mark.parametrize("t", [129, 201])
+def test_k2_plain_matches_jax_past_128_columns(t):
+    """The widths the card runs in column chunks (t = 201: the posterior
+    backward at m = 200; t = 129: a training step under 128 probes): both
+    plain versions against the Pallas K2 in interpret mode, which pads t to a
+    multiple of 128, at the tolerances of test_k2_plain_matches_jax and
+    test_k2_acc3_plain_matches_jax."""
+    x1, x2, g, v = _data(11, (64, 3), (48, 3), (64, t), (48, t))
+    jwx, jws = jrbf._pallas_weighted(*map(jnp.asarray, (x1, x2, g, v)), 64, "rbf")
+    args = [torch.from_numpy(a) for a in (x1, x2, g, v)]
+    wx, ws = trbf.kernel_weighted(*args)
+    _close(wx, jwx, 1e-4)
+    _close(ws, jws, 1e-4)
+    _close(_dx(wx, ws, x1), _dx(jwx, jws, x1), 1e-4)
+    awx, aws = trbf.kernel_weighted_acc3_plain(*args)
+    _close(aws, jws, 1e-6)
+    _close(awx, jwx, 3e-5)
+    _close(_dx(awx, aws, x1), _dx(jwx, jws, x1), 3e-5)
+
+
 def _launch_counts():
     return (trbf.kernel_matvec.launches, trbf.kernel_matvec_sym.launches, trbf.kernel_weighted.launches)
 
@@ -366,7 +411,7 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     # the card tests too: they run where JAX is not installed
     files = sorted((ROOT / "linear_operator_tpu_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tests" / "test_torch_cuda.py",
+        ROOT / "chip_smoke.py", ROOT / "time_checkouts.py", ROOT / "tests" / "test_torch_cuda.py",
     ]
     assert len(files) > 10
     for path in files:
