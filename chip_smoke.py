@@ -50,11 +50,31 @@ Phases, each reported on its own line:
     the plain versions of K4 and K5, held against (b); (d) the same step on
     the f32 K3 path, reported; (e) a default-settings solve to 1e-4, its
     residual on the cached operator; (f) three Adam steps;
+ 9. LOVE serving, the JAX benchmark's config 3d at N = 100,000, m = 1024
+    query points: the cache (posterior_cache: one K3 launch per CG
+    iteration of the alpha solve and per Lanczos step, 100 steps), cold and
+    warm; the queries (posterior_from_cache: two K1 launches, no K3, no CG),
+    warm, with points/s and the device's kernel time from a profiler trace;
+    the uncached posterior at the same m, for the serving ratio; the LOVE
+    variance's distance from the CG posterior's (reported); K3 at t = 1 and
+    K1 at 1024 x 100,000 (t = 1 and t = 100, and with 8 query rows, its
+    prepass), against their plain versions and timed beside their bounds;
+    at N = 20,000 the fused cache and queries held against the plain path
+    at the model's initial noise and at noise 1.0, with the plain path in
+    f64 on the same start vector as witness, and the LOVE and CG posterior
+    variances beside the exact one (f64, Cholesky; reported); the inverse
+    root's backward at n = 3000 (eight K2 launches), fused twice, plain and
+    f64 (reported);
+10. the JAX benchmark's config 2, inv_quad_logdet and the root of 64 dense
+    1024 x 1024 SPD matrices (no TPU kernel: PyTorch's dense products), timed
+    and held against the same step in f64 on four of them, on the same
+    probes and Lanczos start;
  7. one JSON line listing every ported kernel with its launches, error,
     times and bound (bound_basis: the f32 rate for K4, the tensor cores' for
     K1, K2, K3 and K5; K5's t = 1 time as ms_t1, the write-only pass beside
-    K4 as write_only_ms), then, as the last line,
-    {"ok": true, "device": {...}}.
+    K4 as write_only_ms; K3 at t = 1 as ms_t1 and K1 at the LOVE shapes as
+    ms_love_t1 and ms_love_t100, each with its plain time, bound and error),
+    then, as the last line, {"ok": true, "device": {...}}.
 
 Any failed check, or any exception, exits non-zero without the last line.
 Without a CUDA device, or without the package beside it, it fails at once.
@@ -66,6 +86,7 @@ import contextlib
 import json
 import logging
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -93,6 +114,13 @@ ACC3_RTOL = 1e-5
 PATH_RTOL = 1e-3
 TILE = 1024  # the tile of rbf_fused_closure's cache
 CACHE_NOISE = 1.0  # the noise of the tile-cache path, where bf16(K) + D stays positive definite
+# LOVE serving (the JAX benchmark's config 3d): queries a batch, Lanczos
+# steps, warm repetitions timed, the size at which the fused path is held
+# against the plain one, and the size of the inverse root's backward
+M_LOVE, LOVE_K, LOVE_REPS, N_LOVE_HELD, N_INV_ROOT = 1024, 100, 5, 20_000, 3000
+# the batched dense step (config 2): matrices, their size, and how many are
+# held against f64
+B_DENSE, N_DENSE, DENSE_HELD = 64, 1024, 4
 
 
 def fail(message: str) -> None:
@@ -160,14 +188,18 @@ def main() -> None:
     sys.path.insert(0, str(ROOT))
     import linear_operator_tpu_torch as lo
     from linear_operator_tpu_torch import _build, settings
-    from linear_operator_tpu_torch.models.gp import _softplus
+    from linear_operator_tpu_torch.functions._inv_quad_logdet import _stochastic_iqld
+    from linear_operator_tpu_torch.functions._root_decomposition import _lanczos_root
+    from linear_operator_tpu_torch.models.gp import PosteriorCache, _softplus
     from linear_operator_tpu_torch.operators import (
+        DenseLinearOperator,
         KernelLinearOperator,
         rbf_covar,
         rbf_fused_closure,
         rbf_fused_matvec,
     )
     from linear_operator_tpu_torch.ops import rbf
+    from linear_operator_tpu_torch.utils.cholesky import highest_matmul_precision
 
     # every kernel wrapper, whose .launches counts its kernel's launches
     wrappers = dict(K1=rbf.kernel_matvec, K3=rbf.kernel_matvec_sym, K2=rbf.kernel_weighted,
@@ -354,27 +386,39 @@ def main() -> None:
         capture_output=True, text=True, check=True,
     ).stdout.split()[0])
     exp_per_s = 16 * torch.cuda.get_device_properties(0).multi_processor_count * sm_mhz * 1e6
-    for key, t, kern, args, entries, prods in [
-        ("K3", t11, lambda: rbf.kernel_matvec_sym(x, v11), (x, x, v11), N * (N + 1) / 2, 4 * t11),
-        ("K1", M_STAR + 1, lambda: rbf.kernel_matvec(x, x, v65), (x, x, v65), N * N, 2 * (M_STAR + 1)),
-    ]:
-        nbytes = 4 * (N * D + N * t + N * t) if key == "K3" else 4 * (2 * N * D + 2 * N * t)
+
+    def timed_matvec(label, kern, args, entries, prods, nbytes, reps=5, plain_reps=2):
+        """K1 or K3 (``kern``) at a path's shapes: held against both plain
+        versions on ``args`` (x1, x2, v), timed by CUDA events, beside its
+        bounds (``entries`` kernel entries, ``prods`` products an entry,
+        ``nbytes`` read and written once); the kernels line's numbers."""
+        t = args[2].shape[-1]
+        err = check_kernel(f"{label} vs full", kern(), rbf.kernel_matvec_plain(*args))
+        check_kernel(f"{label} vs acc3", kern(), rbf.kernel_matvec_acc3_plain(*args), ACC3_RTOL)
+        ms = cuda_ms(torch, kern, reps)
+        plain_ms = cuda_ms(torch, lambda: rbf.kernel_matvec_plain(*args), plain_reps)
         form = entries * (3 * D + 1)
-        err = check_kernel(f"{key} rbf n={N} d={D} t={t} vs full", kern(), rbf.kernel_matvec_plain(*args))
-        check_kernel(f"{key} rbf n={N} d={D} t={t} vs acc3", kern(), rbf.kernel_matvec_acc3_plain(*args), ACC3_RTOL)
-        ms = cuda_ms(torch, kern, 5)
-        plain_ms = cuda_ms(torch, lambda: rbf.kernel_matvec_plain(*args), 2)
         f32_ms, _ = bound_ms(form + entries * prods, nbytes)
         t_form, t_mma = 1e3 * form / PEAK_F32_FLOPS, 1e3 * 3 * entries * prods / PEAK_BF16_FLOPS
         t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
         b_ms, b_by = max(t_form, t_mma, t_bytes), "operations" if max(t_form, t_mma) >= t_bytes else "bytes"
         t_exp = 1e3 * entries / exp_per_s
-        stats[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                          bound_basis="tensor_core")
-        say(f"  {key}: {ms:.3f} ms (plain {plain_ms:.1f} ms); f32 bound {f32_ms:.3f} ms, {100 * f32_ms / ms:.1f}% "
+        say(f"  {label}: {ms:.3f} ms (plain {plain_ms:.1f} ms); f32 bound {f32_ms:.3f} ms, {100 * f32_ms / ms:.1f}% "
             f"of it; tensor-core bound {b_ms:.3f} ms by {b_by} (formation {t_form:.3f} ms, three bf16 passes "
-            f"{t_mma:.3f} ms), {100 * b_ms / ms:.1f}% of it; exponent floor {t_exp:.3f} ms ({exp_per_s:.3e} "
-            f"a second at {sm_mhz:.0f} MHz), {100 * max(b_ms, t_exp) / ms:.1f}% of the larger")
+            f"{t_mma:.3f} ms, bytes {t_bytes:.3f} ms), {100 * b_ms / ms:.1f}% of it; exponent floor {t_exp:.3f} ms "
+            f"({exp_per_s:.3e} a second at {sm_mhz:.0f} MHz), {100 * max(b_ms, t_exp) / ms:.1f}% of the larger "
+            f"(t = {t})")
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # K3 reads x and v and writes y; K1 reads x1, x2 and v and writes y
+    for key, t, kern, args, entries, prods, nbytes in [
+        ("K3", t11, lambda: rbf.kernel_matvec_sym(x, v11), (x, x, v11), N * (N + 1) / 2, 4 * t11,
+         4 * (N * D + 2 * N * t11)),
+        ("K1", M_STAR + 1, lambda: rbf.kernel_matvec(x, x, v65), (x, x, v65), N * N, 2 * (M_STAR + 1),
+         4 * (2 * N * D + 2 * N * (M_STAR + 1))),
+    ]:
+        stats[key] = dict(timed_matvec(f"{key} rbf n={N} d={D} t={t}", kern, args, entries, prods, nbytes),
+                          bound_basis="tensor_core")
     # K3's operator is symmetric: u^T (K w) = w^T (K u), with u and w exact
     # in bf16 (their lo parts are 0) and nonnegative (no cancelling sums)
     u, w = (randn(N, 1).abs().to(torch.bfloat16).float() for _ in range(2))
@@ -1106,6 +1150,302 @@ def main() -> None:
             fail("a cached Adam step gave a non-finite loss or parameter")
     if not bool((now != start).all()):
         fail("the cached Adam steps did not move every parameter")
+
+    # 9. LOVE serving, the JAX benchmark's config 3d (bench.py:383-423): the
+    # cache (one CG solve for alpha = K^{-1} y, LOVE_K Lanczos steps for an
+    # inverse root R with R R^T ~= K^{-1}) built once, each batch of M_LOVE
+    # queries then served by two K1 launches and no solve
+    del model, opt
+    torch.cuda.empty_cache()
+    lg = torch.Generator(device=dev).manual_seed(20)
+    xl = torch.randn(N, D, device=dev, generator=lg)
+    yl = torch.sin(3.0 * xl[:, 0]) + 0.1 * torch.randn(N, device=dev, generator=lg)
+    xq = torch.randn(M_LOVE, D, device=dev, generator=lg)
+
+    def love_settings(*overrides):
+        """bench.py's settings for the LOVE cache (bench.py:400-403)."""
+        stack = contextlib.ExitStack()
+        for c in [settings.max_cholesky_size(0), settings.max_cg_iterations(100), settings.cg_tolerance(1.0),
+                  settings.preconditioner_mode("auto"), settings.max_root_decomposition_size(LOVE_K),
+                  settings.verbose_linalg(True), torch.no_grad(), *overrides]:
+            stack.enter_context(c)
+        return stack
+
+    def build_cache(model, xx, yy):
+        """The model's LOVE cache from a seeded generator: the cache, seconds,
+        launches and CG iterations."""
+        reset_counts()
+        cg.counts.clear()
+        with love_settings():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cache = model.posterior_cache(xx, yy, generator=torch.Generator().manual_seed(2))
+            torch.cuda.synchronize()
+            return cache, time.perf_counter() - t0, counts(), list(cg.counts)
+
+    def serve(model, xx, cache, xs):
+        """One batch of queries from the cache: mean, variance, seconds,
+        launches and CG iterations."""
+        reset_counts()
+        cg.counts.clear()
+        with love_settings():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean, var = model.posterior_from_cache(xx, cache, xs)
+            torch.cuda.synchronize()
+            return mean, var, time.perf_counter() - t0, counts(), list(cg.counts)
+
+    love = lo.ExactGPRegression(block_rows=8192)
+    builds = {}
+    for label in ("cold", "warm"):
+        cache, build_s, cnt, iters = build_cache(love, xl, yl)
+        builds[label] = dict(s=build_s, K3=cnt["K3"])
+        say(f"LOVE cache ({label}) N={N} d={D}: {build_s:.3f} s, CG iterations {iters}, Lanczos steps "
+            f"{cache.root_inv.shape[-1]}, launches {cnt}")
+        if not (torch.isfinite(cache.alpha).all() and torch.isfinite(cache.root_inv).all()):
+            fail("the LOVE cache is not finite")
+        if not iters or cache.root_inv.shape != (N, LOVE_K) or cnt != dict(K1=0, K3=sum(iters) + LOVE_K, K2=0, K4=0,
+                                                                          K5=0):
+            fail("the LOVE cache did not make one K3 launch per CG iteration and per Lanczos step, and nothing else")
+        if label == "cold":
+            launches["K3"] += cnt["K3"]
+    with torch.no_grad():
+        prior_q = love.covariance(xq).diagonal()
+    served = [serve(love, xl, cache, xq) for _ in range(1 + LOVE_REPS)]
+    mean_l, var_l = served[0][:2]
+    for mean, var, _, cnt, iters in served:
+        if cnt != dict(K1=2, K3=0, K2=0, K4=0, K5=0) or iters:
+            fail(f"a LOVE query made launches {cnt} and CG iterations {iters}, not two K1 launches and no CG")
+        if mean.shape != (M_LOVE,) or var.shape != (M_LOVE,):
+            fail(f"LOVE query shapes {tuple(mean.shape)}, {tuple(var.shape)}")
+        if not (torch.isfinite(mean).all() and torch.isfinite(var).all()):
+            fail("a LOVE query's mean or variance is not finite")
+        if not bool(((var >= 0) & (var <= prior_q)).all()):
+            fail("a LOVE variance lies outside [0, the prior variance]")
+    launches["K1"] += served[0][3]["K1"]
+    warm_q = [q[2] for q in served[1:]]
+    query_s = statistics.median(warm_q)
+    say(f"LOVE query N={N} m={M_LOVE}: cold {served[0][2] * 1e3:.3f} ms, warm median {query_s * 1e3:.3f} ms "
+        f"(of {len(warm_q)}: {', '.join(f'{q * 1e3:.3f}' for q in warm_q)}), {M_LOVE / query_s:.1f} points/s; "
+        f"launches {served[0][3]}, CG iterations {served[0][4]}")
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, _, q_s, _, _ = serve(love, xl, cache, xq)
+        kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        by_name = {}
+        for e in kern:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        dev_ms = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+        say(f"  profiled query: {q_s * 1e3:.3f} ms wall, device kernels {dev_ms:.3f} ms "
+            f"({100 * dev_ms / (q_s * 1e3):.1f}%), {len(kern)} device events; top: "
+            + "; ".join(f"{name[:50]} {ms:.3f} ms" for name, ms in top))
+    except Exception as exc:  # CUPTI tracing may be unavailable; no check rests on it
+        say(f"  query kernel time by profiler: not measured ({type(exc).__name__}: {exc})")
+
+    # the uncached posterior at the same m: one CG over the 1 + m columns
+    # [y | k_*^T] through K1 at every iteration
+    post_s = {}
+    for label in ("cold", "warm"):
+        reset_counts()
+        cg.counts.clear()
+        with love_settings():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mean_p, var_p = love.posterior(xl, yl, xq)
+            torch.cuda.synchronize()
+            post_s[label] = time.perf_counter() - t0
+        say(f"uncached posterior ({label}) N={N} m={M_LOVE}: {post_s[label]:.3f} s, CG iterations {cg.counts}, "
+            f"launches {counts()}")
+        if not (torch.isfinite(mean_p).all() and torch.isfinite(var_p).all()):
+            fail("the uncached posterior at m = M_LOVE is not finite")
+    d_mean = float((mean_l - mean_p).abs().max() / mean_p.abs().max())
+    d_var = float((var_l - var_p).abs().max() / prior_q.max())
+    say(f"  serving: warm posterior {post_s['warm']:.3f} s / warm LOVE query {query_s * 1e3:.3f} ms = "
+        f"{post_s['warm'] / query_s:.1f}x; the cache's warm build {builds['warm']['s']:.3f} s is "
+        f"{builds['warm']['s'] / post_s['warm']:.2f} uncached calls.  LOVE (k = {LOVE_K}) against the CG posterior "
+        f"(reported, not held: the rank-{LOVE_K} approximation): mean {d_mean:.3e} of max|mean|, variance "
+        f"{d_var:.3e} of the prior variance")
+
+    # the kernels at the LOVE shapes: K3 at t = 1 (the alpha solve's CG and
+    # the Lanczos steps), K1 on the 1024 x 1e5 cross-covariance at t = 1 and
+    # t = LOVE_K
+    say(f"kernels at the LOVE shapes (N={N}, m={M_LOVE}, d={D}):")
+    xs_l, xq_l = (xl / ls).contiguous(), (xq / ls).contiguous()
+    v1, vk = randn(N, 1), randn(N, LOVE_K)
+    k3 = timed_matvec(f"K3 rbf n={N} d={D} t=1", lambda: rbf.kernel_matvec_sym(xs_l, v1), (xs_l, xs_l, v1),
+                      N * (N + 1) / 2, 4, 4 * (N * D + 2 * N), reps=20, plain_reps=1)
+    stats["K3"].update(ms_t1=k3["ms"], plain_ms_t1=k3["plain_ms"], bound_ms_t1=k3["bound_ms"],
+                       max_abs_err_t1=k3["max_abs_err"])
+    for t, v in ((1, v1), (LOVE_K, vk)):
+        k1 = timed_matvec(f"K1 rbf n={M_LOVE} m={N} d={D} t={t}", lambda: rbf.kernel_matvec(xq_l, xs_l, v),
+                          (xq_l, xs_l, v), M_LOVE * N, 2 * t, 4 * ((M_LOVE + N) * D + (N + M_LOVE) * t),
+                          reps=20, plain_reps=2)
+        stats["K1"].update({f"ms_love_t{t}": k1["ms"], f"plain_ms_love_t{t}": k1["plain_ms"],
+                            f"bound_ms_love_t{t}": k1["bound_ms"], f"max_abs_err_love_t{t}": k1["max_abs_err"]})
+    q_kernels = stats["K1"]["ms_love_t1"] + stats["K1"][f"ms_love_t{LOVE_K}"]
+    say(f"  a query's two K1 launches: {q_kernels:.3f} ms by CUDA events, {100 * q_kernels / (query_s * 1e3):.1f}% "
+        f"of its warm wall time; a warm build's K3 launches at t=1: {builds['warm']['K3']} x {k3['ms']:.3f} ms = "
+        f"{builds['warm']['K3'] * k3['ms'] / 1e3:.3f} s of {builds['warm']['s']:.3f} s")
+    del xs_l, xq_l, v1, vk, cache
+
+    # the fused LOVE path against the plain (blocked) one at N_LOVE_HELD, one
+    # generator seed for both, at the model's initial noise and at noise 1.0.
+    # The witness of each f32 path's distance from exact arithmetic is the
+    # plain path in f64 on the same start vector: the f32 draw of that seed,
+    # which posterior_cache makes in the operator's dtype, widened to f64 and
+    # passed to root_inv_decomposition
+    xh, yh = xl[:N_LOVE_HELD], yl[:N_LOVE_HELD]
+    start = torch.randn((N_LOVE_HELD,), generator=torch.Generator().manual_seed(2)).to(dev)
+
+    def love_at(use_fused, noise, dtype=torch.float32):
+        model = lo.ExactGPRegression(block_rows=8192, use_fused_kernels=use_fused, dtype=dtype)
+        if noise is not None:
+            set_noise(model, noise)
+        if dtype == torch.float32:
+            c, s, _, c_iters = build_cache(model, xh, yh)
+        else:
+            cg.counts.clear()
+            with love_settings():
+                K = model.train_operator(xh.to(dtype)).with_preconditioner()
+                root_inv = K.root_inv_decomposition(initial_vectors=start.to(dtype)[:, None]).root.to_dense()
+                c = PosteriorCache(alpha=lo.solve(K, yh.to(dtype)[:, None]), root_inv=root_inv)
+            s, c_iters = float("nan"), list(cg.counts)
+        mu, sd, _, _, _ = serve(model, xh.to(dtype), c, xq.to(dtype))
+        with torch.no_grad():
+            prior = float(model.covariance(xq.to(dtype)).diagonal().max())
+        return dict(mean=mu.double(), var=sd.double(), s=s, iters=c_iters, prior=prior)
+
+    for noise in (None, 1.0):
+        tag = "noise 0.127 (the model's initial)" if noise is None else f"noise {noise}"
+        runs = {label: love_at(use, noise, dtype) for label, use, dtype in
+                (("fused", True, torch.float32), ("plain", False, torch.float32),
+                 ("plain f64", False, torch.float64))}
+
+        def dist(a, b):
+            return (float((runs[a]["mean"] - runs[b]["mean"]).abs().max() / runs[b]["mean"].abs().max()),
+                    float((runs[a]["var"] - runs[b]["var"]).abs().max()) / runs[b]["prior"])
+
+        for a, b in (("fused", "plain"), ("fused", "plain f64"), ("plain", "plain f64")):
+            dm, dv = dist(a, b)
+            say(f"  LOVE N={N_LOVE_HELD} m={M_LOVE}, {tag}: {a} to {b}: mean {dm:.3e} of max|mean|, variance "
+                f"{dv:.3e} of the prior variance ({a}: build {runs[a]['s']:.3f} s, CG iterations {runs[a]['iters']})")
+        dm, dv = dist("fused", "plain")
+        if not (dm <= PATH_RTOL and dv <= PATH_RTOL):
+            fail(f"the fused LOVE path disagrees with the plain path at N={N_LOVE_HELD}, {tag}")
+        # reported: how far the rank-LOVE_K variance and the uncached CG
+        # posterior's (the benchmark's settings) lie from the exact posterior
+        # (f64, Cholesky)
+        exact_model = lo.ExactGPRegression(block_rows=8192, use_fused_kernels=False, dtype=torch.float64)
+        cg_model = lo.ExactGPRegression(block_rows=8192)
+        for m_ in (exact_model, cg_model):
+            if noise is not None:
+                set_noise(m_, noise)
+        with love_settings(settings.max_cholesky_size(N_LOVE_HELD)):
+            _, var_x = exact_model.posterior(xh.double(), yh.double(), xq.double())
+        with love_settings():
+            _, var_cg = cg_model.posterior(xh, yh, xq)
+        prior = runs["fused"]["prior"]
+        say(f"  LOVE N={N_LOVE_HELD} m={M_LOVE}, {tag}, against the exact posterior (f64, Cholesky; reported): "
+            f"fused LOVE variance {float((runs['fused']['var'] - var_x).abs().max()) / prior:.3e}, the CG "
+            f"posterior's {float((var_cg.double() - var_x).abs().max()) / prior:.3e} of the prior variance; "
+            f"mean exact variance {float(var_x.mean()) / prior:.3e}, LOVE {float(runs['fused']['var'].mean()) / prior:.3e} "
+            f"of the prior")
+        del exact_model, cg_model, var_x, var_cg
+        torch.cuda.empty_cache()
+    del xh, yh, runs, start
+
+    # reported: the inverse root's backward (not on the serving path), the
+    # gradient of sum((b^T R)^2) with respect to the raw parameters at
+    # n = N_INV_ROOT, k = LOVE_K, the model's initial noise, on one start vector:
+    # the fused path twice (K3's atomics sum in another order each run), the
+    # plain path, and the plain path in f64.  Its bilinear form has 4k
+    # columns, which K1's backward sends to K2 twice
+    xb, bb = xl[:N_INV_ROOT], torch.randn(N_INV_ROOT, device=dev, generator=lg)
+    sb = torch.randn((N_INV_ROOT,), generator=torch.Generator().manual_seed(0)).to(dev)
+
+    def inv_root_grad(use_fused, dtype=torch.float32):
+        model = lo.ExactGPRegression(block_rows=8192, use_fused_kernels=use_fused, materialize_threshold=None,
+                                     dtype=dtype)
+        reset_counts()
+        with settings.max_cholesky_size(0), settings.preconditioner_mode("auto"), \
+                settings.max_root_decomposition_size(LOVE_K):
+            R = model.train_operator(xb.to(dtype)).root_inv_decomposition(initial_vectors=sb.to(dtype)[:, None])
+            torch.sum((bb.to(dtype) @ R.root.to_dense()) ** 2).backward()
+        return torch.stack([getattr(model, name).grad for name in raw]).double(), counts()["K2"]
+
+    (g1, k2a), (g2, _), (gp, _), (g64, _) = (inv_root_grad(True), inv_root_grad(True), inv_root_grad(False),
+                                             inv_root_grad(False, torch.float64))
+
+    def rel(a, b):
+        return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
+
+    say(f"  inverse root backward n={N_INV_ROOT} k={LOVE_K} (reported): fused grad {g1.tolist()} ({k2a} K2 launches), plain "
+        f"{gp.tolist()}, f64 {g64.tolist()}; |fused - fused again| {rel(g1, g2):.2e}, |fused - plain| {rel(g1, gp):.2e}, "
+        f"|fused - f64| {rel(g1, g64):.2e}, |plain - f64| {rel(gp, g64):.2e} of the norm")
+    # two K2 calls of 4k columns, each in chunks of at most 128 (8 launches at k = 100)
+    if not (torch.isfinite(g1).all() and k2a == 2 * -(-4 * LOVE_K // 128)):
+        fail("the inverse root's backward is not finite or did not make two K2 calls of 4k columns")
+    del xb, bb, sb
+
+    # 10. the JAX benchmark's config 2 (bench.py:221-238): inv_quad_logdet and
+    # the root of 64 dense 1024 x 1024 SPD matrices under the default
+    # settings (n > max_cholesky_size: CG + SLQ and a Lanczos root).  It runs
+    # no TPU kernel: the dense products are PyTorch's
+    g2 = torch.Generator(device=dev).manual_seed(30)
+    a2 = torch.randn(B_DENSE, N_DENSE, N_DENSE, device=dev, generator=g2) / math.sqrt(N_DENSE)
+    rhs2 = torch.randn(B_DENSE, N_DENSE, 3, device=dev, generator=g2)
+    eye2 = torch.eye(N_DENSE, device=dev)
+    with highest_matmul_precision():
+        mats = a2 @ a2.mT + 2.0 * eye2
+    del a2
+
+    def dense_step(m, r):
+        op = DenseLinearOperator(m)
+        iq, ld = lo.inv_quad_logdet(op, r, logdet=True, generator=torch.Generator().manual_seed(3))
+        return iq, ld, op.root_decomposition(generator=torch.Generator().manual_seed(4)).root.to_dense()
+
+    dense_s = []
+    for _ in range(1 + LOVE_REPS):
+        reset_counts()
+        cg.counts.clear()
+        with settings.verbose_linalg(True), torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            iq2, ld2, root2 = dense_step(mats, rhs2)
+            torch.cuda.synchronize()
+            dense_s.append(time.perf_counter() - t0)
+        if any(counts().values()):
+            fail("the batched dense step launched a kernel")
+    warm_d = statistics.median(dense_s[1:])
+    say(f"batched dense step (config 2, no TPU kernel) b={B_DENSE} n={N_DENSE}: cold {dense_s[0]:.3f} s, warm median "
+        f"{warm_d:.3f} s ({B_DENSE / warm_d:.1f} matrices/s), CG iterations {cg.counts}, root {tuple(root2.shape)}")
+    if not (torch.isfinite(iq2).all() and torch.isfinite(ld2).all() and torch.isfinite(root2).all()):
+        fail("the batched dense step is not finite")
+    # the same step in f64 on the first DENSE_HELD matrices, on the same draws
+    # (the probes and the Lanczos start, redrawn from the same seeds in f32)
+    with torch.no_grad():
+        nprobe = settings.num_trace_samples.value()
+        probes = torch.randn((B_DENSE, N_DENSE, nprobe), generator=torch.Generator().manual_seed(3))
+        probes = probes[:DENSE_HELD].to(dev).double()
+        norms = torch.linalg.norm(probes, dim=-2, keepdim=True)
+        op64 = DenseLinearOperator(mats[:DENSE_HELD].double())
+        iq64, ld64 = _stochastic_iqld(op64, rhs2[:DENSE_HELD].double(), probes / norms, probes / norms, norms)
+        init = torch.randn((B_DENSE, N_DENSE), generator=torch.Generator().manual_seed(4))[:DENSE_HELD]
+        root64, _ = _lanczos_root(op64, None, need_inverse=False, init=init.to(dev).double())
+        gram, gram64 = (r @ r.mT for r in (root2[:DENSE_HELD].double(), root64))
+        exact_ld = torch.linalg.slogdet(op64.tensor)[1]
+    e_iq = float(((iq2[:DENSE_HELD].double() - iq64.sum(-1)).abs() / iq64.sum(-1).abs()).max())
+    e_ld = float(((ld2[:DENSE_HELD].double() - ld64).abs() / ld64.abs()).max())
+    e_root = float((gram - gram64).abs().max() / gram64.abs().max())
+    say(f"  f32 against f64 on {DENSE_HELD} matrices, the same draws: inv_quad {e_iq:.3e}, logdet {e_ld:.3e}, "
+        f"R R^T {e_root:.3e} (held to {PATH_RTOL}); the SLQ logdet against the exact one (reported): "
+        f"{float(((ld64 - exact_ld).abs() / exact_ld.abs()).max()):.3e}")
+    if not max(e_iq, e_ld, e_root) <= PATH_RTOL:
+        fail("the batched dense step in f32 disagrees with the same step in f64")
+    del mats, rhs2, root2, root64, gram, gram64, op64
 
     # 7. the kernels line, then the result
     kernels = []

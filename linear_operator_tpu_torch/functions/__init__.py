@@ -1,4 +1,5 @@
 from ._inv_quad_logdet import inv_quad_logdet
+from ._root_decomposition import diagonalization, root_decomposition, root_inv_decomposition
 from ._solve import solve
 
 
@@ -19,4 +20,11 @@ def pivoted_cholesky(op, rank: int, error_tol=None, return_pivots: bool = False)
     return (L, pivots) if return_pivots else L
 
 
-__all__ = ["inv_quad_logdet", "pivoted_cholesky", "solve"]
+__all__ = [
+    "diagonalization",
+    "inv_quad_logdet",
+    "pivoted_cholesky",
+    "root_decomposition",
+    "root_inv_decomposition",
+    "solve",
+]

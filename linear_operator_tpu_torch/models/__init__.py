@@ -1,3 +1,3 @@
-from .gp import ExactGPRegression, load_jax_params
+from .gp import ExactGPRegression, PosteriorCache, load_jax_cache, load_jax_params
 
-__all__ = ["ExactGPRegression", "load_jax_params"]
+__all__ = ["ExactGPRegression", "PosteriorCache", "load_jax_cache", "load_jax_params"]

@@ -10,12 +10,19 @@ from ``inv_quad_logdet``: Cholesky below the size cutoff, preconditioned CG
 + SLQ above it.  A training step is ``loss = model.neg_mll(x, y,
 generator=g); loss.backward()``: the backward reuses the forward's solves, and
 on the fused path runs through the kernels' backward (K2).
+
+Serving (LOVE, Pleiss et al. 2018): ``posterior_cache`` runs one CG solve
+for alpha = K^{-1} y and one Lanczos inverse root R with R R^T ~= K^{-1}
+(``max_root_decomposition_size`` steps, each one kernel mat-vec); each batch
+of queries then costs two cross-covariance products and no solve
+(``posterior_from_cache``).
 """
 
 from __future__ import annotations
 
 import math
 from collections.abc import Mapping
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -26,9 +33,28 @@ from ..operators.kernel import KernelLinearOperator, rbf_covar, rbf_fused_matvec
 from ..utils.cholesky import highest_matmul_precision
 
 
+class PosteriorCache(NamedTuple):
+    """The training-time prediction caches of ``posterior_cache``."""
+
+    alpha: torch.Tensor  # (*b, n, 1)  K^{-1} y
+    root_inv: torch.Tensor  # (*b, n, k)  R with R R^T ~= K^{-1}
+
+
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     # jax.nn.softplus(x) + 1e-6; torch's softplus turns linear above 20
     return torch.logaddexp(x, torch.zeros_like(x)) + 1e-6
+
+
+def love_posterior(K, k_star, y, k_ss_diag, *, generator: torch.Generator | None = None):
+    """Predictive mean and variance from a train operator ``K``, a lazy
+    cross-covariance ``k_star`` (*b, m, n), targets ``y`` and the prior
+    diagonal at the query points, the LOVE way: var = k_ss_diag -
+    row_norms(k_star R)^2 with R an inverse root of K."""
+    alpha = solve(K, y[..., None])
+    mean = (k_star @ alpha)[..., 0]
+    v = k_star @ K.root_inv_decomposition(generator=generator).root.to_dense()  # (*b, m, k)
+    var = k_ss_diag - torch.sum(v * v, dim=-1)
+    return mean, torch.clamp_min(var, 0.0)
 
 
 class ExactGPRegression(nn.Module):
@@ -113,6 +139,25 @@ class ExactGPRegression(nn.Module):
             var = k_ss_diag - torch.einsum("...nm,...nm->...m", ks_t, v)
         return mean, torch.clamp_min(var, 0.0)
 
+    def posterior_cache(self, x, y, *, generator: torch.Generator | None = None) -> PosteriorCache:
+        """The training-dependent part of prediction, computed once: alpha =
+        K^{-1} y by CG and an inverse root R (R R^T ~= K^{-1}) by Lanczos,
+        sharing one preconditioner factor.  ``generator`` draws the Lanczos
+        start vector (a fixed one when None)."""
+        K = self.train_operator(x).with_preconditioner()
+        alpha = solve(K, y[..., None])
+        root_inv = K.root_inv_decomposition(generator=generator).root.to_dense()
+        return PosteriorCache(alpha=alpha, root_inv=root_inv)
+
+    def posterior_from_cache(self, x, cache: PosteriorCache, x_star):
+        """Predictive mean and variance at ``x_star`` from the cache: two
+        products with the lazy cross-covariance k(x_star, x), no solve."""
+        k_star = self.covariance(x_star, x)  # (*b, m, n)
+        mean = (k_star @ cache.alpha)[..., 0]
+        v = k_star @ cache.root_inv  # (*b, m, k)
+        var = self.covariance(x_star).diagonal() - torch.sum(v * v, dim=-1)
+        return mean, torch.clamp_min(var, 0.0)
+
 
 def load_jax_params(model: ExactGPRegression, params) -> ExactGPRegression:
     """Fill ``model``'s parameters from the JAX package's ``GPParams`` (of
@@ -123,3 +168,12 @@ def load_jax_params(model: ExactGPRegression, params) -> ExactGPRegression:
         value = torch.tensor(np.array(fields[name]), dtype=old.dtype, device=old.device)
         setattr(model, name, nn.Parameter(value))
     return model
+
+
+def load_jax_cache(model: ExactGPRegression, cache) -> PosteriorCache:
+    """The JAX package's ``PosteriorCache`` (of numpy or JAX arrays) as a
+    PosteriorCache of tensors in ``model``'s dtype, on its device."""
+    kw = dict(dtype=model.raw_noise.dtype, device=model.raw_noise.device)
+    return PosteriorCache(
+        alpha=torch.tensor(np.array(cache.alpha), **kw), root_inv=torch.tensor(np.array(cache.root_inv), **kw)
+    )

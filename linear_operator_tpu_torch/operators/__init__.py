@@ -1,5 +1,6 @@
 from ._linear_operator import LinearOperator
 from .added_diag import AddedDiagLinearOperator
+from .chol import CholLinearOperator
 from .dense import DenseLinearOperator
 from .diag import ConstantDiagLinearOperator, DiagLinearOperator
 from .kernel import (
@@ -16,6 +17,7 @@ from .triangular import TriangularLinearOperator
 
 __all__ = [
     "AddedDiagLinearOperator",
+    "CholLinearOperator",
     "ConstantDiagLinearOperator",
     "DenseLinearOperator",
     "DiagLinearOperator",

@@ -211,6 +211,15 @@ class LinearOperator:
             return TriangularLinearOperator(L.mT, upper=True)
         return TriangularLinearOperator(L, upper=False)
 
+    def _root_structure(self) -> "LinearOperator | None":
+        """A closed-form root R with K = R R^T (Diag: its square root), or
+        None."""
+        return None
+
+    def _root_inv_structure(self) -> "LinearOperator | None":
+        """A closed-form root of K^{-1}, or None."""
+        return None
+
     def _preconditioner(self):
         """(closure, preconditioner_operator, logdet_of_preconditioner) or
         (None, None, None)."""
@@ -270,6 +279,75 @@ class LinearOperator:
         if not self.is_square:
             raise RuntimeError("add_diagonal requires a square operator")
         return self + diag_operator(diag, self)
+
+    # ------------------------------------------------------------------
+    # Factorizations
+    # ------------------------------------------------------------------
+
+    def cholesky(self, upper: bool = False) -> "LinearOperator":
+        """Lower (or upper) Cholesky factor as a TriangularLinearOperator."""
+        return self._cholesky_impl(upper=upper)
+
+    def _choose_root_method(self) -> str:
+        """Cholesky up to ``max_cholesky_size`` (or with fast root
+        decompositions off), Lanczos above it."""
+        if (
+            settings.fast_computations.covar_root_decomposition.off()
+            or self.shape[-1] <= settings.max_cholesky_size.value()
+        ):
+            return "cholesky"
+        return "lanczos"
+
+    def root_decomposition(self, method: str | None = None, *, generator: torch.Generator | None = None):
+        """An operator equal to self carrying a root R with K = R R^T (see
+        ``functions.root_decomposition``)."""
+        from ..functions import root_decomposition
+
+        return root_decomposition(self, method=method, generator=generator)
+
+    def root_inv_decomposition(
+        self,
+        initial_vectors: torch.Tensor | None = None,
+        test_vectors: torch.Tensor | None = None,
+        method: str | None = None,
+        *,
+        generator: torch.Generator | None = None,
+    ):
+        """An operator equal to self^{-1} carrying a root; with several
+        ``initial_vectors`` the best probe is picked by the ``test_vectors``
+        residual test (see ``functions.root_inv_decomposition``)."""
+        from ..functions import root_inv_decomposition
+
+        return root_inv_decomposition(
+            self, method=method, generator=generator, initial_vectors=initial_vectors, test_vectors=test_vectors
+        )
+
+    def diagonalization(self, method: str | None = None, *, generator: torch.Generator | None = None):
+        """(evals, evecs) with K ~= Q diag(evals) Q^T."""
+        from ..functions import diagonalization
+
+        return diagonalization(self, method=method, generator=generator)
+
+    def eigh(self):
+        """(evals, evecs as a DenseLinearOperator), with a backward that stays
+        finite at repeated eigenvalues (``utils.eigh.eigh_safe``)."""
+        from ..utils.eigh import eigh_safe
+        from .dense import DenseLinearOperator
+
+        if settings.debug.on() and not self.is_square:
+            raise RuntimeError("eigh requires a square (symmetric) operator")
+        evals, evecs = eigh_safe(self.to_dense())
+        return evals, DenseLinearOperator(evecs)
+
+    def eigvalsh(self) -> torch.Tensor:
+        return torch.linalg.eigvalsh(self.to_dense())
+
+    def svd(self):
+        """(U, S, V) with U and V DenseLinearOperators."""
+        from .dense import DenseLinearOperator
+
+        U, S, Vt = torch.linalg.svd(self.to_dense(), full_matrices=False)
+        return DenseLinearOperator(U), S, DenseLinearOperator(Vt.mT)
 
     # ------------------------------------------------------------------
     # Indexing

@@ -43,6 +43,15 @@ class DiagLinearOperator(LinearOperator):
 
         return TriangularLinearOperator(torch.diag_embed(self._diagonal().sqrt()), upper=upper)
 
+    def _root_structure(self) -> "DiagLinearOperator":
+        return DiagLinearOperator(torch.sqrt(self.diag))
+
+    def _root_inv_structure(self) -> "DiagLinearOperator":
+        return DiagLinearOperator(torch.rsqrt(self.diag))
+
+    def inverse(self) -> "DiagLinearOperator":
+        return DiagLinearOperator(1.0 / self.diag)
+
     def __add__(self, other):
         if isinstance(other, DiagLinearOperator):
             return DiagLinearOperator(self._diagonal() + other._diagonal())
@@ -67,6 +76,15 @@ class ConstantDiagLinearOperator(DiagLinearOperator):
 
     def _logdet_structure(self) -> torch.Tensor:
         return self.diag_shape * torch.log(self.diag[..., 0])
+
+    def _root_structure(self) -> "ConstantDiagLinearOperator":
+        return ConstantDiagLinearOperator(torch.sqrt(self.diag), diag_shape=self.diag_shape)
+
+    def _root_inv_structure(self) -> "ConstantDiagLinearOperator":
+        return ConstantDiagLinearOperator(torch.rsqrt(self.diag), diag_shape=self.diag_shape)
+
+    def inverse(self) -> "ConstantDiagLinearOperator":
+        return ConstantDiagLinearOperator(1.0 / self.diag, diag_shape=self.diag_shape)
 
     def __add__(self, other):
         if isinstance(other, ConstantDiagLinearOperator):

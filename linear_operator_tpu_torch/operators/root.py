@@ -31,6 +31,12 @@ class RootLinearOperator(LinearOperator):
         root = self.root.to_dense()
         return torch.sum(root * root, dim=-1)
 
+    def _root_structure(self) -> LinearOperator:
+        return self.root
+
+    def root_decomposition(self, method=None, *, generator=None) -> "RootLinearOperator":
+        return self
+
 
 class LowRankRootLinearOperator(RootLinearOperator):
     """A genuinely low-rank root: adding a diagonal gives the Woodbury

@@ -1,11 +1,12 @@
 """Triangular operator with direct triangular solves (counterpart of
 linear_operator_tpu/operators/triangular.py, as far as the Cholesky paths of
-``solve`` and ``inv_quad_logdet`` need it)."""
+``solve`` and ``inv_quad_logdet`` and the root decompositions need it)."""
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.errors import NotPSDError
 from ._linear_operator import LinearOperator
 
 
@@ -45,3 +46,15 @@ class TriangularLinearOperator(LinearOperator):
         dense, rhs = self._broadcast(rhs)
         y = torch.linalg.solve_triangular(dense, rhs, upper=self.upper)
         return torch.linalg.solve_triangular(dense.mT, y, upper=not self.upper)
+
+    def _cholesky_impl(self, upper: bool = False):
+        raise NotPSDError("TriangularLinearOperator is not PSD")
+
+    def _root_structure(self):
+        raise NotPSDError("root decomposition of a triangular operator")
+
+    def inverse(self) -> "TriangularLinearOperator":
+        """L^{-1} by a triangular solve against the identity."""
+        n = self.shape[-1]
+        eye = torch.eye(n, dtype=self.dtype, device=self.device).expand(*self.batch_shape, n, n)
+        return TriangularLinearOperator(self._solve_structure(eye), upper=self.upper)

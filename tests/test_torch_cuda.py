@@ -23,6 +23,8 @@ order.  K2 forms g v^T as K1 and K3 contract (three bf16 products): it is
 held to ``kernel_weighted_acc3_plain`` at 1e-5 and to full precision at 1e-4.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -484,3 +486,119 @@ def test_tile_cache_operator_on_the_card(cuda):
     err = float((cached - exact).abs().max()) / float(exact.abs().max())
     assert 0 < err <= 2e-2, err
     _close(wide, 1.3 * rbf.kernel_matvec_plain(x / 0.8, x / 0.8, w))
+
+
+def _gp_data(dev, seed, n=3000, m=200):
+    """x (n, 3), y = sin(3 x_0) + 0.1 eps, x_star (m, 3) on the card."""
+    x, eps, x_star = _data(dev, seed, (n, 3), (n,), (m, 3))
+    return x, torch.sin(3.0 * x[:, 0]) + 0.1 * eps, x_star
+
+
+@contextlib.contextmanager
+def _love_settings():
+    """The LOVE cache's settings (the JAX benchmark's config 3d, k = 100),
+    with CG run to 1e-4: at cg_tolerance(1.0) the f32 CG trajectories of two
+    mat-vecs that differ in the last bits part by ~1e-2 at this n (see
+    test_training_step_fused_matches_plain), which would hide the kernels."""
+    with settings.max_cholesky_size(0), settings.preconditioner_mode("auto"), settings.max_cg_iterations(1000), \
+            settings.cg_tolerance(1e-4), settings.max_root_decomposition_size(100):
+        yield
+
+
+@pytest.mark.cuda
+def test_lanczos_loop_never_waits_for_the_card(cuda):
+    """50 Lanczos steps on the fused operator at n = 3000 under
+    torch.cuda.set_sync_debug_mode("error"): no step reads the device, so
+    the 50 K3 launches queue behind each other."""
+    from linear_operator_tpu_torch.solvers.lanczos import lanczos_tridiag
+
+    x, init = _data(cuda, 90, (3000, 3), (3000,))
+    model = ExactGPRegression(materialize_threshold=None)
+    with torch.no_grad():
+        K = model.train_operator(x)
+        lanczos_tridiag(K._matmul, 2, init_vecs=init)  # loads K3 before the check
+        torch.cuda.synchronize()
+        k3 = rbf.kernel_matvec_sym.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            q, t = lanczos_tridiag(K._matmul, 50, init_vecs=init)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert rbf.kernel_matvec_sym.launches == k3 + 50
+    assert torch.isfinite(q).all() and torch.isfinite(t).all()
+    assert float((q.mT @ q - torch.eye(50, device=cuda)).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_love_query_makes_two_k1_launches(cuda):
+    """posterior_from_cache: k_* alpha (t = 1) and k_* R (t = 100), one K1
+    launch each; no K3 launch and no solve."""
+    x, y, x_star = _gp_data(cuda, 91)
+    model = ExactGPRegression(materialize_threshold=None)
+    with _love_settings(), torch.no_grad():
+        cache = model.posterior_cache(x, y, generator=torch.Generator().manual_seed(0))
+        before = (rbf.kernel_matvec.launches, rbf.kernel_matvec_sym.launches, rbf.kernel_weighted.launches)
+        mean, var = model.posterior_from_cache(x, cache, x_star)
+        after = (rbf.kernel_matvec.launches, rbf.kernel_matvec_sym.launches, rbf.kernel_weighted.launches)
+    assert tuple(a - b for a, b in zip(after, before)) == (2, 0, 0)
+    assert cache.root_inv.shape == (3000, 100) and mean.shape == var.shape == (200,)
+    assert torch.isfinite(mean).all() and torch.isfinite(var).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("noise", [None, 1.0])
+def test_love_fused_matches_plain(cuda, noise):
+    """The LOVE cache and a batch of 200 queries on the fused model against the
+    plain model at n = 3000, one generator seed for both (the same Lanczos
+    start): the mean to 1e-3 of max|mean|, the variance to 1e-3 of the prior
+    variance; at the model's initial noise (0.127) and at noise 1.0."""
+    x, y, x_star = _gp_data(cuda, 92)
+    out = []
+    for fused in (True, False):
+        model = ExactGPRegression(use_fused_kernels=fused, materialize_threshold=None)
+        if noise is not None:
+            with torch.no_grad():
+                model.raw_noise.fill_(float(np.log(np.expm1(noise - 1e-6))))
+        with _love_settings(), torch.no_grad():
+            cache = model.posterior_cache(x, y, generator=torch.Generator().manual_seed(0))
+            out.append(model.posterior_from_cache(x, cache, x_star))
+            prior = float(model.covariance(x_star).diagonal().max())
+    (mean, var), (mean_p, var_p) = out
+    assert float((mean - mean_p).abs().max()) <= 1e-3 * float(mean_p.abs().max())
+    assert float((var - var_p).abs().max()) <= 1e-3 * prior
+
+
+@pytest.mark.cuda
+def test_inverse_root_backward_matches_plain(cuda):
+    """The gradient of sum((b^T R)^2), R the Lanczos inverse root (k = 100) of
+    the training operator, with respect to the raw parameters: on the fused
+    path the backward's one bilinear form has 4k = 400 columns, which K1's
+    backward sends to K2 twice (the x1 and x2 partials), each call in four
+    launches of 128, 128, 128 and 16 columns.  Against the plain model to
+    5e-3 of the gradient's norm: 100 f32 Lanczos steps carry K3's summation
+    order (its atomics) into this gradient at ~1e-3 of its norm on this data
+    (``chip_smoke.py`` phase 9 reports two fused runs, the plain path and
+    the f64 one side by side), where a wrong backward misses by orders."""
+    x, b = _data(cuda, 93, (3000, 3), (3000,))
+    widths, launch = [], rbf._launch_weighted
+
+    def record(a, x2, g, v, spec):
+        widths.append(g.shape[-1])
+        return launch(a, x2, g, v, spec)
+
+    grads = []
+    for fused in (True, False):
+        model = ExactGPRegression(use_fused_kernels=fused, materialize_threshold=None)
+        widths.clear()
+        rbf._launch_weighted = record
+        try:
+            with _love_settings():
+                R = model.train_operator(x).root_inv_decomposition(generator=torch.Generator().manual_seed(0))
+                torch.sum((b @ R.root.to_dense()) ** 2).backward()
+        finally:
+            rbf._launch_weighted = launch
+        assert widths == ([128, 128, 128, 16] * 2 if fused else [])
+        grads.append(torch.stack([model.raw_lengthscale.grad, model.raw_outputscale.grad, model.raw_noise.grad]))
+    assert torch.isfinite(grads[0]).all()
+    err = float(torch.linalg.norm(grads[0] - grads[1]))
+    assert err <= 5e-3 * float(torch.linalg.norm(grads[1])), (grads, err)
