@@ -69,12 +69,32 @@ Phases, each reported on its own line:
     1024 x 1024 SPD matrices (no TPU kernel: PyTorch's dense products), timed
     and held against the same step in f64 on four of them, on the same
     probes and Lanczos start;
- 7. one JSON line listing every ported kernel with its launches, error,
-    times and bound (bound_basis: the f32 rate for K4, the tensor cores' for
-    K1, K2, K3 and K5; K5's t = 1 time as ms_t1, the write-only pass beside
-    K4 as write_only_ms; K3 at t = 1 as ms_t1 and K1 at the LOVE shapes as
-    ms_love_t1 and ms_love_t100, each with its plain time, bound and error),
-    then, as the last line, {"ok": true, "device": {...}}.
+11. the JAX benchmark's config 1 at N = 1e7, rank 20: factorize, solve and
+    inv_quad_logdet of the exact Woodbury operator, cold and warm (no kernel
+    launch, no CG or SLQ), the solve's normwise backward error, iq and logdet
+    against the same closed forms in f64, logdet beside N log(noise), the
+    cap matrix's build beside one read of U, and the peak device memory;
+12. the JAX benchmark's config 6 at N = 32,768: 16 CIQ draws
+    (zero_mean_mvn_samples under ciq_samples), cold and warm, with the
+    range estimate's CG and the MINRES iterations and K3's launches by width
+    (t = 1 twenty times, t = 16 once per MINRES iteration and once more),
+    held against the plain path on the same draws; the f64 plain path and,
+    at n = 2048, |S S^T - K| / |K| as witnesses; K3 at t = 16 and t = 1
+    timed beside its bound, and a profile of one draw; the backward of
+    sum(sqrt_inv_matmul(K, z)^2) (two K2 calls of 240 columns, two
+    launches each), held against the plain path at N = 8192;
+13. the predictive distribution at config 3d's data (N = 1e5, m = 1024):
+    posterior_distribution over the LOVE cache, then rsample of 16 draws and
+    log_prob of them, with the solvers each ran and its launches; at N =
+    20,000 the fused path held against the plain one on the same draws;
+ 7. one JSON line listing every ported kernel with its launches (K3's and
+    K1's including phases 12 and 13), error, times and bound (bound_basis:
+    the f32 rate for K4, the tensor cores' for K1, K2, K3 and K5; K5's t = 1
+    time as ms_t1, the write-only pass beside K4 as write_only_ms; K3 at
+    t = 1 as ms_t1, at config 6's shapes as ms_ciq_t16 and ms_ciq_t1, and K1
+    at the LOVE shapes as ms_love_t1 and ms_love_t100, each with its plain
+    time, bound and error), then, as the last line,
+    {"ok": true, "device": {...}}.
 
 Any failed check, or any exception, exits non-zero without the last line.
 Without a CUDA device, or without the package beside it, it fails at once.
@@ -90,6 +110,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -121,6 +142,15 @@ M_LOVE, LOVE_K, LOVE_REPS, N_LOVE_HELD, N_INV_ROOT = 1024, 100, 5, 20_000, 3000
 # the batched dense step (config 2): matrices, their size, and how many are
 # held against f64
 B_DENSE, N_DENSE, DENSE_HELD = 64, 1024, 4
+# config 1, woodbury_10m_solve_iqld (bench.py:189-213): points, rank, noise,
+# warm steps
+N_WOODBURY, RANK_WOODBURY, NOISE_WOODBURY, WOODBURY_REPS = 10_000_000, 20, 0.5, 5
+# config 6, ciq_sampling_n32k (bench.py:309-334): points, draws; the size of
+# the backward's hold against the plain path and of the S S^T witness
+N_CIQ, CIQ_SAMPLES, N_CIQ_HELD, N_CIQ_GRAM = 32_768, 16, 8192, 2048
+# the predictive distribution at config 3d's data: draws, and the size of
+# its hold against the plain path (config 3d's own: N, M_LOVE)
+PRED_SAMPLES = 16
 
 
 def fail(message: str) -> None:
@@ -166,16 +196,420 @@ def bound_ms(flops: float, nbytes: float, peak_flops: float = PEAK_F32_FLOPS) ->
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
-class CGIterations(logging.Handler):
-    """Collects the iteration counts that linear_cg logs under verbose_linalg."""
+class SolverLog(logging.Handler):
+    """What the solvers log under verbose_linalg: linear_cg's iteration counts
+    (``counts``), MINRES's (``minres``) and, in order, the solvers that
+    ``settings.record_linalg`` names (``names``)."""
 
     def __init__(self):
         super().__init__(logging.DEBUG)
         self.counts: list[int] = []
+        self.minres: list[int] = []
+        self.names: list[str] = []
+
+    def clear(self):
+        for seen in (self.counts, self.minres, self.names):
+            seen.clear()
 
     def emit(self, record):
         if record.msg.startswith("linear_cg finished"):
             self.counts.append(int(record.args[0]))
+        elif record.msg.startswith("minres finished"):
+            self.minres.append(int(record.args[0]))
+        elif record.msg.startswith("Running"):
+            self.names.append(record.args[0])
+
+
+@contextlib.contextmanager
+def recording(module, name, record):
+    """``module.name`` replaced, inside the block, by a call that first hands
+    its arguments to ``record``; the wrappers' launch counts are untouched."""
+    real = getattr(module, name)
+
+    def call(*args):
+        record(*args)
+        return real(*args)
+
+    setattr(module, name, call)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def rel_fro(a, b) -> float:
+    """|a - b|_F / |b|_F, in f64."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def phase_woodbury(c) -> None:
+    """11. Config 1: factorize, solve, inv_quad_logdet and their sum on the
+    exact Woodbury operator at N = 1e7, rank 20: no kernel launch, no CG or
+    SLQ; the solve's normwise backward error, iq and logdet against the same
+    closed forms in f64, logdet beside N log(noise)."""
+    torch, lo, settings = c.torch, c.lo, c.settings
+    from linear_operator_tpu_torch.operators import DenseLinearOperator, LowRankRootLinearOperator
+    from linear_operator_tpu_torch.operators.low_rank_root_added_diag import (
+        _build_cap_chol,
+        woodbury_solve_closure,
+    )
+
+    n, r = N_WOODBURY, RANK_WOODBURY
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=c.dev).manual_seed(40)
+    U = torch.randn(n, r, device=c.dev, generator=g) / math.sqrt(n)
+    noise = torch.full((n,), NOISE_WOODBURY, device=c.dev)
+    y = torch.randn(n, 1, device=c.dev, generator=g)
+
+    def step():
+        op = LowRankRootLinearOperator(DenseLinearOperator(U)).add_diagonal(noise).factorize()
+        x = lo.solve(op, y)
+        iq, ld = lo.inv_quad_logdet(op, y, logdet=True)
+        return x, iq, ld, float(torch.sum(x) + iq + ld)
+
+    step_s = []
+    for _ in range(1 + WOODBURY_REPS):
+        c.reset_counts()
+        c.log.clear()
+        with settings.verbose_linalg(True), torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, iq, ld, total = step()
+            step_s.append(time.perf_counter() - t0)
+        if any(c.counts().values()) or c.log.names:
+            fail(f"the Woodbury step launched {c.counts()} and ran {c.log.names}: it must run no kernel, CG or SLQ")
+    warm = statistics.median(step_s[1:])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    iq, ld = float(iq), float(ld)
+    say(f"Woodbury (config 1) N={n} rank={r}: cold {step_s[0] * 1e3:.3f} ms, warm median {warm * 1e3:.3f} ms "
+        f"(of {WOODBURY_REPS}: {', '.join(f'{s * 1e3:.3f}' for s in step_s[1:])}), {1.0 / warm:.3f} solves/s; "
+        f"sum(x) + iq + logdet {total:.6f}; no kernel, CG or SLQ; peak device memory {peak:.3f} GiB "
+        f"(U {4 * n * r / 2**30:.3f} GiB)")
+    # the cap matrix's build, which forms one scaled n x r temporary, beside
+    # its parts, the same build in row chunks whose scaled copies stay in the
+    # L2 cache (2^18 rows, 21 MB), and one read of U
+    dinv = 1.0 / noise
+    v1 = torch.randn(n, 1, device=c.dev, generator=g)
+
+    def cap_in_chunks(rows=1 << 18):
+        cap = torch.eye(r, device=c.dev)
+        for s0 in range(0, n, rows):
+            u = U[s0 : s0 + rows]
+            cap = cap + (dinv[s0 : s0 + rows, None] * u).mT @ u
+        return torch.linalg.cholesky(cap)
+
+    cap_ms = cuda_ms(torch, lambda: _build_cap_chol(U, dinv), 5)
+    parts = {label: cuda_ms(torch, fn, 5) for label, fn in (
+        ("the scaling D^-1 U", lambda: dinv[:, None] * U), ("U^T U alone", lambda: U.mT @ U),
+        ("in row chunks", cap_in_chunks), ("one read of U (U^T v)", lambda: U.mT @ v1))}
+    say(f"  cap build {cap_ms:.3f} ms (its scaled copy of U: {4 * n * r / 1e6:.0f} MB written and read); "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+        + f"; the read bound {1e3 * 4 * n * r / PEAK_BYTES_PER_S:.3f} ms")
+    # the witness: the same closed forms in f64 on the same data
+    with torch.no_grad():
+        U64, y64, x64 = U.double(), y.double(), x.double()
+        closure, ld64 = woodbury_solve_closure(U64, noise.double())
+        iq64 = float(torch.sum(closure(y64) * y64))
+        ld64 = float(ld64)
+        resid = U64 @ (U64.mT @ x64) + noise.double()[:, None] * x64 - y64
+        a_norm = float(torch.linalg.eigvalsh(U64.mT @ U64)[-1]) + NOISE_WOODBURY
+        eta = float(resid.norm() / (a_norm * x64.norm() + y64.norm()))
+        plain_rel = float(resid.norm() / y64.norm())
+    e_iq, e_ld = abs(iq - iq64) / abs(iq64), abs(ld - ld64) / abs(ld64)
+    ref_ld = n * math.log(NOISE_WOODBURY)
+    say(f"  normwise backward error |Ax - y| / (|A| |x| + |y|) {eta:.3e} (relative residual {plain_rel:.3e}); "
+        f"iq {iq:.6f} (f64 {iq64:.6f}, rel {e_iq:.2e}), logdet {ld:.4f} (f64 {ld64:.4f}, rel {e_ld:.2e}), "
+        f"N log({NOISE_WOODBURY}) = {ref_ld:.4f} (logdet - that {ld - ref_ld:.4f}, the cap matrix's); peak device memory with the "
+        f"f64 witness {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if not (math.isfinite(total) and eta <= 1e-6 and max(e_iq, e_ld) <= 1e-5):
+        fail("the Woodbury step is not backward stable or disagrees with the f64 closed forms")
+    # logdet - N log(noise) = log det(I + U^T U / noise), in [0, r log(1 + |U|_2^2 / noise)]
+    if not 0.0 <= ld - ref_ld <= r * math.log1p((a_norm - NOISE_WOODBURY) / NOISE_WOODBURY) * (1 + 1e-3):
+        fail("the Woodbury logdet is not N log(noise) plus the cap matrix's logdet")
+    del U, U64, x64, y64, resid, closure
+    torch.cuda.empty_cache()
+
+
+def phase_ciq(c) -> None:
+    """12. Config 6: 16 CIQ draws of N(0, K) at N = 32,768 through
+    zero_mean_mvn_samples under the benchmark's settings: K3 at t = 1 for
+    the 20 preconditioned-CG steps of the range estimate, at t = 16 once per
+    MINRES iteration and once for the last product, nothing else; held
+    against the plain path on the same draws; the f64 plain path and
+    S S^T - K at n = 2048 as witnesses; K3 at t = 16 timed; the backward of
+    sum(sqrt_inv_matmul(K, z)^2) (two K2 calls of 240 columns, two launches
+    each) at N, and held against the plain path at N_CIQ_HELD."""
+    torch, lo, settings, rbf = c.torch, c.lo, c.settings, c.rbf
+    from linear_operator_tpu_torch.functions._sqrt_inv_matmul import _Quadrature, _SqrtInvMatmul
+
+    n, s = N_CIQ, CIQ_SAMPLES
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=c.dev).manual_seed(50)
+    x = torch.randn(n, D, device=c.dev, generator=g)
+
+    def ciq_settings():
+        """bench.py's settings for config 6 (bench.py:324-326)."""
+        stack = contextlib.ExitStack()
+        for ctx in [settings.ciq_samples(True), settings.minres_tolerance(1e-3),
+                    settings.num_contour_quadrature(15), settings.preconditioner_mode("auto"),
+                    settings.verbose_linalg(True)]:
+            stack.enter_context(ctx)
+        return stack
+
+    def draw(model, xx, seed=60):
+        """16 draws from the model's training covariance: the samples,
+        seconds, launches, K3's widths, CG and MINRES iterations."""
+        widths = []
+        c.reset_counts()
+        c.log.clear()
+        with ciq_settings(), torch.no_grad(), recording(rbf, "_launch_matvec_sym",
+                                                        lambda a, w, spec: widths.append(w.shape[-1])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model.train_operator(xx).zero_mean_mvn_samples(
+                s, generator=torch.Generator(device=c.dev).manual_seed(seed))
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, c.counts(), widths, list(c.log.counts), list(c.log.minres)
+
+    fused = lo.ExactGPRegression(block_rows=8192)
+    runs = [draw(fused, x) for _ in range(3)]
+    samples, _, cnt, widths, cg_iters, minres_iters = runs[0]
+    warm = statistics.median(r[1] for r in runs[1:])
+    # MINRES runs twice: the nested quadrature's P^{1/2} on the Nystrom
+    # operator (no kernel), then the main solve on K
+    k_main = minres_iters[-1]
+    say(f"CIQ sampling (config 6) N={n} d={D} draws={s}: cold {runs[0][1]:.3f} s, warm {', '.join(f'{r[1]:.3f}' for r in runs[1:])} "
+        f"s, {s / warm:.1f} samples/s; range-estimate CG iterations {cg_iters}, MINRES iterations {minres_iters} "
+        f"(P^(1/2), then K), launches {cnt}, K3 widths t=1 x {widths.count(1)}, t=16 x {widths.count(16)}")
+    if samples.shape != (s, n) or not torch.isfinite(samples).all():
+        fail(f"CIQ samples of shape {tuple(samples.shape)} or not finite")
+    if cg_iters != [20] or len(minres_iters) != 2:
+        fail("CIQ sampling ran other solves than the 20-step range estimate and two MINRES")
+    if sorted(widths) != [1] * 20 + [16] * (k_main + 1) or cnt != dict(K1=0, K3=21 + k_main, K2=0, K4=0, K5=0):
+        fail("CIQ sampling did not launch K3 at t = 1 twenty times and at t = 16 once per MINRES iteration "
+             "and once more, and nothing else")
+    for r in runs[1:]:
+        if r[2] != cnt:
+            fail(f"a warm CIQ draw made launches {r[2]}, the cold one {cnt}")
+    c.launches["K3"] += cnt["K3"]
+
+    # K3 at the path's shapes: t = 16 (MINRES) and t = 1 (the range estimate)
+    ls = math.log(2.0) + 1e-6
+    xs = (x / ls).contiguous()
+    v16, v1 = torch.randn(n, 16, device=c.dev, generator=g), torch.randn(n, 1, device=c.dev, generator=g)
+    k3 = {t: c.timed_matvec(f"K3 rbf n={n} d={D} t={t}", lambda v=v: rbf.kernel_matvec_sym(xs, v), (xs, xs, v),
+                            n * (n + 1) / 2, 4 * t, 4 * (n * D + 2 * n * t), reps=20, plain_reps=2)
+          for t, v in ((16, v16), (1, v1))}
+    c.stats["K3"].update(ms_ciq_t16=k3[16]["ms"], plain_ms_ciq_t16=k3[16]["plain_ms"],
+                         bound_ms_ciq_t16=k3[16]["bound_ms"], max_abs_err_ciq_t16=k3[16]["max_abs_err"],
+                         ms_ciq_t1=k3[1]["ms"])
+    k3_s = ((k_main + 1) * k3[16]["ms"] + 20 * k3[1]["ms"]) / 1e3
+    nblk = -(-n // 128)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    say(f"  a warm draw's K3 launches: {k_main + 1} x {k3[16]['ms']:.3f} ms (t=16) + 20 x {k3[1]['ms']:.3f} ms "
+        f"(t=1) = {k3_s:.3f} s, {100 * k3_s / warm:.1f}% of its warm time; K3's persistent wave at N={n} "
+        f"shares {nblk * (nblk + 1) // 2} tile pairs (128 x 128) among the CTAs of {sms} SMs, "
+        f"{nblk * (nblk + 1) // 2 / sms:.1f} per SM")
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, q_s, _, _, _, q_minres = draw(fused, x)
+        kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        by_name = {}
+        for e in kern:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        dev_ms = sum(by_name.values())
+        k3_ms = sum(v for k, v in by_name.items() if "sym_matvec" in k)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        say(f"  profiled draw: {q_s * 1e3:.3f} ms wall, device kernels {dev_ms:.3f} ms "
+            f"({100 * dev_ms / (q_s * 1e3):.1f}%), K3 {k3_ms:.3f} ms, {len(kern)} device events "
+            f"({len(kern) / sum(q_minres):.1f} per MINRES iteration, of {sum(q_minres)}); top: "
+            + "; ".join(f"{name[:60]} {ms:.3f} ms" for name, ms in top))
+    except Exception as exc:  # CUPTI tracing may be unavailable; no check rests on it
+        say(f"  draw kernel time by profiler: not measured ({type(exc).__name__}: {exc})")
+
+    # the plain path on the card on the same draws, held
+    plain = lo.ExactGPRegression(block_rows=8192, use_fused_kernels=False)
+    p_samples, p_s, _, _, p_cg, p_minres = draw(plain, x)
+    rel = rel_fro(samples, p_samples)
+    say(f"  plain path: {p_s:.3f} s, CG iterations {p_cg}, MINRES iterations {p_minres}; |fused - plain|_F / "
+        f"|plain|_F {rel:.3e}")
+    if not rel <= PATH_RTOL:
+        fail("CIQ samples disagree with the plain path")
+    # witnesses (reported): the plain path in f64 on the same base and start
+    # vector (drawn as zero_mean_mvn_samples draws them: the base, then the
+    # start), and at N_CIQ_GRAM, S S^T against K for S = sqrt_matmul_ciq(K, I)
+    wg = torch.Generator(device=c.dev).manual_seed(60)
+    base = torch.randn((n, s), device=c.dev, generator=wg)
+    init = torch.randn((n,), device=c.dev, generator=wg)
+    ref = lo.ExactGPRegression(block_rows=8192, use_fused_kernels=False, dtype=torch.float64)
+    with ciq_settings(), torch.no_grad():
+        K64 = ref.train_operator(x.double())
+        half = _SqrtInvMatmul.apply(K64, base.double(), _Quadrature(K64, init.double()), *K64._leaves())
+        s64 = K64._matmul(half).movedim(-1, 0)
+        xg = x[:N_CIQ_GRAM].double()
+        Kg = ref.train_operator(xg)
+        S = lo.functions.sqrt_matmul_ciq(Kg, torch.eye(N_CIQ_GRAM, dtype=torch.float64, device=c.dev),
+                                         generator=torch.Generator(device=c.dev).manual_seed(61))
+        dense = Kg.to_dense()
+        gram = float((S @ S.mT - dense).norm() / dense.norm())
+    say(f"  witnesses (reported): fused to f64 plain {rel_fro(samples, s64):.3e}, plain to f64 plain "
+        f"{rel_fro(p_samples, s64):.3e}; at n={N_CIQ_GRAM} in f64, |S S^T - K|_F / |K|_F {gram:.3e} for "
+        f"S = sqrt_matmul_ciq(K, I) (exact CIQ gives 0)")
+    del K64, half, s64, Kg, S, dense, base, init, xs, v16, v1
+
+    # the backward of sum(sqrt_inv_matmul(K, z)^2) in the three raw parameters
+    raw = ("raw_lengthscale", "raw_outputscale", "raw_noise")
+
+    def ciq_grad(model, xx, z):
+        widths, weighted = [], []
+        model.zero_grad(set_to_none=True)
+        c.reset_counts()
+        c.log.clear()
+        with ciq_settings(), recording(rbf, "_launch_matvec_sym", lambda a, w, spec: widths.append(w.shape[-1])), \
+                recording(rbf, "_weighted_dx", lambda x1, x2, gg, v, covar: weighted.append(gg.shape[-1])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = lo.sqrt_inv_matmul(model.train_operator(xx), z,
+                                     generator=torch.Generator(device=c.dev).manual_seed(62))
+            loss = torch.sum(out**2)
+            float(loss.detach())
+            t1 = time.perf_counter()
+            fwd = c.counts()
+            loss.backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        bwd = {k: v - fwd[k] for k, v in c.counts().items()}
+        grads = torch.stack([getattr(model, name).grad for name in raw]).double()
+        return dict(grads=grads, fwd_s=t1 - t0, bwd_s=t2 - t1, fwd=fwd, bwd=bwd, widths=widths, weighted=weighted,
+                    minres=list(c.log.minres))
+
+    z = torch.randn(n, s, device=c.dev, generator=g)
+    big = ciq_grad(fused, x, z)
+    say(f"  backward of sum(sqrt_inv_matmul(K, z)^2) N={n} t={s}: forward {big['fwd_s']:.3f} s, backward "
+        f"{big['bwd_s']:.3f} s; forward launches {big['fwd']}, backward launches {big['bwd']}, K2 calls of "
+        f"{big['weighted']} columns, MINRES iterations {big['minres']}, widest K3 {max(big['widths'])}; "
+        f"grad {big['grads'].tolist()}")
+    if not torch.isfinite(big["grads"]).all() or big["weighted"] != [15 * s, 15 * s] or big["bwd"]["K2"] != 4:
+        fail("the CIQ backward is not finite or did not make two K2 calls of 240 columns, two launches each")
+    if max(big["widths"]) > 16:
+        fail("a K3 launch on the CIQ path took more than 16 columns")
+    c.launches["K2"] += big["bwd"]["K2"]
+    c.launches["K1"] += big["fwd"]["K1"] + big["bwd"]["K1"]
+    # held at N_CIQ_HELD against the plain path, the same start vector
+    xh, zh = x[:N_CIQ_HELD], z[:N_CIQ_HELD]
+    held = {label: ciq_grad(lo.ExactGPRegression(block_rows=8192, use_fused_kernels=use), xh, zh)
+            for label, use in (("fused", True), ("plain", False))}
+    rel = float((held["fused"]["grads"] - held["plain"]["grads"]).norm() / held["plain"]["grads"].norm())
+    say(f"  backward N={N_CIQ_HELD}: fused {held['fused']['grads'].tolist()}, plain {held['plain']['grads'].tolist()}, "
+        f"|fused - plain| {rel:.3e} of the norm (MINRES iterations {held['fused']['minres']} and "
+        f"{held['plain']['minres']})")
+    if not rel <= PATH_RTOL:
+        fail("the CIQ backward disagrees with the plain path")
+    del x, z, xh, zh, fused, plain, ref
+    torch.cuda.empty_cache()
+
+
+def phase_predictive(c) -> None:
+    """13. The predictive distribution at config 3d's data (N = 1e5, m =
+    1024): posterior_distribution over the LOVE cache (phase 9's settings),
+    then rsample of 16 draws and log_prob of them under the default settings,
+    with the routes they took and their launches; at N_LOVE_HELD, the fused
+    path held against the plain one on the same draws."""
+    torch, lo, settings = c.torch, c.lo, c.settings
+    torch.cuda.empty_cache()
+    lg = torch.Generator(device=c.dev).manual_seed(20)  # phase 9's data
+    xl = torch.randn(N, D, device=c.dev, generator=lg)
+    yl = torch.sin(3.0 * xl[:, 0]) + 0.1 * torch.randn(N, device=c.dev, generator=lg)
+    xq = torch.randn(M_LOVE, D, device=c.dev, generator=lg)
+
+    def predictive(model, xx, yy):
+        """The distribution, then its draws and their log density: each step's
+        seconds, launches, solvers and CG iterations."""
+        steps = {}
+
+        def run(label, fn, *ctxs):
+            c.reset_counts()
+            c.log.clear()
+            with contextlib.ExitStack() as stack:
+                for ctx in ctxs:
+                    stack.enter_context(ctx)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                steps[label] = dict(s=time.perf_counter() - t0, launches=c.counts(), solvers=sorted(set(c.log.names)),
+                                    cg=list(c.log.counts))
+            return out
+
+        dist = run("build", lambda: model.posterior_distribution(xx, yy, xq,
+                                                                 generator=torch.Generator().manual_seed(2)),
+                   c.love_settings())
+        draws = run("rsample", lambda: dist.rsample((PRED_SAMPLES,),
+                                                    generator=torch.Generator(device=c.dev).manual_seed(3)),
+                    settings.verbose_linalg(True), torch.no_grad())
+        lp = run("log_prob", lambda: dist.log_prob(draws, generator=torch.Generator(device=c.dev).manual_seed(4)),
+                 settings.verbose_linalg(True), torch.no_grad())
+        return dist, draws, lp, steps
+
+    model = lo.ExactGPRegression(block_rows=8192)
+    dist, draws, lp, steps = predictive(model, xl, yl)
+    for label, st in steps.items():
+        say(f"predictive N={N} m={M_LOVE}, {label}: {st['s']:.3f} s, solvers {st['solvers']}, CG iterations "
+            f"{st['cg']}, launches {st['launches']}")
+    if draws.shape != (PRED_SAMPLES, M_LOVE) or lp.shape != (PRED_SAMPLES,):
+        fail(f"predictive draws {tuple(draws.shape)} or log_prob {tuple(lp.shape)}")
+    if not (torch.isfinite(dist.mean).all() and torch.isfinite(draws).all() and torch.isfinite(lp).all()):
+        fail("the predictive mean, draws or log densities are not finite")
+    if steps["build"]["launches"]["K1"] != 2:
+        fail("the predictive distribution's build did not make two K1 launches (K_s* alpha, K_s* R)")
+    say(f"  log_prob of the draws: {', '.join(f'{v:.2f}' for v in lp.tolist()[:4])}, ...; "
+        f"{PRED_SAMPLES / (steps['rsample']['s'] + steps['log_prob']['s']):.1f} draws with their densities a second")
+    for st in steps.values():
+        for key in ("K1", "K3"):
+            c.launches[key] += st["launches"][key]
+    del dist, draws, lp, model
+
+    # at N_LOVE_HELD: fused against plain, one generator seed for each step.
+    # At the model's initial parameters the predictive covariance (RBF at
+    # lengthscale 0.69 over 1024 points in 3-d, plus 1e-6) is ill-conditioned:
+    # the draws (a Lanczos root) and the log densities (CG to 1000
+    # iterations) carry the kernels' ~1e-5 through it, so there the mean and
+    # covariance are held and the draws and densities reported; at
+    # lengthscale 0.1 the covariance is well-conditioned and all four are held
+    xh, yh = xl[:N_LOVE_HELD], yl[:N_LOVE_HELD]
+    for ls in (None, 0.1):
+        tag = "the initial lengthscale 0.69" if ls is None else f"lengthscale {ls}"
+        models = {label: lo.ExactGPRegression(block_rows=8192, use_fused_kernels=use)
+                  for label, use in (("fused", True), ("plain", False))}
+        if ls is not None:
+            for m_ in models.values():
+                with torch.no_grad():
+                    m_.raw_lengthscale.fill_(math.log(math.expm1(ls - 1e-6)))
+        runs = {label: predictive(m_, xh, yh) for label, m_ in models.items()}
+        (fd, fdraws, _, fsteps), (pd, pdraws, plp, _) = runs["fused"], runs["plain"]
+        with torch.no_grad():
+            prior = float(models["plain"].covariance(xq).diagonal().max())
+            d_mean = float((fd.mean - pd.mean).abs().max() / pd.mean.abs().max())
+            d_cov = float((fd.covariance_matrix - pd.covariance_matrix).abs().max()) / prior
+            d_draws = rel_fro(fdraws, pdraws)
+            # the fused distribution's density at the plain path's draws
+            flp_at = fd.log_prob(pdraws, generator=torch.Generator(device=c.dev).manual_seed(4))
+            d_lp = float((flp_at - plp).abs().max() / plp.abs().max())
+            evals = torch.linalg.eigvalsh(pd.covariance_matrix.double())
+        say(f"  predictive N={N_LOVE_HELD} m={M_LOVE}, {tag}: covariance eigenvalues {float(evals[0]):.3e} .. "
+            f"{float(evals[-1]):.3e}; rsample's solvers {fsteps['rsample']['solvers']}, log_prob's CG iterations "
+            f"{fsteps['log_prob']['cg']}; fused to plain: mean {d_mean:.3e} of max|mean|, covariance {d_cov:.3e} of "
+            f"the prior variance, draws {d_draws:.3e} (relative Frobenius), log_prob at the same points {d_lp:.3e}"
+            + (" (the last two reported)" if ls is None else ""))
+        held = (d_mean, d_cov) if ls is None else (d_mean, d_cov, d_draws, d_lp)
+        if not max(held) <= PATH_RTOL:
+            fail(f"the predictive distribution disagrees with the plain path at N={N_LOVE_HELD}, {tag}")
+    del runs, xl, yl, xq, xh, yh
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -586,7 +1020,7 @@ def main() -> None:
     x_star = torch.randn(M_STAR, D, device=dev, generator=kg)
     fused = lo.ExactGPRegression(block_rows=8192)
     plain = lo.ExactGPRegression(block_rows=8192, use_fused_kernels=False)
-    cg = CGIterations()
+    cg = SolverLog()
     log = logging.getLogger("linear_operator_tpu_torch")
     log.setLevel(logging.DEBUG)
     log.addHandler(cg)
@@ -1446,6 +1880,16 @@ def main() -> None:
     if not max(e_iq, e_ld, e_root) <= PATH_RTOL:
         fail("the batched dense step in f32 disagrees with the same step in f64")
     del mats, rhs2, root2, root64, gram, gram64, op64
+
+    # 11-13. the exact Woodbury operator (config 1), CIQ sampling (config 6)
+    # and the predictive distribution
+    ctx = types.SimpleNamespace(
+        torch=torch, lo=lo, settings=settings, rbf=rbf, dev=dev, counts=counts, reset_counts=reset_counts, log=cg,
+        stats=stats, launches=launches, timed_matvec=timed_matvec, love_settings=love_settings,
+    )
+    phase_woodbury(ctx)
+    phase_ciq(ctx)
+    phase_predictive(ctx)
 
     # 7. the kernels line, then the result
     kernels = []

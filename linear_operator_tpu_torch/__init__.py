@@ -7,35 +7,81 @@ gradients (the training step ``model.neg_mll(x, y, generator=g).backward()``),
 with the pivoted-Cholesky or Nystrom preconditioner, the root decompositions
 (Cholesky, eigendecomposition, Lanczos) and the LOVE prediction cache
 (``model.posterior_cache`` once, then ``model.posterior_from_cache`` per
-query batch), and the opt-in bf16 tile-cache solve of a large symmetric RBF
-kernel operator (``operators.rbf_fused_closure``).
+query batch), the opt-in bf16 tile-cache solve of a large symmetric RBF
+kernel operator (``operators.rbf_fused_closure``), the exact Woodbury
+operator (``LowRankRootLinearOperator(U).add_diagonal(d)``: closed-form
+solves and log-determinants), contour-integral-quadrature sampling
+(``sqrt_inv_matmul``, ``zero_mean_mvn_samples`` under
+``settings.ciq_samples``, shifted MINRES) and the predictive distribution
+(``model.posterior_distribution``, a ``MultivariateNormal``).
 Its entry points run on a CUDA device unless the caller asks for the CPU,
 where the kernels' plain PyTorch versions take their place.
 """
 
-from . import settings
+from . import distributions, operators, settings, solvers
+from .distributions import MultivariateNormal
 from .functions import (
+    add_diagonal,
+    add_jitter,
     diagonalization,
+    inv_quad,
     inv_quad_logdet,
     pivoted_cholesky,
     root_decomposition,
     root_inv_decomposition,
     solve,
+    sqrt_inv_matmul,
 )
 from .models import ExactGPRegression, PosteriorCache, load_jax_cache, load_jax_params
-from .operators import CholLinearOperator
+from .operators import (
+    AddedDiagLinearOperator,
+    CholLinearOperator,
+    ConstantDiagLinearOperator,
+    ConstantMulLinearOperator,
+    DenseLinearOperator,
+    DiagLinearOperator,
+    KernelLinearOperator,
+    LinearOperator,
+    LowRankRootAddedDiagLinearOperator,
+    LowRankRootLinearOperator,
+    RootLinearOperator,
+    SumLinearOperator,
+    TriangularLinearOperator,
+    rbf_kernel_operator,
+)
 
 __all__ = [
+    "AddedDiagLinearOperator",
     "CholLinearOperator",
+    "ConstantDiagLinearOperator",
+    "ConstantMulLinearOperator",
+    "DenseLinearOperator",
+    "DiagLinearOperator",
     "ExactGPRegression",
+    "KernelLinearOperator",
+    "LinearOperator",
+    "LowRankRootAddedDiagLinearOperator",
+    "LowRankRootLinearOperator",
+    "MultivariateNormal",
     "PosteriorCache",
+    "RootLinearOperator",
+    "SumLinearOperator",
+    "TriangularLinearOperator",
+    "add_diagonal",
+    "add_jitter",
     "diagonalization",
+    "distributions",
+    "inv_quad",
     "inv_quad_logdet",
     "load_jax_cache",
     "load_jax_params",
+    "operators",
     "pivoted_cholesky",
+    "rbf_kernel_operator",
     "root_decomposition",
     "root_inv_decomposition",
     "settings",
     "solve",
+    "solvers",
+    "sqrt_inv_matmul",
 ]

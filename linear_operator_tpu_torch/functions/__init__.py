@@ -3,6 +3,12 @@ from ._root_decomposition import diagonalization, root_decomposition, root_inv_d
 from ._solve import solve
 
 
+def inv_quad(op, rhs, reduce_inv_quad: bool = True, *, generator=None):
+    """rhs^T K^{-1} rhs, summed over the columns with ``reduce_inv_quad``."""
+    iq, _ = inv_quad_logdet(op, rhs, logdet=False, reduce_inv_quad=reduce_inv_quad, generator=generator)
+    return iq
+
+
 def pivoted_cholesky(op, rank: int, error_tol=None, return_pivots: bool = False):
     """Partial pivoted Cholesky L (*b, n, rank), with the pivots (*b, rank)
     when ``return_pivots``.
@@ -20,11 +26,41 @@ def pivoted_cholesky(op, rank: int, error_tol=None, return_pivots: bool = False)
     return (L, pivots) if return_pivots else L
 
 
+def add_diagonal(op, diag):
+    return op.add_diagonal(diag)
+
+
+def add_jitter(op, jitter_val: float = 1e-3):
+    return op.add_jitter(jitter_val)
+
+
+def sqrt_inv_matmul(op, rhs, lhs=None, *, generator=None):
+    """K^{-1/2} rhs by contour integral quadrature; with ``lhs``, the pair
+    (lhs @ K^{-1/2} rhs, the row-wise lhs K^{-1} lhs^T).  ``generator`` draws
+    the Lanczos start of the eigenvalue-range estimate (a fixed one when
+    None)."""
+    from ._sqrt_inv_matmul import sqrt_inv_matmul as _impl
+
+    return _impl(op, rhs, lhs, generator=generator)
+
+
+def sqrt_matmul_ciq(op, rhs, *, generator=None):
+    """K^{1/2} rhs by contour integral quadrature (CIQ sampling)."""
+    from ._sqrt_inv_matmul import sqrt_matmul as _impl
+
+    return _impl(op, rhs, generator=generator)
+
+
 __all__ = [
+    "add_diagonal",
+    "add_jitter",
     "diagonalization",
+    "inv_quad",
     "inv_quad_logdet",
     "pivoted_cholesky",
     "root_decomposition",
     "root_inv_decomposition",
     "solve",
+    "sqrt_inv_matmul",
+    "sqrt_matmul_ciq",
 ]

@@ -33,6 +33,7 @@ import torch
 from .. import settings
 from ..solvers.lanczos import lanczos_tridiag_to_diag
 from ..solvers.stochastic_lq import slq_quadrature
+from ..utils.random import randn
 from ._solve import _unbroadcast
 
 
@@ -95,10 +96,7 @@ def inv_quad_logdet(
             probes = precond_op.zero_mean_mvn_samples(num_probes, generator=generator).movedim(0, -1)
             precond_probes = closure(probes)  # (*b, n, m)
         else:
-            probes = torch.randn(
-                (*op.batch_shape, n, num_probes), dtype=op.dtype,
-                device=generator.device, generator=generator,
-            ).to(op.device)
+            probes = randn((*op.batch_shape, n, num_probes), op.dtype, op.device, generator)
             precond_probes = probes
             logdet_p = zeros
         norms = torch.linalg.norm(probes, dim=-2, keepdim=True)  # (*b, 1, m)

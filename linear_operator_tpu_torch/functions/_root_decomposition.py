@@ -29,14 +29,12 @@ import torch
 from .. import settings
 from ..solvers.lanczos import lanczos_tridiag
 from ..utils.cholesky import highest_matmul_precision
+from ..utils.random import randn
 
 
 def _random_start(op, generator: torch.Generator | None) -> torch.Tensor:
     """N(0, I) Lanczos start vectors (*b, n) in the operator's dtype."""
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    shape = (*op.batch_shape, op.shape[-1])
-    return torch.randn(shape, dtype=op.dtype, device=generator.device, generator=generator).to(op.device)
+    return randn((*op.batch_shape, op.shape[-1]), op.dtype, op.device, generator)
 
 
 def _lanczos_root_impl(op, init: torch.Tensor, k: int, want_inverse: bool = True):

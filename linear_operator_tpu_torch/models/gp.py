@@ -15,7 +15,8 @@ Serving (LOVE, Pleiss et al. 2018): ``posterior_cache`` runs one CG solve
 for alpha = K^{-1} y and one Lanczos inverse root R with R R^T ~= K^{-1}
 (``max_root_decomposition_size`` steps, each one kernel mat-vec); each batch
 of queries then costs two cross-covariance products and no solve
-(``posterior_from_cache``).
+(``posterior_from_cache``).  ``posterior_distribution`` returns the joint
+predictive over the same cache as a lazy-covariance MultivariateNormal.
 """
 
 from __future__ import annotations
@@ -157,6 +158,23 @@ class ExactGPRegression(nn.Module):
         v = k_star @ cache.root_inv  # (*b, m, k)
         var = self.covariance(x_star).diagonal() - torch.sum(v * v, dim=-1)
         return mean, torch.clamp_min(var, 0.0)
+
+    def posterior_distribution(self, x, y, x_star, *, generator: torch.Generator | None = None):
+        """The joint predictive at ``x_star`` as a MultivariateNormal over a
+        lazy covariance, K_ss - K_s* K^{-1} K_*s, kept as the sum of the prior
+        operator and a downdate root (K_s* R with R the LOVE cache's inverse
+        root), plus a jitter of 1e-6; nothing of size m x m is formed until a
+        density or a draw asks for it.  ``generator`` draws the cache's
+        Lanczos start."""
+        from ..distributions import MultivariateNormal
+        from ..operators import ConstantMulLinearOperator, RootLinearOperator
+
+        cache = self.posterior_cache(x, y, generator=generator)
+        k_star = self.covariance(x_star, x)  # (*b, m, n)
+        mean = (k_star @ cache.alpha)[..., 0]
+        v = k_star @ cache.root_inv  # (*b, m, k)
+        downdate = ConstantMulLinearOperator(RootLinearOperator(v), -1.0)
+        return MultivariateNormal(mean, (self.covariance(x_star) + downdate).add_jitter(1e-6))
 
 
 def load_jax_params(model: ExactGPRegression, params) -> ExactGPRegression:

@@ -1,6 +1,7 @@
 from ._linear_operator import LinearOperator
 from .added_diag import AddedDiagLinearOperator
 from .chol import CholLinearOperator
+from .constant_mul import ConstantMulLinearOperator
 from .dense import DenseLinearOperator
 from .diag import ConstantDiagLinearOperator, DiagLinearOperator
 from .kernel import (
@@ -19,6 +20,7 @@ __all__ = [
     "AddedDiagLinearOperator",
     "CholLinearOperator",
     "ConstantDiagLinearOperator",
+    "ConstantMulLinearOperator",
     "DenseLinearOperator",
     "DiagLinearOperator",
     "KernelLinearOperator",

@@ -1,9 +1,9 @@
 """Abstract base class for lazy (batched) linear operators.
 
 PyTorch counterpart of ``linear_operator_tpu/operators/_linear_operator.py``,
-ported as far as the exact-GP slice needs it.  An operator represents a
-(batch of) M x N matrix implicitly through ``_matmul``, ``_shape`` and
-``_transpose``; everything else is built on them.
+ported as far as the exact-GP, Woodbury and sampling slices need it.  An
+operator represents a (batch of) M x N matrix implicitly through
+``_matmul``, ``_shape`` and ``_transpose``; everything else is built on them.
 
 Operators are plain classes whose fields are tensors, nested operators or
 static values.  ``_leaves`` walks the tensors and ``_map_tensors`` rebuilds a
@@ -15,12 +15,13 @@ pytree flattening.
 from __future__ import annotations
 
 import copy
+import warnings
 from typing import Callable, Iterator
 
 import torch
 
 from .. import settings
-from ..utils.broadcasting import matmul_broadcast_shape
+from ..utils.broadcasting import broadcast_shapes, matmul_broadcast_shape
 
 
 def _map_value(value, fn):
@@ -259,7 +260,11 @@ class LinearOperator:
         return self.matmul(other)
 
     def __add__(self, other):
+        """Structure-dispatching sum: a diagonal gives an AddedDiag (or the
+        subclass's own structure), an operator a lazy sum, a scalar a dense
+        operator, a tensor a lazy sum with it."""
         from .added_diag import AddedDiagLinearOperator
+        from .dense import DenseLinearOperator
         from .diag import DiagLinearOperator
         from .sum import SumLinearOperator
 
@@ -267,9 +272,57 @@ class LinearOperator:
             return AddedDiagLinearOperator(self, other)
         if isinstance(other, LinearOperator):
             return SumLinearOperator((self, other))
+        other = torch.as_tensor(other, dtype=self.dtype, device=self.device)
+        if other.ndim == 0:
+            return DenseLinearOperator(self.to_dense() + other)
+        return SumLinearOperator((self, DenseLinearOperator(other)))
+
+    def __radd__(self, other):
+        return self.__add__(other)
+
+    def __sub__(self, other):
+        return self.__add__(other * -1)
+
+    def __rsub__(self, other):
+        return (self * -1).__add__(other)
+
+    def __neg__(self):
+        return self * -1
+
+    def add(self, other, alpha: float | None = None) -> "LinearOperator":
+        """``self + alpha * other``."""
+        return self + other if alpha is None else self + other * alpha
+
+    def mul(self, other) -> "LinearOperator":
+        """Product with a constant: a scalar, a batch-shaped tensor, or one
+        whose matrix dims are (1, 1), as a ConstantMulLinearOperator.  The
+        elementwise product with an operator or a full-size tensor needs
+        MulLinearOperator, which is not ported yet (ROADMAP queue 1 item 5)."""
+        from .constant_mul import ConstantMulLinearOperator
+
+        if not isinstance(other, LinearOperator):
+            const = torch.as_tensor(other, dtype=self.dtype, device=self.device)
+            unit_matrix = const.ndim >= 2 and tuple(const.shape[-2:]) == (1, 1)
+            if const.ndim == 0 or unit_matrix or const.ndim <= self.ndim - 2:
+                # ConstantMul holds a batch-shaped constant and appends the
+                # (1, 1) matrix dims itself
+                return ConstantMulLinearOperator(self, const[..., 0, 0] if unit_matrix else const)
         raise NotImplementedError(
-            f"{type(self).__name__} + {type(other).__name__} is not ported yet"
+            "the elementwise product with an operator or a full-size tensor needs "
+            "MulLinearOperator, which is not ported yet (ROADMAP queue 1 item 5)"
         )
+
+    def __mul__(self, other):
+        return self.mul(other)
+
+    def __rmul__(self, other):
+        return self.mul(other)
+
+    def __truediv__(self, other):
+        return self.mul(1.0 / torch.as_tensor(other, dtype=self.dtype, device=self.device))
+
+    def sqrt(self) -> "LinearOperator":
+        raise NotImplementedError(f"sqrt({type(self).__name__}) is not implemented.")
 
     def add_diagonal(self, diag) -> "LinearOperator":
         """K + diag(d); a scalar or trailing-singleton ``diag`` becomes a
@@ -279,6 +332,104 @@ class LinearOperator:
         if not self.is_square:
             raise RuntimeError("add_diagonal requires a square operator")
         return self + diag_operator(diag, self)
+
+    def add_jitter(self, jitter_val: float = 1e-3) -> "LinearOperator":
+        """K + jitter_val I."""
+        return self.add_diagonal(jitter_val)
+
+    # ------------------------------------------------------------------
+    # Solves, quadratic forms, log-determinants (see ``functions``)
+    # ------------------------------------------------------------------
+
+    def solve(self, rhs: torch.Tensor, lhs: torch.Tensor | None = None) -> torch.Tensor:
+        """K^{-1} rhs, or lhs @ K^{-1} rhs."""
+        from ..functions import solve
+
+        return solve(self, rhs, lhs)
+
+    def inv_quad(self, rhs: torch.Tensor, reduce_inv_quad: bool = True) -> torch.Tensor:
+        """rhs^T K^{-1} rhs, summed over the columns with ``reduce_inv_quad``."""
+        from ..functions import inv_quad
+
+        return inv_quad(self, rhs, reduce_inv_quad=reduce_inv_quad)
+
+    def inv_quad_logdet(
+        self,
+        inv_quad_rhs: torch.Tensor | None = None,
+        logdet: bool = False,
+        reduce_inv_quad: bool = True,
+        *,
+        generator: torch.Generator | None = None,
+    ):
+        """(rhs^T K^{-1} rhs, log|K|) from one batched solve."""
+        from ..functions import inv_quad_logdet
+
+        return inv_quad_logdet(
+            self, inv_quad_rhs, logdet=logdet, reduce_inv_quad=reduce_inv_quad, generator=generator
+        )
+
+    def logdet(self, *, generator: torch.Generator | None = None) -> torch.Tensor:
+        _, ld = self.inv_quad_logdet(None, logdet=True, generator=generator)
+        return ld
+
+    def sqrt_inv_matmul(
+        self, rhs: torch.Tensor, lhs: torch.Tensor | None = None, *, generator: torch.Generator | None = None
+    ):
+        """K^{-1/2} rhs by contour integral quadrature (see
+        ``functions.sqrt_inv_matmul``); ``generator`` draws the Lanczos start
+        of the eigenvalue-range estimate (a fixed one when None)."""
+        from ..functions import sqrt_inv_matmul
+
+        return sqrt_inv_matmul(self, rhs, lhs, generator=generator)
+
+    # ------------------------------------------------------------------
+    # Sampling
+    # ------------------------------------------------------------------
+
+    def zero_mean_mvn_samples(self, num_samples: int, *, generator: torch.Generator | None = None) -> torch.Tensor:
+        """N(0, K) draws of shape (num_samples, *b, N): K^{1/2} z by contour
+        integral quadrature under ``settings.ciq_samples``, else R z with R
+        the operator's root decomposition.  ``generator`` draws z and the
+        decomposition's start vector on its own device (a fixed CPU
+        generator when None)."""
+        from ..utils.random import randn
+
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        if settings.ciq_samples.on():
+            from ..functions import sqrt_matmul_ciq
+
+            base = randn((*self.batch_shape, self.shape[-1], num_samples), self.dtype, self.device, generator)
+            return sqrt_matmul_ciq(self, base, generator=generator).movedim(-1, 0)
+        root = self.root_decomposition(generator=generator).root
+        base = randn((*self.batch_shape, root.shape[-1], num_samples), self.dtype, self.device, generator)
+        return root.matmul(base).movedim(-1, 0)
+
+    # ------------------------------------------------------------------
+    # Batch dims
+    # ------------------------------------------------------------------
+
+    def _expand_batch(self, batch_shape: tuple[int, ...]) -> "LinearOperator":
+        """Dense fallback; structured subclasses broadcast their tensors."""
+        from ..utils.warnings import PerformanceWarning
+        from .dense import DenseLinearOperator
+
+        warnings.warn(
+            f"{type(self).__name__} fell back to dense materialization in _expand_batch.",
+            PerformanceWarning,
+        )
+        return DenseLinearOperator(self.to_dense().expand(*batch_shape, *self.matrix_shape))
+
+    def expand(self, *sizes) -> "LinearOperator":
+        """The operator broadcast to the batch shape ``sizes[:-2]`` (-1 keeps
+        a dim); the matrix dims cannot change."""
+        if len(sizes) == 1 and isinstance(sizes[0], (tuple, list, torch.Size)):
+            sizes = tuple(sizes[0])
+        if tuple(sizes[-2:]) != tuple(self.matrix_shape):
+            raise RuntimeError(f"expand cannot change matrix shape {self.matrix_shape}")
+        own = (1,) * (len(sizes) - 2 - len(self.batch_shape)) + tuple(self.batch_shape)
+        batch = tuple(s if new == -1 else new for new, s in zip(sizes[:-2], own))
+        return self._expand_batch(broadcast_shapes(batch, self.batch_shape))
 
     # ------------------------------------------------------------------
     # Factorizations

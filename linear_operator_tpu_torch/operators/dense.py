@@ -32,6 +32,9 @@ class DenseLinearOperator(LinearOperator):
     def to_dense(self) -> torch.Tensor:
         return self.tensor
 
+    def _expand_batch(self, batch_shape) -> "DenseLinearOperator":
+        return DenseLinearOperator(self.tensor.expand(*batch_shape, *self.matrix_shape))
+
     def _get_indices(self, row_index, col_index, *batch_indices) -> torch.Tensor:
         return self.tensor[(*batch_indices, row_index, col_index)]
 

@@ -52,6 +52,9 @@ class DiagLinearOperator(LinearOperator):
     def inverse(self) -> "DiagLinearOperator":
         return DiagLinearOperator(1.0 / self.diag)
 
+    def _expand_batch(self, batch_shape) -> "DiagLinearOperator":
+        return DiagLinearOperator(self.diag.expand(*batch_shape, self.diag.shape[-1]))
+
     def __add__(self, other):
         if isinstance(other, DiagLinearOperator):
             return DiagLinearOperator(self._diagonal() + other._diagonal())
@@ -85,6 +88,9 @@ class ConstantDiagLinearOperator(DiagLinearOperator):
 
     def inverse(self) -> "ConstantDiagLinearOperator":
         return ConstantDiagLinearOperator(1.0 / self.diag, diag_shape=self.diag_shape)
+
+    def _expand_batch(self, batch_shape) -> "ConstantDiagLinearOperator":
+        return ConstantDiagLinearOperator(self.diag.expand(*batch_shape, 1), diag_shape=self.diag_shape)
 
     def __add__(self, other):
         if isinstance(other, ConstantDiagLinearOperator):

@@ -37,13 +37,18 @@ class RootLinearOperator(LinearOperator):
     def root_decomposition(self, method=None, *, generator=None) -> "RootLinearOperator":
         return self
 
+    def _expand_batch(self, batch_shape) -> "RootLinearOperator":
+        return type(self)(self.root._expand_batch(batch_shape))
+
 
 class LowRankRootLinearOperator(RootLinearOperator):
     """A genuinely low-rank root: adding a diagonal gives the Woodbury
     structured ``LowRankRootAddedDiagLinearOperator``."""
 
-    def add_diagonal(self, diag) -> LinearOperator:
-        from .diag import diag_operator
+    def __add__(self, other):
+        from .diag import DiagLinearOperator
         from .low_rank_root_added_diag import LowRankRootAddedDiagLinearOperator
 
-        return LowRankRootAddedDiagLinearOperator(self, diag_operator(diag, self))
+        if isinstance(other, DiagLinearOperator):
+            return LowRankRootAddedDiagLinearOperator(self, other)
+        return super().__add__(other)

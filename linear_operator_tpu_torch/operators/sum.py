@@ -60,6 +60,9 @@ class SumLinearOperator(LinearOperator):
             out = out + op._diagonal()
         return out
 
+    def _expand_batch(self, batch_shape) -> "SumLinearOperator":
+        return SumLinearOperator(tuple(op._expand_batch(batch_shape) for op in self.operators))
+
     def to_dense(self) -> torch.Tensor:
         out = self.operators[0].to_dense()
         for op in self.operators[1:]:

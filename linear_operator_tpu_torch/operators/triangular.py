@@ -53,6 +53,9 @@ class TriangularLinearOperator(LinearOperator):
     def _root_structure(self):
         raise NotPSDError("root decomposition of a triangular operator")
 
+    def _expand_batch(self, batch_shape) -> "TriangularLinearOperator":
+        return TriangularLinearOperator(self.tensor.expand(*batch_shape, *self.matrix_shape), upper=self.upper)
+
     def inverse(self) -> "TriangularLinearOperator":
         """L^{-1} by a triangular solve against the identity."""
         n = self.shape[-1]

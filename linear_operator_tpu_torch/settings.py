@@ -177,7 +177,7 @@ class cholesky_max_tries(_value_context):
 
 
 class ciq_samples(_feature_flag):
-    """Sample MVNs via contour integral quadrature (not ported yet)."""
+    """Sample MVNs (``zero_mean_mvn_samples``) by contour integral quadrature."""
 
     _default = False
 

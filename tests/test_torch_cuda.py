@@ -602,3 +602,117 @@ def test_inverse_root_backward_matches_plain(cuda):
     assert torch.isfinite(grads[0]).all()
     err = float(torch.linalg.norm(grads[0] - grads[1]))
     assert err <= 5e-3 * float(torch.linalg.norm(grads[1])), (grads, err)
+
+
+# ---------------------------------------------------------------------------
+# The exact Woodbury operator and CIQ sampling (config 1 and config 6)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_woodbury_on_the_card_matches_cpu_f64(cuda):
+    """The exact Woodbury operator in f32 on the card against the same
+    operator in f64 on the CPU: solve, inv_quad_logdet, logdet (f32 closed
+    forms, full-f32 products: ~1e-7 relative), and no kernel launch."""
+    from linear_operator_tpu_torch.operators import DenseLinearOperator, LowRankRootLinearOperator
+
+    n, r = 200_000, 20
+    rng = np.random.default_rng(94)
+    U = rng.normal(size=(n, r)) / np.sqrt(n)
+    d = 0.5 + 0.1 * rng.uniform(size=n)
+    y = rng.normal(size=(n, 2))
+    before = {k: getattr(rbf, k).launches for k in ("kernel_matvec", "kernel_matvec_sym", "kernel_weighted")}
+    outs = []
+    for device, dtype in ((cuda, torch.float32), ("cpu", torch.float64)):
+        def t(a):
+            return torch.tensor(a, dtype=dtype, device=device)
+
+        op = LowRankRootLinearOperator(DenseLinearOperator(t(U))).add_diagonal(t(d)).factorize()
+        iq, ld = op.inv_quad_logdet(t(y), logdet=True)
+        outs.append([op.solve(t(y)), iq, ld, op.logdet()])
+    for got, want in zip(*outs):
+        got = got.double().cpu()
+        assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert before == {k: getattr(rbf, k).launches for k in before}
+
+
+def _ciq_settings():
+    stack = contextlib.ExitStack()
+    for c in [settings.ciq_samples(True), settings.minres_tolerance(1e-3), settings.num_contour_quadrature(15),
+              settings.preconditioner_mode("auto")]:
+        stack.enter_context(c)
+    return stack
+
+
+@contextlib.contextmanager
+def _k3_widths():
+    """K3's launches inside the block, by width."""
+    widths, launch = [], rbf._launch_matvec_sym
+
+    def record(a, w, spec):
+        widths.append(w.shape[-1])
+        return launch(a, w, spec)
+
+    rbf._launch_matvec_sym = record
+    try:
+        yield widths
+    finally:
+        rbf._launch_matvec_sym = launch
+
+
+@pytest.mark.cuda
+def test_ciq_sampling_fused_matches_plain(cuda):
+    """16 CIQ draws and sqrt_inv_matmul at n = 4096 (the rank-64 Nystrom
+    preconditioner on) through the kernels against the plain path, the same
+    generator seed: relative Frobenius 1e-3.  K3 runs at t = 1 (the range
+    estimate) and t = 16 (MINRES), never wider."""
+    from linear_operator_tpu_torch import sqrt_inv_matmul
+
+    (x,) = _data(cuda, 95, (4096, 3))
+    z = torch.randn(4096, 16, device=cuda, generator=torch.Generator(device=cuda).manual_seed(1))
+    outs = []
+    for fused in (True, False):
+        model = ExactGPRegression(use_fused_kernels=fused)
+        with _ciq_settings(), torch.no_grad(), _k3_widths() as widths:
+            K = model.train_operator(x)
+            s = K.zero_mean_mvn_samples(16, generator=torch.Generator(device=cuda).manual_seed(0))
+            h = sqrt_inv_matmul(K, z, generator=torch.Generator(device=cuda).manual_seed(2))
+        assert sorted(set(widths)) == ([1, 16] if fused else [])
+        outs.append((s, h))
+    for got, want in zip(*outs):
+        assert torch.isfinite(got).all()
+        assert float((got - want).norm()) <= 1e-3 * float(want.norm())
+
+
+@pytest.mark.cuda
+def test_ciq_backward_chunks_k2(cuda):
+    """The backward of sum(sqrt_inv_matmul(K, z)^2) stacks 15 shifts x 16
+    columns into one bilinear form of 240 columns: K1 once, and K2 twice in
+    two launches of 128 and 112 columns each; no K3 wider than 16.  Its
+    gradient against the plain path's to 1e-3 of the norm."""
+    from linear_operator_tpu_torch import sqrt_inv_matmul
+
+    (x,) = _data(cuda, 96, (4096, 3))
+    z = torch.randn(4096, 16, device=cuda, generator=torch.Generator(device=cuda).manual_seed(3))
+    widths, launch = [], rbf._launch_weighted
+
+    def record(a, x2, g, v, spec):
+        widths.append(g.shape[-1])
+        return launch(a, x2, g, v, spec)
+
+    grads = []
+    for fused in (True, False):
+        model = ExactGPRegression(use_fused_kernels=fused)
+        widths.clear()
+        rbf._launch_weighted = record
+        try:
+            with _ciq_settings(), _k3_widths() as k3:
+                out = sqrt_inv_matmul(model.train_operator(x), z, generator=torch.Generator(device=cuda).manual_seed(4))
+                torch.sum(out**2).backward()
+        finally:
+            rbf._launch_weighted = launch
+        assert widths == ([128, 112] * 2 if fused else [])
+        assert max(k3, default=0) <= 16
+        grads.append(torch.stack([model.raw_lengthscale.grad, model.raw_outputscale.grad, model.raw_noise.grad]))
+    assert torch.isfinite(grads[0]).all()
+    assert float(torch.linalg.norm(grads[0] - grads[1])) <= 1e-3 * float(torch.linalg.norm(grads[1]))
