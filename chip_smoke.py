@@ -87,6 +87,27 @@ Phases, each reported on its own line:
     posterior_distribution over the LOVE cache, then rsample of 16 draws and
     log_prob of them, with the solvers each ran and its launches; at N =
     20,000 the fused path held against the plain one on the same draws;
+14. the JAX benchmark's config 4 at m = 180 (n = 32,400): sum(solve) +
+    sum(inv_quad) + logdet of Kronecker(Toeplitz, Toeplitz) + 0.1 I through
+    the closed forms, forward and backward (d/d ls) apart, cold and warm (no
+    kernel launch; no CG, SLQ or Cholesky in the forward), its parts and a
+    profile; solve, inv_quad and logdet held against a dense f64 Cholesky of
+    the same matrix on the card, the port's f64 ls-gradient against the f64
+    closed form (the f32 one reported);
+15. the JAX benchmark's config 4b: SKI on n = 200,000 points on a 256 x 256
+    grid, neg_mll under the bench's settings, forward and backward apart,
+    cold and warm, with a profile; the port's gather and scatter-add and the
+    JAX package's one-hot panels (W, W^T at t = 11 and t = 1, the whole
+    mat-vec) timed and held against each other, the port's the faster; the
+    Toeplitz mat-vec on both
+    routes at n = 256 and 8192, the FFT route held against a dense f64
+    product; neg_mll and its backward under the default settings (pivoted
+    rank 15) under a peak-memory bound; posterior_mean and the LOVE
+    posterior at m = 1024; no kernel launch; at n = 20,000 on a 64 x 64 grid,
+    neg_mll and its gradient against the port in f64 on the same probes,
+    inv_quad and the posterior mean against a dense f64 Cholesky, and at the
+    bench's CG tolerance f32 and two f64 runs (summation order changed,
+    entries rounded to f32) against f64, reported;
  7. one JSON line listing every ported kernel with its launches (K3's and
     K1's including phases 12 and 13), error, times and bound (bound_basis:
     the f32 rate for K4, the tensor cores' for K1, K2, K3 and K5; K5's t = 1
@@ -151,6 +172,13 @@ N_CIQ, CIQ_SAMPLES, N_CIQ_HELD, N_CIQ_GRAM = 32_768, 16, 8192, 2048
 # the predictive distribution at config 3d's data: draws, and the size of
 # its hold against the plain path (config 3d's own: N, M_LOVE)
 PRED_SAMPLES = 16
+# config 4, kron_toeplitz_32k_solve_logdet (bench.py:246-270): points a
+# side (n = m^2), grid spacing, lengthscale, noise, warm steps
+M_KRON, H_KRON, LS_KRON, NOISE_KRON, KRON_REPS = 180, 0.05, 0.3, 0.1, 5
+# config 4b, ski_200k_mll (bench.py:278-298): points, grid side, warm calls;
+# query points; the hold's points and grid side; the Toeplitz sizes timed
+N_SKI, G_SKI, SKI_REPS, M_SKI, N_SKI_HELD, G_SKI_HELD = 200_000, 256, 3, 1024, 20_000, 64
+TOEPLITZ_SIZES = (256, 8192)
 
 
 def fail(message: str) -> None:
@@ -609,6 +637,510 @@ def phase_predictive(c) -> None:
         if not max(held) <= PATH_RTOL:
             fail(f"the predictive distribution disagrees with the plain path at N={N_LOVE_HELD}, {tag}")
     del runs, xl, yl, xq, xh, yh
+    torch.cuda.empty_cache()
+
+
+def profiled(torch, label, fn) -> None:
+    """One call of ``fn`` under the profiler: its wall time, the device
+    kernels' summed time as a share of it, and the top kernels by time.
+    Reported only (CUPTI tracing may be unavailable; no check rests on it)."""
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        by_name = {}
+        for e in kern:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+        dev_ms = sum(by_name.values())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        say(f"  profiled {label}: {wall_ms:.3f} ms wall, device kernels {dev_ms:.3f} ms "
+            f"({100 * dev_ms / wall_ms:.1f}% busy), {len(kern)} device events; top: "
+            + "; ".join(f"{name[:50]} {ms:.3f} ms" for name, ms in top))
+    except Exception as exc:
+        say(f"  profiled {label}: not measured ({type(exc).__name__}: {exc})")
+
+
+def _no_tf32(c) -> None:
+    if c.torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: every f32 product of the structured paths must run in full f32")
+
+
+def _kron_toeplitz(c, ls, dtype):
+    """Config 4's operator: Kronecker(Toeplitz(col(ls)), Toeplitz(col(1.3 ls))) + 0.1 I."""
+    lo = c.lo
+    from linear_operator_tpu_torch.models.ski import rbf_toeplitz_column
+
+    cols = [rbf_toeplitz_column(M_KRON, H_KRON, scale * ls, dtype=dtype) for scale in (1.0, 1.3)]
+    kron = lo.KroneckerProductLinearOperator(tuple(lo.ToeplitzLinearOperator(col) for col in cols))
+    return kron.add_diagonal(c.torch.tensor(NOISE_KRON, dtype=dtype, device=c.dev))
+
+
+def _kron_closed_form(torch, m, ls, y):
+    """Config 4's step value and d/d(ls) in f64 from the factors'
+    eigendecompositions, dK/d(ls) written out (independent of autograd and
+    of the operators): d total = -(w + x)^T K' x + tr(K^-1 K'), with
+    w = K^-1 1, x = K^-1 y, K' = T1' (x) T2 + T1 (x) T2'."""
+    i = torch.arange(m, dtype=torch.float64, device=y.device)
+    d2 = ((i[:, None] - i[None, :]) * H_KRON) ** 2
+    t1, t2 = torch.exp(-0.5 * d2 / ls**2), torch.exp(-0.5 * d2 / (1.3 * ls) ** 2)
+    dt1, dt2 = t1 * d2 / ls**3, t2 * d2 / (1.3**2 * ls**3)
+    a, q1 = torch.linalg.eigh(t1)
+    b, q2 = torch.linalg.eigh(t2)
+    shifted = torch.kron(a, b) + NOISE_KRON
+
+    def kron_mv(left, right, v):
+        return (left @ v.reshape(m, m) @ right.T).reshape(-1)
+
+    def solve(v):
+        return kron_mv(q1, q2, kron_mv(q1.T, q2.T, v) / shifted)
+
+    yv = y[:, 0].double()
+    x, w = solve(yv), solve(torch.ones_like(yv))
+    kx = kron_mv(dt1, t2, x) + kron_mv(t1, dt2, x)
+    trace = torch.sum(torch.kron(torch.diag(q1.T @ dt1 @ q1), b) / shifted) + torch.sum(
+        torch.kron(a, torch.diag(q2.T @ dt2 @ q2)) / shifted)
+    total = x.sum() + x @ yv + torch.sum(torch.log(shifted))
+    return float(total), float(-(w + x) @ kx + trace)
+
+
+def phase_kron_toeplitz(c) -> None:
+    """14. Config 4 at m = 180 (n = 32,400): sum(solve(op, y)) + sum(iq) +
+    sum(ld) of Kronecker(Toeplitz, Toeplitz) + 0.1 I through the closed forms
+    (two 180 x 180 eigendecompositions; no CG, no SLQ, no Cholesky of the
+    whole matrix, no kernel launch), cold and warm, forward and backward
+    (d/d(ls)) apart; solve, iq and logdet held against a dense f64 Cholesky
+    of the same matrix on the card, the ls-gradient of the port in f64 held
+    against the f64 closed form (the f32 one reported)."""
+    torch, lo, settings = c.torch, c.lo, c.settings
+    _no_tf32(c)
+    m = M_KRON
+    n = m * m
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=c.dev).manual_seed(70)
+    y = torch.randn(n, 1, device=c.dev, generator=g)
+
+    def step(ls, yy):
+        op = _kron_toeplitz(c, ls, yy.dtype)
+        x = lo.solve(op, yy)
+        iq, ld = lo.inv_quad_logdet(op, yy, logdet=True)
+        return op, x, iq, ld, x.sum() + iq.sum() + ld.sum()
+
+    fwd_s, bwd_s, bwd_cg = [], [], []
+    for rep in range(1 + KRON_REPS):
+        c.reset_counts()
+        c.log.clear()
+        ls = torch.tensor(LS_KRON, device=c.dev, requires_grad=True)
+        with settings.verbose_linalg(True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            op, x, iq, ld, total = step(ls, y)
+            torch.cuda.synchronize()
+            fwd_s.append(time.perf_counter() - t0)
+            fwd_names = list(c.log.names)
+            c.log.clear()
+            t0 = time.perf_counter()
+            total.backward()
+            torch.cuda.synchronize()
+            bwd_s.append(time.perf_counter() - t0)
+            bwd_cg.append(list(c.log.counts))
+        if any(c.counts().values()):
+            fail(f"config 4 launched {c.counts()}: it runs no kernel")
+        if fwd_names:
+            fail(f"config 4's forward ran {fwd_names}: the closed forms run no CG, SLQ or Cholesky")
+    if type(op).__name__ != "KroneckerProductAddedDiagLinearOperator":
+        fail(f"kron.add_diagonal gave a {type(op).__name__}")
+    f32_grad = float(ls.grad)
+    warm_f, warm_b = statistics.median(fwd_s[1:]), statistics.median(bwd_s[1:])
+    say(f"Kronecker-Toeplitz (config 4) m={m} n={n}: forward cold {fwd_s[0] * 1e3:.3f} ms, warm median "
+        f"{warm_f * 1e3:.3f} ms (of {KRON_REPS}: {', '.join(f'{t * 1e3:.3f}' for t in fwd_s[1:])}), "
+        f"{1.0 / warm_f:.2f} steps/s; backward (d/d ls) cold {bwd_s[0] * 1e3:.3f} ms, warm median "
+        f"{warm_b * 1e3:.3f} ms, its CG iterations {bwd_cg[-1]} (the solve's backward solves with op.mT, an "
+        f"unstructured sum, as the JAX package does); no kernel, no CG, SLQ or Cholesky in the forward; "
+        f"total {float(total.detach()):.6f}")
+    # the forward's parts, warm: the batched eigendecomposition of the two
+    # factors, and one Kronecker sweep of the eigenvectors
+    with torch.no_grad():
+        kron = op.operators[0]
+        evals, evecs = kron.eigh()
+        parts = {"eigh of the factors": cuda_ms(torch, lambda: kron.eigh(), 5),
+                 "one sweep Q^T y": cuda_ms(torch, lambda: evecs._t_matmul(y), 20),
+                 f"a Toeplitz factor's dense product ({m} x {m} by {m} columns)":
+                     cuda_ms(torch, lambda: kron.operators[0]._matmul(y.reshape(m, m)), 20)}
+    say("  parts: " + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items()))
+    # a backward-stable f32 solve lies up to cond(K) u from the exact one
+    cond = float((evals.max() + NOISE_KRON) / (evals.min() + NOISE_KRON))
+    solve_rtol = max(1e-4, cond * 2.0**-24)
+
+    def fwd_bwd():
+        ls_p = torch.tensor(LS_KRON, device=c.dev, requires_grad=True)
+        step(ls_p, y)[-1].backward()
+
+    profiled(torch, "warm step (forward and backward)", fwd_bwd)
+
+    # held: solve, iq and logdet against a dense f64 Cholesky of the same
+    # matrix (8.4 GB) on the card
+    with torch.no_grad():
+        op64 = _kron_toeplitz(c, torch.tensor(LS_KRON, dtype=torch.float64, device=c.dev), torch.float64)
+        t0 = time.perf_counter()
+        k64 = op64.operators[0].to_dense()
+        k64.diagonal().add_(NOISE_KRON)
+        chol, info = torch.linalg.cholesky_ex(k64)
+        del k64
+        y64 = y.double()
+        x64 = torch.cholesky_solve(y64, chol)
+        iq64 = float(torch.sum(x64 * y64))
+        ld64 = float(2.0 * torch.log(torch.diagonal(chol)).sum())
+        torch.cuda.synchronize()
+        chol_s = time.perf_counter() - t0
+        del chol
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    e_x = float((x.detach().double() - x64).abs().max() / x64.abs().max())
+    e_iq, e_ld = abs(float(iq.detach()) - iq64) / abs(iq64), abs(float(ld.detach()) - ld64) / abs(ld64)
+    say(f"  against a dense f64 Cholesky ({chol_s:.3f} s, info {int(info)}, peak device memory {peak:.2f} GiB): "
+        f"solve {e_x:.3e} of max|x| (held to cond(K) u = {cond:.1f} x 2^-24 = {solve_rtol:.2e}), iq {e_iq:.3e}, "
+        f"logdet {e_ld:.3e} (held to 1e-4)")
+    if int(info) != 0 or not (e_x <= solve_rtol and max(e_iq, e_ld) <= 1e-4):
+        fail("config 4's closed forms disagree with a dense f64 Cholesky")
+
+    # held: the port's ls-gradient in f64 on the card (its solve's backward
+    # CG run to 1e-10) against the f64 closed form; the f32 one reported
+    want_total, want_grad = _kron_closed_form(torch, m, LS_KRON, y)
+    ls64 = torch.tensor(LS_KRON, dtype=torch.float64, device=c.dev, requires_grad=True)
+    *_, total64 = step(ls64, y.double())
+    c.log.clear()
+    with settings.cg_tolerance(1e-10), settings.verbose_linalg(True):
+        total64.backward()
+    e64 = abs(float(ls64.grad) - want_grad) / abs(want_grad)
+    ls32 = torch.tensor(LS_KRON, device=c.dev, requires_grad=True)
+    *_, total32 = step(ls32, y)
+    with settings.cg_tolerance(1e-5):
+        total32.backward()
+    say(f"  d total / d ls: f64 closed form {want_grad:.6f} (total {want_total:.6f}); the port in f64 "
+        f"{float(ls64.grad):.6f} ({e64:.2e}, backward CG {c.log.counts}; held to 1e-5); in f32 at the default "
+        f"settings {f32_grad:.4f} ({abs(f32_grad - want_grad) / abs(want_grad):.2e}), with CG to 1e-5 "
+        f"{float(ls32.grad):.4f} ({abs(float(ls32.grad) - want_grad) / abs(want_grad):.2e}): reported, not held "
+        f"(inv_quad's gradient through the f32 eigenvectors of numerically low-rank factors, shared with the JAX "
+        f"package)")
+    if not (e64 <= 1e-5 and abs(float(total64.detach()) - want_total) <= 1e-8 * abs(want_total)):
+        fail("config 4's f64 ls-gradient or value disagrees with the closed form")
+    del op64, x64, y64, op, x
+    torch.cuda.empty_cache()
+
+
+def _onehot_panel(torch, idx, w, m):
+    """(B, k) indices and weights -> the dense (B, m) one-hot interpolation panel."""
+    oh = (idx[..., None] == torch.arange(m, dtype=idx.dtype, device=idx.device)).to(w.dtype)
+    return torch.sum(oh * w[..., None], dim=-2)
+
+
+def _onehot_block(n, m1, t):
+    """The JAX package's block rule: 8 Mi panel elements (block * m1 * t),
+    256 to 16384 rows in steps of 256."""
+    block = max(256, min(16384, 8 * 1024 * 1024 // (m1 * t)))
+    return min((block // 256) * 256, max(256, -(-n // 256) * 256))
+
+
+def onehot_wt(torch, idx, val, rhs, sizes):
+    """W^T rhs by the JAX package's one-hot panels (linear_operator_tpu/utils/
+    grid_interp.py ``grid_t_matmul``) on a two-dimensional grid: the second
+    dimension expanded into the columns, the first contracted by a dense
+    product.  The TPU design, timed here beside the port's gather and
+    scatter-add; the port does not use it."""
+    (m0, m1), (n, t) = sizes, rhs.shape
+    block = _onehot_block(n, m1, t)
+    acc = torch.zeros((m0, m1 * t), dtype=rhs.dtype, device=rhs.device)
+    for start in range(0, n, block):
+        rows = slice(start, start + block)
+        w1 = _onehot_panel(torch, idx[1][rows], val[1][rows], m1)
+        q = (w1[:, :, None] * rhs[rows, None, :]).reshape(w1.shape[0], -1)
+        acc = acc + _onehot_panel(torch, idx[0][rows], val[0][rows], m0).mT @ q
+    return acc.reshape(m0 * m1, t)
+
+
+def onehot_w(torch, idx, val, grid_vec, sizes):
+    """W grid_vec by the one-hot panels (``grid_matmul``), as ``onehot_wt``."""
+    (m0, m1), t, n = sizes, grid_vec.shape[-1], idx[0].shape[0]
+    block = _onehot_block(n, m1, t)
+    g = grid_vec.reshape(m0, m1 * t)
+    outs = []
+    for start in range(0, n, block):
+        rows = slice(start, start + block)
+        c = _onehot_panel(torch, idx[0][rows], val[0][rows], m0) @ g
+        w1 = _onehot_panel(torch, idx[1][rows], val[1][rows], m1)
+        outs.append(torch.sum(c.reshape(-1, m1, t) * w1[:, :, None], dim=1))
+    return torch.cat(outs)
+
+
+def phase_ski(c) -> None:
+    """15. Config 4b: KISS-GP on n = 200,000 points on a 256 x 256 grid
+    (linear stencils, the model's initial parameters): neg_mll under the
+    bench's settings, forward and backward, cold and warm; the port's gather
+    and scatter-add timed beside the JAX package's one-hot panels (W, W^T at
+    t = 11 and 1, the whole mat-vec) and held against them; the Toeplitz routes timed at 256 and 8192,
+    the FFT route held against a dense f64 product; neg_mll under the
+    default settings (pivoted rank 15) with the peak device memory;
+    posterior_mean and the LOVE posterior at m = 1024; no kernel launch.  At
+    n = 20,000 on a 64 x 64 grid: neg_mll and its gradient against the port
+    in f64 on the same probes, inv_quad and the posterior mean against a
+    dense f64 Cholesky, the LOVE variance reported; at the bench's CG
+    tolerance, f32 against f64 beside two f64 runs that differ from the first
+    only in summation order or in the operator's entries rounded to f32."""
+    torch, lo, settings = c.torch, c.lo, c.settings
+    from linear_operator_tpu_torch.functions import _inv_quad_logdet as iqld
+    from linear_operator_tpu_torch.utils import sparse
+
+    _no_tf32(c)
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=c.dev).manual_seed(80)
+
+    def data(n):
+        xx = torch.rand(n, 2, device=c.dev, generator=g)
+        return xx, torch.sin(6.0 * xx[:, 0]) * torch.cos(4.0 * xx[:, 1])
+
+    def bench():
+        """bench.py's settings for config 4b (bench.py:286-289)."""
+        stack = contextlib.ExitStack()
+        for ctx in [settings.max_cholesky_size(0), settings.num_trace_samples(10), settings.max_cg_iterations(100),
+                    settings.cg_tolerance(1.0), settings.min_preconditioning_size(10**9),
+                    settings.max_lanczos_quadrature_iterations(20), settings.verbose_linalg(True)]:
+            stack.enter_context(ctx)
+        return stack
+
+    x, y = data(N_SKI)
+    xq = torch.rand(M_SKI, 2, device=c.dev, generator=g)
+    model = lo.SKIGPRegression(lo.make_grid(x, (G_SKI, G_SKI)))
+    c.reset_counts()
+
+    def timed(fn, *ctxs):
+        c.log.clear()
+        with contextlib.ExitStack() as stack:
+            for ctx in ctxs:
+                stack.enter_context(ctx)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, list(c.log.counts)
+
+    fwd = [timed(lambda: float(model.neg_mll(x, y, generator=torch.Generator(device=c.dev).manual_seed(1))),
+                 bench(), torch.no_grad()) for _ in range(1 + SKI_REPS)]
+    steps = []
+    for _ in range(SKI_REPS):
+        model.zero_grad()
+        loss, f_s, f_cg = timed(lambda: model.neg_mll(x, y, generator=torch.Generator(device=c.dev).manual_seed(1)),
+                                bench())
+        _, b_s, _ = timed(loss.backward, bench())
+        steps.append((f_s, b_s, f_cg))
+    grads = [float(p.grad.norm()) for p in (model.raw_lengthscale, model.raw_outputscale, model.raw_noise)]
+    warm = statistics.median(r[1] for r in fwd[1:])
+    say(f"SKI (config 4b) n={N_SKI} grid {G_SKI}x{G_SKI} linear: neg_mll {fwd[0][0]:.6f}, forward cold "
+        f"{fwd[0][1]:.3f} s, warm median {warm:.4f} s (of {SKI_REPS}: {', '.join(f'{r[1]:.4f}' for r in fwd[1:])}), "
+        f"{1.0 / warm:.2f} solves/s, CG iterations {fwd[-1][2]}; with the gradient: forward "
+        f"{statistics.median(s[0] for s in steps):.4f} s, backward {statistics.median(s[1] for s in steps):.4f} s "
+        f"(each of {SKI_REPS}: {', '.join(f'{s[0]:.4f}/{s[1]:.4f}' for s in steps)}); gradient norms {grads}")
+    if not (math.isfinite(fwd[0][0]) and all(math.isfinite(v) and v > 0 for v in grads)):
+        fail("SKI's neg_mll or its gradient is not finite")
+
+    def ski_step():
+        with bench():
+            model.neg_mll(x, y, generator=torch.Generator(device=c.dev).manual_seed(1)).backward()
+
+    profiled(torch, "warm neg_mll with its backward", ski_step)
+
+    # the port's gather and scatter-add against the JAX package's one-hot
+    # panels at config 4b's shapes
+    with torch.no_grad():
+        op = model.covariance(x)
+        li, lv = model._interp_weights_per_dim(x)
+        fi, fv = op.left_indices, op.left_values
+        sizes, mgrid = (G_SKI, G_SKI), G_SKI * G_SKI
+        routes = {}
+        for t in (11, 1):
+            v_pts = torch.randn(N_SKI, t, device=c.dev, generator=g)
+            v_grid = torch.randn(mgrid, t, device=c.dev, generator=g)
+            pairs = {
+                "W^T": (lambda: onehot_wt(torch, li, lv, v_pts, sizes),
+                        lambda: sparse.left_t_interp(fi, fv, v_pts, mgrid)),
+                "W": (lambda: onehot_w(torch, li, lv, v_grid, sizes),
+                      lambda: sparse.left_interp(fi, fv, v_grid)),
+                "W K W^T": (lambda: onehot_w(torch, li, lv, op.base._matmul(onehot_wt(torch, li, lv, v_pts, sizes)), sizes),
+                            lambda: op._matmul(v_pts)),
+            }
+            for name, (onehot, flat_fn) in pairs.items():
+                a, b = onehot(), flat_fn()
+                err = float((a - b).abs().max() / b.abs().max())
+                routes[(name, t)] = (cuda_ms(torch, onehot, 3), cuda_ms(torch, flat_fn, 20), err)
+        k_ms = cuda_ms(torch, lambda: op.base._matmul(torch.randn(mgrid, 11, device=c.dev, generator=g)), 20)
+    say("  interpolation routes (one-hot / flat ms, |one-hot - flat| / max|flat|): " + "; ".join(
+        f"{name} t={t}: {a:.3f} / {b:.3f} ({a / b:.1f}x), {e:.1e}" for (name, t), (a, b, e) in routes.items())
+        + f"; the grid operator's Kronecker mat-vec alone (t=11) {k_ms:.3f} ms; the port's route: flat")
+    if max(e for _, _, e in routes.values()) > 1e-5:
+        fail("the one-hot and flat interpolation routes disagree at n = 200,000")
+    if not all(routes[(name, t)][1] < routes[(name, t)][0] for name in ("W", "W^T", "W K W^T") for t in (11, 1)):
+        fail("the port's flat route is not the faster one on the card")
+
+    # the Toeplitz routes, and the FFT route against a dense f64 product
+    from linear_operator_tpu_torch.models.ski import rbf_toeplitz_column
+
+    tz = {}
+    for m in TOEPLITZ_SIZES:
+        col = rbf_toeplitz_column(m, 1.0 / (m - 1), torch.tensor(0.1, device=c.dev))
+        top = lo.ToeplitzLinearOperator(col)
+        v = torch.randn(m, 11, device=c.dev, generator=g)
+        with torch.no_grad():
+            with settings.toeplitz_fft_min_size(10**9):
+                dense_ms = cuda_ms(torch, lambda: top._matmul(v), 20)
+                dense_out = top._matmul(v)
+            with settings.toeplitz_fft_min_size(0):
+                fft_ms = cuda_ms(torch, lambda: top._matmul(v), 20)
+                fft_out = top._matmul(v)
+            exact = lo.ToeplitzLinearOperator(col.double()).to_dense() @ v.double()
+        tz[m] = (dense_ms, fft_ms, float((fft_out.double() - exact).abs().max() / exact.abs().max()),
+                 float((dense_out.double() - exact).abs().max() / exact.abs().max()))
+    say("  Toeplitz mat-vec, t=11 (dense / FFT ms; FFT and dense against f64): " + "; ".join(
+        f"n={m}: {d:.4f} / {f:.4f}, {ef:.1e}, {ed:.1e}" for m, (d, f, ef, ed) in tz.items())
+        + f"; the default route switches at toeplitz_fft_min_size = {settings.toeplitz_fft_min_size.value()}")
+    if not tz[TOEPLITZ_SIZES[-1]][2] <= 1e-5:
+        fail(f"the Toeplitz FFT route disagrees with the dense f64 product at n = {TOEPLITZ_SIZES[-1]}")
+
+    # the default settings (pivoted rank 15): the training step's peak memory
+    model.zero_grad()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated() / 2**30
+    loss, d_s, d_cg = timed(lambda: model.neg_mll(x, y, generator=torch.Generator(device=c.dev).manual_seed(2)),
+                            settings.verbose_linalg(True))
+    pivoted = "pivoted_cholesky" in c.log.names
+    _, db_s, _ = timed(loss.backward)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"  default settings (pivoted rank 15): neg_mll {float(loss.detach()):.6f} in {d_s:.3f} s, backward {db_s:.3f} s, "
+        f"CG iterations {d_cg}, pivoted Cholesky {'ran' if pivoted else 'DID NOT RUN'}; peak device memory "
+        f"{peak:.3f} GiB ({base_mem:.3f} before; a dense f64 200k^2 matrix would take 320 GB)")
+    if not (pivoted and math.isfinite(float(loss.detach())) and peak <= 2.0):
+        fail("SKI under the default settings did not run the pivoted preconditioner or densified")
+
+    # posterior_mean and the LOVE posterior at m = 1024
+    post = []
+    for _ in range(1 + SKI_REPS):
+        mean, mean_s, mean_cg = timed(lambda: model.posterior_mean(x, y, xq), bench(), torch.no_grad())
+        (lmean, lvar), love_s, love_cg = timed(
+            lambda: model.posterior(x, y, xq, generator=torch.Generator(device=c.dev).manual_seed(3)),
+            bench(), torch.no_grad())
+        post.append((mean_s, love_s))
+    say(f"  posterior_mean m={M_SKI}: warm median {statistics.median(p[0] for p in post[1:]) * 1e3:.2f} ms "
+        f"(cold {post[0][0] * 1e3:.2f}), CG {mean_cg}; LOVE posterior: warm median "
+        f"{statistics.median(p[1] for p in post[1:]) * 1e3:.2f} ms (cold {post[0][1] * 1e3:.2f}), CG {love_cg}")
+    if not all(bool(torch.isfinite(t).all()) for t in (mean, lmean, lvar)) or mean.shape != (M_SKI,):
+        fail("the SKI posterior is not finite or of the wrong shape")
+    if any(c.counts().values()):
+        fail(f"config 4b launched {c.counts()}: it runs no kernel")
+    del op, model, x, y, loss
+    torch.cuda.empty_cache()
+
+    # the hold at n = 20,000 on a 64 x 64 grid
+    xh, yh = data(N_SKI_HELD)
+    xqh = torch.rand(M_SKI, 2, device=c.dev, generator=g)
+    probes = torch.randn(N_SKI_HELD, 10, device=c.dev, generator=g, dtype=torch.float64)
+    grid = lo.make_grid(xh, (G_SKI_HELD, G_SKI_HELD))
+    real_randn = iqld.randn
+    results, at_bench_tol = {}, {}
+    drawn = {"probes": probes}
+
+    class RoundedSKI(lo.SKIGPRegression):
+        """The model in f64 on the f32 model's operator entries: stencil
+        weights and Toeplitz columns rounded to f32."""
+
+        def _interp_weights_per_dim(self, xx):
+            idx, w = super()._interp_weights_per_dim(xx)
+            return idx, tuple(v.float().double() for v in w)
+
+        def grid_operator(self):
+            return lo.KroneckerProductLinearOperator(tuple(
+                lo.ToeplitzLinearOperator(f.column.float().double()) for f in super().grid_operator().operators))
+
+    def mll_and_grad(mdl, dtype, order=None):
+        """neg_mll and its gradient; ``order`` permutes the points and their
+        probe rows, which leaves the value exact and changes the summation order."""
+        mdl.zero_grad()
+        xx, yy, drawn["probes"] = (xh, yh, probes) if order is None else (xh[order], yh[order], probes[order])
+        loss = mdl.neg_mll(xx.to(dtype), yy.to(dtype), generator=torch.Generator(device=c.dev))
+        loss.backward()
+        return float(loss.detach()), torch.cat([p.grad.reshape(-1) for p in (
+            mdl.raw_lengthscale, mdl.raw_outputscale, mdl.raw_noise)]).double(), list(c.log.counts)
+
+    try:
+        # the same probes for both dtypes (the model draws them through randn)
+        iqld.randn = lambda shape, dtype, device, generator: drawn["probes"].to(dtype)
+        for dtype in (torch.float32, torch.float64):
+            mdl = lo.SKIGPRegression(grid, dtype=dtype)
+            # held with CG to 1e-4: at the bench's tolerance (1.0) CG runs the
+            # 20 iterations SLQ's tridiagonal matrices take, where on this
+            # numerically low-rank operator (a lengthscale of 36 grid steps)
+            # f32 lies ~8e-3 from f64; that distance is reported, beside two
+            # f64 runs that tell f32 arithmetic from summation order
+            c.log.clear()
+            with bench():
+                at_bench_tol[dtype] = mll_and_grad(mdl, dtype)
+            c.log.clear()
+            with bench(), settings.cg_tolerance(1e-4):
+                loss, gvec, held_cg = mll_and_grad(mdl, dtype)
+            with settings.max_cholesky_size(0), settings.cg_tolerance(1e-6), settings.max_cg_iterations(2000), \
+                    torch.no_grad():
+                iq = float(lo.inv_quad(mdl.train_operator(xh.to(dtype)), yh.to(dtype)[:, None]))
+                mean_h = mdl.posterior_mean(xh.to(dtype), yh.to(dtype), xqh.to(dtype))
+                _, var_h = mdl.posterior(xh.to(dtype), yh.to(dtype), xqh.to(dtype),
+                                         generator=torch.Generator(device=c.dev).manual_seed(4))
+            results[dtype] = (loss, gvec, iq, mean_h.double(), var_h.double(), mdl)
+        for label, mdl, order in (
+                ("points permuted", lo.SKIGPRegression(grid, dtype=torch.float64),
+                 torch.randperm(N_SKI_HELD, device=c.dev, generator=g)),
+                ("entries rounded to f32", RoundedSKI(grid, dtype=torch.float64), None)):
+            c.log.clear()
+            with bench():
+                at_bench_tol[label] = mll_and_grad(mdl, torch.float64, order)
+    finally:
+        iqld.randn = real_randn
+    with torch.no_grad():
+        mdl64 = results[torch.float64][5]
+        k64 = mdl64.train_operator(xh.double()).to_dense()
+        ks64 = mdl64.covariance(xqh.double(), xh.double()).to_dense()
+        kss64 = mdl64.covariance(xqh.double()).diagonal()
+        chol = torch.linalg.cholesky(k64)
+        del k64
+        alpha = torch.cholesky_solve(yh.double()[:, None], chol)
+        iq_exact = float(yh.double() @ alpha[:, 0])
+        mean_exact = (ks64 @ alpha)[:, 0]
+        var_exact = kss64 - torch.sum(ks64 * torch.cholesky_solve(ks64.mT, chol).mT, dim=-1)
+        del chol
+    (l32, g32, iq32, m32, v32, _), (l64, g64, iq64, m64, v64, _) = results[torch.float32], results[torch.float64]
+    e_loss = abs(l32 - l64) / abs(l64)
+    e_grad = float((g32 - g64).norm() / g64.norm())
+    e_iq = abs(iq32 - iq_exact) / abs(iq_exact)
+    e_mean = float((m32 - mean_exact).abs().max() / mean_exact.abs().max())
+    e_var = float((v32 - var_exact).abs().max() / kss64.max())
+    (b32, bg32, cg32), (b64, bg64, cg64) = at_bench_tol[torch.float32], at_bench_tol[torch.float64]
+    f64_runs = "; ".join(
+        f"f64 with {label} {b:.9f} ({abs(b - b64) / abs(b64):.2e}, gradient {float((bg - bg64).norm() / bg64.norm()):.2e}, "
+        f"CG {cg})" for label, (b, bg, cg) in at_bench_tol.items() if isinstance(label, str))
+    say(f"  hold at n={N_SKI_HELD}, grid {G_SKI_HELD}x{G_SKI_HELD}, same probes: at the bench's CG tolerance neg_mll f32 "
+        f"{b32:.6f} / f64 {b64:.9f} ({abs(b32 - b64) / abs(b64):.2e}), gradient {float((bg32 - bg64).norm() / bg64.norm()):.2e} "
+        f"of its norm, CG {cg32} / {cg64}; beside it {f64_runs} (reported, not held: 1e-3 does not hold for f32 at "
+        f"the bench's tolerance); with CG to 1e-4 (CG {held_cg}) neg_mll f32 {l32:.6f} / f64 {l64:.6f} "
+        f"({e_loss:.2e}), gradient {e_grad:.2e} of its norm; inv_quad {e_iq:.2e} (f64 port {abs(iq64 - iq_exact) / abs(iq_exact):.1e}) "
+        f"and the posterior mean {e_mean:.2e} of max|mean| against a dense f64 Cholesky (held to 1e-3); the LOVE "
+        f"variance {e_var:.2e} of the prior from the exact one (f64 port "
+        f"{float((v64 - var_exact).abs().max() / kss64.max()):.2e}; reported)")
+    if not max(e_loss, e_grad, e_iq, e_mean) <= 1e-3:
+        fail("SKI at n = 20,000 disagrees with f64")
+    if any(c.counts().values()):
+        fail(f"config 4b launched {c.counts()}: it runs no kernel")
+    del results, mdl64, ks64, alpha
     torch.cuda.empty_cache()
 
 
@@ -1890,6 +2422,10 @@ def main() -> None:
     phase_woodbury(ctx)
     phase_ciq(ctx)
     phase_predictive(ctx)
+    # 14-15. the structured operators: config 4 (Kronecker-Toeplitz) and
+    # config 4b (SKI / KISS-GP)
+    phase_kron_toeplitz(ctx)
+    phase_ski(ctx)
 
     # 7. the kernels line, then the result
     kernels = []

@@ -13,7 +13,12 @@ operator (``LowRankRootLinearOperator(U).add_diagonal(d)``: closed-form
 solves and log-determinants), contour-integral-quadrature sampling
 (``sqrt_inv_matmul``, ``zero_mean_mvn_samples`` under
 ``settings.ciq_samples``, shifted MINRES) and the predictive distribution
-(``model.posterior_distribution``, a ``MultivariateNormal``).
+(``model.posterior_distribution``, a ``MultivariateNormal``), and the
+structured operators with the KISS-GP model on them: Kronecker products
+(closed-form solves and log-determinants through the factors'
+eigendecompositions), Toeplitz factors (dense or FFT mat-vecs),
+interpolated operators (gather and scatter-add) and
+``SKIGPRegression``.
 Its entry points run on a CUDA device unless the caller asks for the CPU,
 where the kernels' plain PyTorch versions take their place.
 """
@@ -32,7 +37,17 @@ from .functions import (
     solve,
     sqrt_inv_matmul,
 )
-from .models import ExactGPRegression, PosteriorCache, load_jax_cache, load_jax_params
+from .models import (
+    ExactGPRegression,
+    GridSpec,
+    PosteriorCache,
+    SKIGPRegression,
+    SKIParams,
+    load_jax_cache,
+    load_jax_grid,
+    load_jax_params,
+    make_grid,
+)
 from .operators import (
     AddedDiagLinearOperator,
     CholLinearOperator,
@@ -40,12 +55,22 @@ from .operators import (
     ConstantMulLinearOperator,
     DenseLinearOperator,
     DiagLinearOperator,
+    GridInterpolatedLinearOperator,
+    InterpolatedLinearOperator,
+    InterpolationMatrix,
     KernelLinearOperator,
+    KroneckerProductAddedDiagLinearOperator,
+    KroneckerProductDiagLinearOperator,
+    KroneckerProductLinearOperator,
+    KroneckerProductTriangularLinearOperator,
     LinearOperator,
     LowRankRootAddedDiagLinearOperator,
     LowRankRootLinearOperator,
+    MatmulLinearOperator,
     RootLinearOperator,
+    SumKroneckerLinearOperator,
     SumLinearOperator,
+    ToeplitzLinearOperator,
     TriangularLinearOperator,
     rbf_kernel_operator,
 )
@@ -58,14 +83,27 @@ __all__ = [
     "DenseLinearOperator",
     "DiagLinearOperator",
     "ExactGPRegression",
+    "GridInterpolatedLinearOperator",
+    "GridSpec",
+    "InterpolatedLinearOperator",
+    "InterpolationMatrix",
     "KernelLinearOperator",
+    "KroneckerProductAddedDiagLinearOperator",
+    "KroneckerProductDiagLinearOperator",
+    "KroneckerProductLinearOperator",
+    "KroneckerProductTriangularLinearOperator",
     "LinearOperator",
     "LowRankRootAddedDiagLinearOperator",
     "LowRankRootLinearOperator",
+    "MatmulLinearOperator",
     "MultivariateNormal",
     "PosteriorCache",
     "RootLinearOperator",
+    "SKIGPRegression",
+    "SKIParams",
+    "SumKroneckerLinearOperator",
     "SumLinearOperator",
+    "ToeplitzLinearOperator",
     "TriangularLinearOperator",
     "add_diagonal",
     "add_jitter",
@@ -74,7 +112,9 @@ __all__ = [
     "inv_quad",
     "inv_quad_logdet",
     "load_jax_cache",
+    "load_jax_grid",
     "load_jax_params",
+    "make_grid",
     "operators",
     "pivoted_cholesky",
     "rbf_kernel_operator",

@@ -177,9 +177,10 @@ class ExactGPRegression(nn.Module):
         return MultivariateNormal(mean, (self.covariance(x_star) + downdate).add_jitter(1e-6))
 
 
-def load_jax_params(model: ExactGPRegression, params) -> ExactGPRegression:
-    """Fill ``model``'s parameters from the JAX package's ``GPParams`` (of
-    numpy or JAX arrays) or a mapping with the same field names."""
+def load_jax_params(model, params):
+    """Fill ``model``'s parameters from the JAX package's ``GPParams`` or
+    ``SKIParams`` (of numpy or JAX arrays), or a mapping with the same field
+    names; ``model`` is an ``ExactGPRegression`` or an ``SKIGPRegression``."""
     fields = params if isinstance(params, Mapping) else params._asdict()
     for name in ("raw_lengthscale", "raw_outputscale", "raw_noise"):
         old = getattr(model, name)

@@ -1,8 +1,8 @@
 """Abstract base class for lazy (batched) linear operators.
 
 PyTorch counterpart of ``linear_operator_tpu/operators/_linear_operator.py``,
-ported as far as the exact-GP, Woodbury and sampling slices need it.  An
-operator represents a (batch of) M x N matrix implicitly through
+ported as far as the exact-GP, Woodbury, sampling and structured slices need
+it.  An operator represents a (batch of) M x N matrix implicitly through
 ``_matmul``, ``_shape`` and ``_transpose``; everything else is built on them.
 
 Operators are plain classes whose fields are tensors, nested operators or
@@ -119,6 +119,13 @@ class LinearOperator:
     @property
     def is_square(self) -> bool:
         return self.shape[-1] == self.shape[-2]
+
+    @property
+    def _inherently_triangular(self) -> bool:
+        """True when the operator is triangular by construction (a Kronecker
+        product of triangular or diagonal factors), so that a
+        TriangularLinearOperator around it keeps its structured paths."""
+        return False
 
     @property
     def dtype(self) -> torch.dtype:
@@ -420,6 +427,14 @@ class LinearOperator:
         )
         return DenseLinearOperator(self.to_dense().expand(*batch_shape, *self.matrix_shape))
 
+    def _expanded_to(self, batch_shape: tuple[int, ...]) -> "LinearOperator":
+        """Self expanded to ``batch_shape`` when its own batch is narrower
+        (itself otherwise); composite operators call it on their children
+        before applying batch indices."""
+        if tuple(self.batch_shape) == tuple(batch_shape):
+            return self
+        return self._expand_batch(tuple(batch_shape))
+
     def expand(self, *sizes) -> "LinearOperator":
         """The operator broadcast to the batch shape ``sizes[:-2]`` (-1 keeps
         a dim); the matrix dims cannot change."""
@@ -511,6 +526,13 @@ class LinearOperator:
 
         return pivoted_cholesky(self, rank, error_tol=error_tol, return_pivots=return_pivots)
 
+    def _getitem(self, row_index, col_index, *batch_indices) -> "LinearOperator":
+        """K[*batch_indices, row_index, col_index] as an operator, for slices
+        or index tensors (dense fallback; structured subclasses override)."""
+        from .dense import DenseLinearOperator
+
+        return DenseLinearOperator(self.to_dense()[(*batch_indices, row_index, col_index)])
+
     def _get_indices(self, row_index, col_index, *batch_indices) -> torch.Tensor:
         """K[*batch_indices, row_index, col_index] elementwise over broadcast
         index tensors (dense fallback; structured subclasses override)."""
@@ -522,3 +544,9 @@ class LinearOperator:
 
         return DenseLinearOperator(self.to_dense()[..., :, idx])
 
+
+def to_linear_operator(obj) -> LinearOperator:
+    """An operator as it is; a tensor as a DenseLinearOperator."""
+    from .dense import DenseLinearOperator
+
+    return obj if isinstance(obj, LinearOperator) else DenseLinearOperator(torch.as_tensor(obj))

@@ -12,6 +12,10 @@ class DiagLinearOperator(LinearOperator):
     def __init__(self, diag: torch.Tensor):
         self.diag = diag  # (*b, n)
 
+    @property
+    def _inherently_triangular(self) -> bool:
+        return True
+
     def _matmul(self, rhs: torch.Tensor) -> torch.Tensor:
         return self.diag[..., :, None] * rhs
 

@@ -11,11 +11,20 @@ from ._linear_operator import LinearOperator
 
 
 class TriangularLinearOperator(LinearOperator):
-    def __init__(self, tensor: torch.Tensor, upper: bool = False):
-        self.tensor = tensor  # (*b, n, n), the dead triangle is ignored
+    def __init__(self, tensor, upper: bool = False):
+        # (*b, n, n): a tensor whose dead triangle is ignored, or an operator
+        # (an inherently triangular one, a Kronecker product of triangular
+        # factors, keeps its structured products and solves)
+        self.tensor = tensor
         self.upper = upper
 
+    @property
+    def _structured(self) -> bool:
+        return isinstance(self.tensor, LinearOperator) and self.tensor._inherently_triangular
+
     def _matmul(self, rhs: torch.Tensor) -> torch.Tensor:
+        if self._structured:
+            return self.tensor._matmul(rhs)
         return torch.matmul(self.to_dense(), rhs)
 
     def _shape(self) -> tuple[int, ...]:
@@ -25,19 +34,26 @@ class TriangularLinearOperator(LinearOperator):
         return TriangularLinearOperator(self.tensor.mT, upper=not self.upper)
 
     def _diagonal(self) -> torch.Tensor:
+        if isinstance(self.tensor, LinearOperator):
+            return self.tensor._diagonal()
         return torch.diagonal(self.tensor, dim1=-2, dim2=-1)
 
     def to_dense(self) -> torch.Tensor:
-        return torch.triu(self.tensor) if self.upper else torch.tril(self.tensor)
+        dense = self.tensor.to_dense() if isinstance(self.tensor, LinearOperator) else self.tensor
+        return torch.triu(dense) if self.upper else torch.tril(dense)
 
     def _broadcast(self, rhs: torch.Tensor):
-        batch = torch.broadcast_shapes(self.tensor.shape[:-2], rhs.shape[:-2])
+        batch = torch.broadcast_shapes(self.batch_shape, rhs.shape[:-2])
         return (
-            self.to_dense().expand(*batch, *self.tensor.shape[-2:]),
+            self.to_dense().expand(*batch, *self.matrix_shape),
             rhs.expand(*batch, *rhs.shape[-2:]),
         )
 
     def _solve_structure(self, rhs: torch.Tensor) -> torch.Tensor:
+        if self._structured:
+            inner = self.tensor._solve_structure(rhs)
+            if inner is not None:
+                return inner
         dense, rhs = self._broadcast(rhs)
         return torch.linalg.solve_triangular(dense, rhs, upper=self.upper)
 
@@ -54,6 +70,8 @@ class TriangularLinearOperator(LinearOperator):
         raise NotPSDError("root decomposition of a triangular operator")
 
     def _expand_batch(self, batch_shape) -> "TriangularLinearOperator":
+        if isinstance(self.tensor, LinearOperator):
+            return TriangularLinearOperator(self.tensor._expand_batch(batch_shape), upper=self.upper)
         return TriangularLinearOperator(self.tensor.expand(*batch_shape, *self.matrix_shape), upper=self.upper)
 
     def inverse(self) -> "TriangularLinearOperator":

@@ -716,3 +716,167 @@ def test_ciq_backward_chunks_k2(cuda):
         grads.append(torch.stack([model.raw_lengthscale.grad, model.raw_outputscale.grad, model.raw_noise.grad]))
     assert torch.isfinite(grads[0]).all()
     assert float(torch.linalg.norm(grads[0] - grads[1])) <= 1e-3 * float(torch.linalg.norm(grads[1]))
+
+
+# ---------------------------------------------------------------------------
+# The structured operators and SKI (no kernel of ops/rbf.py on these paths)
+# ---------------------------------------------------------------------------
+
+
+def _launches():
+    return [w.launches for w in (rbf.kernel_matvec, rbf.kernel_matvec_sym, rbf.kernel_weighted,
+                                 rbf.rbf_build_sym_tiles, rbf.rbf_matvec_sym_cached)]
+
+
+def _rel(got, want):
+    got, want = got.detach().double().cpu(), want.detach().double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _structured_ops(dev, dtype):
+    """The structured operators of the port at small sizes, all built from
+    one seeded numpy draw: {name: operator}."""
+    from linear_operator_tpu_torch import operators as ops
+
+    rng = np.random.default_rng(120)
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    def psd(n):
+        a = rng.normal(size=(n, n))
+        return t(a @ a.T + n * np.eye(n))
+
+    col = np.exp(-0.5 * (np.arange(40) / 6.0) ** 2)
+    col[0] += 1.0
+    kron = ops.KroneckerProductLinearOperator(ops.DenseLinearOperator(psd(5)), ops.DenseLinearOperator(psd(6)))
+    kron3 = ops.KroneckerProductLinearOperator(*(ops.DenseLinearOperator(psd(n)) for n in (2, 3, 5)))
+    kdiag = ops.KroneckerProductDiagLinearOperator(
+        ops.DiagLinearOperator(t(rng.uniform(0.5, 1.5, 5))), ops.DiagLinearOperator(t(rng.uniform(0.5, 1.5, 6))))
+    li, ri = rng.integers(0, 30, size=(2, 25, 4))
+    lv, rv = rng.uniform(size=(2, 25, 4))
+    sizes = (6, 5)
+    gi = tuple(torch.tensor(rng.integers(0, m, size=(25, 2)), device=dev) for m in sizes)
+    gv = tuple(t(rng.uniform(size=(25, 2))) for _ in sizes)
+    return {
+        "toeplitz": ops.ToeplitzLinearOperator(t(col)),
+        "kron": kron,
+        "kron3": kron3,
+        "kron+c": kron.add_diagonal(t(0.7)),
+        "kron+kdiag": kron + kdiag,
+        "kron+kron": kron + ops.KroneckerProductLinearOperator(ops.DenseLinearOperator(psd(5)),
+                                                               ops.DenseLinearOperator(psd(6))),
+        "interpolated": ops.InterpolatedLinearOperator(ops.DenseLinearOperator(psd(30)),
+                                                       torch.tensor(li, device=dev), t(lv), torch.tensor(ri, device=dev), t(rv)),
+        "grid": ops.GridInterpolatedLinearOperator(ops.DenseLinearOperator(psd(30)), gi, gv, gi, gv, sizes),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fft", [False, True])
+def test_structured_operators_match_cpu_f64(cuda, fft):
+    """Each new operator's mat-vec, transposed mat-vec and diagonal in f32
+    on the card against f64 on the CPU (1e-5 of the largest entry), and the
+    closed forms (solve, inv_quad, logdet) where the operator has them
+    (1e-4); no kernel launch."""
+    gpu, cpu = _structured_ops(cuda, torch.float32), _structured_ops("cpu", torch.float64)
+    before = _launches()
+    with settings.toeplitz_fft_min_size(0 if fft else 4096):
+        for name, op in gpu.items():
+            ref = cpu[name]
+            rhs = torch.tensor(np.random.default_rng(121).normal(size=(op.shape[-1], 3)))
+            assert _rel(op @ rhs.float().to(cuda), ref @ rhs) <= 1e-5, name
+            assert _rel(op._t_matmul(rhs[: op.shape[-2]].float().to(cuda)), ref._t_matmul(rhs[: op.shape[-2]])) <= 1e-5, name
+            if op.is_square:
+                assert _rel(op.diagonal(), ref.diagonal()) <= 1e-5, name
+            if name.startswith("kron") and name != "kron3":
+                iq, ld = op.inv_quad_logdet(rhs.float().to(cuda), logdet=True)
+                riq, rld = ref.inv_quad_logdet(rhs, logdet=True)
+                assert _rel(op._solve_structure(rhs.float().to(cuda)), ref._solve_structure(rhs)) <= 1e-4, name
+                assert _rel(iq, riq) <= 1e-4 and _rel(ld, rld) <= 1e-4, name
+    assert _launches() == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 11])
+def test_interpolation_on_the_card_matches_cpu_f64(cuda, t):
+    """W (gather), W^T (index_add) and W K W^T at n = 4096 on a 64 x 64 grid
+    on the card against the dense f64 interpolation matrix on the CPU, to
+    1e-5 of the largest entry."""
+    from linear_operator_tpu_torch.models.ski import SKIGPRegression, make_grid
+    from linear_operator_tpu_torch.operators.interpolated import _interp_to_dense
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.rand(4096, 2, device=cuda, generator=g)
+    model = SKIGPRegression(make_grid(x, (64, 64)))
+    op = model.covariance(x)
+    v = torch.randn(4096, t, device=cuda, generator=g)
+    v_grid = torch.randn(64 * 64, t, device=cuda, generator=g)
+    with torch.no_grad():
+        cpu = SKIGPRegression(model.grid, dtype=torch.float64, device="cpu").covariance(x.double().cpu())
+        w = _interp_to_dense(cpu._left)
+        vc, vgc = v.double().cpu(), v_grid.double().cpu()
+        assert _rel(op._left.matmul(v_grid), w @ vgc) <= 1e-5
+        assert _rel(op._right.t_matmul(v), w.mT @ vc) <= 1e-5
+        assert _rel(op._matmul(v), w @ cpu.base.to_dense() @ (w.mT @ vc)) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_toeplitz_fft_route_at_8192(cuda):
+    """A Toeplitz of 8192 takes the FFT route by default (>= 4096) and
+    agrees with the dense f64 product to 1e-5 of its largest entry."""
+    from linear_operator_tpu_torch.models.ski import rbf_toeplitz_column
+    from linear_operator_tpu_torch.operators import ToeplitzLinearOperator
+
+    col = rbf_toeplitz_column(8192, 1.0 / 8191, torch.tensor(0.05, device=cuda))
+    op = ToeplitzLinearOperator(col)
+    v = torch.randn(8192, 4, device=cuda, generator=torch.Generator(device=cuda).manual_seed(6))
+    assert op._uses_fft()
+    want = ToeplitzLinearOperator(col.double()).to_dense() @ v.double()
+    assert _rel(op @ v, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_config4_and_ski_launch_no_kernel(cuda):
+    """Config 4's step (at m = 60) and SKI's neg_mll with its backward (at
+    n = 8192) run no kernel of ops/rbf.py; config 4's forward runs no CG."""
+    from linear_operator_tpu_torch import inv_quad_logdet, make_grid, solve
+    from linear_operator_tpu_torch.models.ski import SKIGPRegression, rbf_toeplitz_column
+    from linear_operator_tpu_torch.operators import KroneckerProductLinearOperator, ToeplitzLinearOperator
+
+    before = _launches()
+    ls = torch.tensor(0.3, device=cuda, requires_grad=True)
+    op = KroneckerProductLinearOperator(*(ToeplitzLinearOperator(rbf_toeplitz_column(60, 0.05, s * ls))
+                                          for s in (1.0, 1.3))).add_diagonal(0.1)
+    y = torch.randn(3600, 1, device=cuda, generator=torch.Generator(device=cuda).manual_seed(7))
+    iq, ld = inv_quad_logdet(op, y, logdet=True)
+    (solve(op, y).sum() + iq.sum() + ld.sum()).backward()
+    assert torch.isfinite(ls.grad)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.rand(8192, 2, device=cuda, generator=g)
+    model = SKIGPRegression(make_grid(x, (64, 64)))
+    model.neg_mll(x, torch.sin(6 * x[:, 0]), generator=g).backward()
+    assert torch.isfinite(model.raw_noise.grad)
+    assert _launches() == before
+
+
+@pytest.mark.cuda
+def test_ski_default_settings_step_does_not_densify(cuda):
+    """SKI's neg_mll and backward at n = 20,000 under the default settings
+    (the rank-15 pivoted preconditioner reads the operator through its
+    structured _get_indices): the peak device memory stays far below the
+    1.6 GB of one dense f32 20,000^2 matrix."""
+    from linear_operator_tpu_torch import make_grid
+    from linear_operator_tpu_torch.models.ski import SKIGPRegression
+
+    g = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.rand(20_000, 2, device=cuda, generator=g)
+    y = torch.sin(6.0 * x[:, 0]) * torch.cos(4.0 * x[:, 1])
+    model = SKIGPRegression(make_grid(x, (64, 64)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model.neg_mll(x, y, generator=g).backward()
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= 256 * 2**20
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())
