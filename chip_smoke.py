@@ -108,6 +108,20 @@ Phases, each reported on its own line:
     inv_quad and the posterior mean against a dense f64 Cholesky, and at the
     bench's CG tolerance f32 and two f64 runs (summation order changed,
     entries rounded to f32) against f64, reported;
+16. indexing, the fantasy update and the shipped harness: (a) at N = 100,000
+    K[idx] (1024 random rows) stays a kernel operator whose mat-vecs at
+    t = 1 and 11 launch K1, K[:50000, :50000] a symmetric one whose mat-vec
+    launches K3, each held against its kernel's plain version, K[idx, idx]
+    and K[idx, perm(idx)] against the dense values, under a bound on the
+    phase's device memory; (b) the fantasy update (K + s2 I).cat_rows(B, C)
+    with 64 new points, solved by CG for [y; y_new] unpreconditioned and
+    under beta_features.default_preconditioner (iterations, time, K3
+    launches, residual), the same two solves at n = 4096 held against an
+    f64 Cholesky solve, and add_low_rank and cat_rows on a carried root
+    against the dense result; (c) the port's LinearOperatorTestCase on the
+    card (device="cuda") for a fused RBF kernel operator in f32 at n = 512
+    (K1, K2 and K3 must launch), a CatLinearOperator and a
+    MulLinearOperator;
  7. one JSON line listing every ported kernel with its launches (K3's and
     K1's including phases 12 and 13), error, times and bound (bound_basis:
     the f32 rate for K4, the tensor cores' for K1, K2, K3 and K5; K5's t = 1
@@ -119,6 +133,13 @@ Phases, each reported on its own line:
 
 Any failed check, or any exception, exits non-zero without the last line.
 Without a CUDA device, or without the package beside it, it fails at once.
+
+    python3 chip_smoke.py --only woodbury,kron_toeplitz,ski [--package DIR]
+
+runs only the named module-level phases (woodbury, kron_toeplitz, ski,
+indexing, fantasy, harness) after the build, with the package taken from DIR
+(another commit's checkout) when given: the same phases, one card, two
+commits.
 """
 
 from __future__ import annotations
@@ -179,6 +200,31 @@ M_KRON, H_KRON, LS_KRON, NOISE_KRON, KRON_REPS = 180, 0.05, 0.3, 0.1, 5
 # query points; the hold's points and grid side; the Toeplitz sizes timed
 N_SKI, G_SKI, SKI_REPS, M_SKI, N_SKI_HELD, G_SKI_HELD = 200_000, 256, 3, 1024, 20_000, 64
 TOEPLITZ_SIZES = (256, 8192)
+# 16a: the rows K[idx] takes, and the phase's device-memory bound
+M_INDEX, INDEX_PEAK_BYTES = 1024, 4 * 10**9
+# 16b: the fantasy points appended, CG's tolerance and iteration cap at
+# N = 1e5; the size of the hold against an f64 Cholesky solve and its CG
+# tolerance; the size of the root route's hold
+M_FANTASY, FANTASY_TOL, FANTASY_ITERS = 64, 1e-2, 400
+N_FANTASY_HELD, FANTASY_HELD_TOL, N_FANTASY_ROOT = 4096, 1e-4, 1024
+# 16c: the kernel operator of the harness on the card: points (a jittered
+# cube grid of side 8 on [0, 1]^3), the jitter and the lengthscale (the
+# condition number is 76, so that f32 solves meet the harness's tolerances),
+# and the tolerances that K1-K3's three-pass bf16 products need beyond the
+# harness's own
+N_HARNESS, HARNESS_JITTER, HARNESS_LS = 512, 0.04, 0.06
+# (the mat-vec carries the three-pass bf16 products' ~1e-5; the f32
+# gradients, fused or dense, sit ~1e-2 from each other; the finite
+# difference of sqrt_inv_matmul, at eps = 1e-5 over a forward whose bf16
+# splits are not smooth, lies a few percent from the gradient and moves from
+# run to run (3.1% and 4.9% in two runs on an H100).  The phase
+# prints the largest error each key sees, as a share of its limit and of the
+# harness's own; PERF.md puts the card's readings beside these limits)
+HARNESS_KERNEL_TOLERANCES = {
+    "matmul": {"rtol": 1e-4, "atol": 2e-4},
+    "grad": {"rtol": 1e-3, "atol": 1e-3},
+    "sqrt_inv_matmul_grad": {"rtol": 1e-1, "atol": 1e-2},
+}
 
 
 def fail(message: str) -> None:
@@ -1144,14 +1190,366 @@ def phase_ski(c) -> None:
     torch.cuda.empty_cache()
 
 
+def _main_path_data(c, n=N):
+    """Phase 5's data: x (n, D) and y from the same seeded generator."""
+    torch = c.torch
+    kg = torch.Generator(device=c.dev).manual_seed(10)
+    x = torch.randn(N, D, device=c.dev, generator=kg)
+    y = torch.sin(3.0 * x[:, 0]) + 0.1 * torch.randn(N, device=c.dev, generator=kg)
+    return x[:n].contiguous(), y[:n].contiguous()
+
+
+def phase_indexing(c) -> None:
+    """16a. Indexing the exact-GP kernel operator at N = 100,000: K[idx] with
+    1024 random rows stays a KernelLinearOperator whose mat-vecs at t = 1 and
+    t = 11 launch K1, held against K1's plain version; K[:50000, :50000]
+    stays a lazy symmetric kernel operator whose mat-vec launches K3, held
+    against K3's plain version; K[idx, idx] and K[idx, perm(idx)] (pointwise)
+    against the dense values of the 1024 points; the phase's peak device
+    memory under INDEX_PEAK_BYTES (the dense K would take 40 GB)."""
+    torch, lo, rbf = c.torch, c.lo, c.rbf
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    x, _ = _main_path_data(c)
+    model = lo.ExactGPRegression(block_rows=8192, device=c.dev)
+    K = model.covariance(x)
+    ls, os_ = (float(v.detach()) for v in (K.params["lengthscale"], K.params["outputscale"]))
+    g = torch.Generator(device=c.dev).manual_seed(90)
+    idx = torch.randperm(N, device=c.dev, generator=g)[:M_INDEX]
+    rows = K[idx]
+    if type(rows) is not lo.KernelLinearOperator or tuple(rows.shape) != (M_INDEX, N) or rows.matvec_impl is None:
+        fail(f"K[idx] is {type(rows).__name__} {tuple(rows.shape)}, not a fused kernel operator")
+    block = K[: N // 2, : N // 2]
+    if type(block) is not lo.KernelLinearOperator or not block.symmetric or tuple(block.shape) != (N // 2, N // 2):
+        fail(f"K[:{N // 2}, :{N // 2}] is {type(block).__name__} {tuple(block.shape)}, not a symmetric kernel operator")
+    xs = x / ls
+    with torch.no_grad():
+        for label, op, key, t, plain in [
+            ("K[idx] @ v", rows, "K1", 1, lambda v: rbf.kernel_matvec_plain(xs[idx], xs, v)),
+            ("K[idx] @ v", rows, "K1", 11, lambda v: rbf.kernel_matvec_plain(xs[idx], xs, v)),
+            (f"K[:{N // 2}, :{N // 2}] @ v", block, "K3", 1,
+             lambda v: rbf.kernel_matvec_plain(xs[: N // 2], xs[: N // 2], v)),
+        ]:
+            v = torch.randn(op.shape[-1], t, device=c.dev, generator=g)
+            c.reset_counts()
+            got = op @ v
+            torch.cuda.synchronize()
+            launched = c.counts()
+            if launched[key] != 1 or sum(launched.values()) != 1:
+                fail(f"{label} at t={t} launched {launched}: one {key} launch expected")
+            c.launches[key] += 1
+            ms = cuda_ms(torch, lambda: op @ v, 5)
+            want = os_ * plain(v)
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            say(f"  {label} t={t}: {key} once, {ms:.3f} ms, max_abs_err {err:.3e} against the plain version "
+                f"(rel {err / scale:.2e})")
+            if not err <= KERNEL_RTOL * scale:
+                fail(f"{label} disagrees with {key}'s plain version")
+        # pointwise reads: the diagonal (K[idx, idx]) and a permutation
+        dense = os_ * torch.exp(-0.5 * torch.cdist(xs[idx].double(), xs[idx].double()) ** 2)
+        perm = torch.randperm(M_INDEX, device=c.dev, generator=g)
+        c.reset_counts()
+        diag, pairs = K[idx, idx], K[idx, idx[perm]]
+        if any(c.counts().values()):
+            fail(f"pointwise reads launched {c.counts()}")
+        ar = torch.arange(M_INDEX, device=c.dev)
+        err = max(float((diag.double() - dense[ar, ar]).abs().max()), float((pairs.double() - dense[ar, perm]).abs().max()))
+        say(f"  K[idx, idx] and K[idx, perm(idx)] ({M_INDEX} pointwise reads each): max_abs_err {err:.3e} against "
+            f"the dense f64 values of the {M_INDEX} points")
+        if not err <= 1e-5 * os_:
+            fail("pointwise reads disagree with the dense values")
+    peak = torch.cuda.max_memory_allocated()
+    say(f"indexing (16a) N={N}: peak device memory over the phase {peak / 2**30:.3f} GiB "
+        f"({(peak - base) / 2**30:.3f} GiB above its start; the dense K would take {4 * N * N / 1e9:.0f} GB)")
+    if not peak - base < INDEX_PEAK_BYTES:
+        fail("indexing the kernel operator took more device memory than its lazy sub-operators need")
+    del K, rows, block, x, xs, dense
+    torch.cuda.empty_cache()
+
+
+def phase_fantasy(c) -> None:
+    """16b. The fantasy update at N = 100,000 + 64 (GPyTorch's
+    get_fantasy_model): (K + s2 I).cat_rows(B, C) with B = k(x_new, x) and
+    C = k(x_new, x_new) + s2 I, a lazy Cat of Cats (the operator carries no
+    root), solved for [y; y_new] by CG, once unpreconditioned (the JAX
+    package's default: a Cat has no preconditioner) and once under
+    beta_features.default_preconditioner; each run's iterations, time, K3
+    launches (one per iteration, on the top-left block) and relative
+    residual through the operator.  The same two solves at n = 4096 held
+    against an f64 Cholesky solve of the appended dense matrix, and
+    add_low_rank and cat_rows on a root operator (the root route) against
+    the dense result."""
+    torch, lo, settings, rbf = c.torch, c.lo, c.settings, c.rbf
+    from linear_operator_tpu_torch import beta_features
+
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=c.dev).manual_seed(91)
+    x_all, y_all = _main_path_data(c)
+    model = lo.ExactGPRegression(block_rows=8192, device=c.dev)
+    s2 = float(torch.nn.functional.softplus(model.raw_noise.detach()))
+
+    def appended(n):
+        x, y = x_all[:n], y_all[:n]
+        x_new = torch.randn(M_FANTASY, D, device=c.dev, generator=g)
+        y_new = torch.sin(3.0 * x_new[:, 0])
+        with torch.no_grad():
+            B = model.covariance(x_new, x).to_dense()  # the new rows, (m, n)
+            C = model.covariance(x_new).to_dense() + s2 * torch.eye(M_FANTASY, device=c.dev)
+            op = model.train_operator(x).cat_rows(B, C)
+        return op, torch.cat([y, y_new])[:, None], (x, B, C)
+
+    def solve(op, rhs, tol, iters, precondition):
+        c.reset_counts()
+        c.log.clear()
+        with contextlib.ExitStack() as stack:
+            for ctx in [settings.max_cholesky_size(0), settings.cg_tolerance(tol), settings.max_cg_iterations(iters),
+                        settings.verbose_linalg(True), torch.no_grad(),
+                        beta_features.default_preconditioner(precondition)]:
+                stack.enter_context(ctx)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sol = op.solve(rhs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            k3 = c.counts()["K3"]
+            c.launches["K3"] += k3
+            resid = float((op @ sol - rhs).norm() / rhs.norm())
+        return sol, wall, list(c.log.counts), k3, resid
+
+    op, rhs, _ = appended(N)
+    if not (type(op) is lo.CatLinearOperator and all(type(o) is lo.CatLinearOperator for o in op.operators)):
+        fail(f"cat_rows without a root gave {type(op).__name__}, not the lazy Cat of Cats")
+    for precondition in (False, True):
+        sol, wall, iters, k3, resid = solve(op, rhs, FANTASY_TOL, FANTASY_ITERS, precondition)
+        extra = 2 if precondition else 0  # the rangefinder's two sketches (t = 15)
+        say(f"fantasy (16b) N={N}+{M_FANTASY} {'default_preconditioner' if precondition else 'unpreconditioned'}: "
+            f"CG iterations {iters}, {wall:.3f} s, K3 launches {k3}, relative residual {resid:.3e} "
+            f"(CG tolerance {FANTASY_TOL})")
+        if not (torch.isfinite(sol).all() and len(iters) == 1 and k3 == iters[0] + extra):
+            fail("the fantasy solve is not finite or did not run one K3 launch per CG iteration")
+        if not resid <= 2 * FANTASY_TOL and iters[0] < FANTASY_ITERS:
+            fail("the fantasy solve stopped above its tolerance")
+    del op, sol
+
+    # at n = 4096: against an f64 Cholesky solve of the appended matrix.  CG
+    # stops at |r| <= tol |b|, so |x - x64| / |x64| <= kappa tol: held there,
+    # and the true residual at 2 tol (the recurrence's f32 drift)
+    op, rhs, (x, B, C) = appended(N_FANTASY_HELD)
+    with torch.no_grad():
+        K64 = model.covariance(x).to_dense().double() + s2 * torch.eye(N_FANTASY_HELD, device=c.dev, dtype=torch.float64)
+        full = torch.cat([torch.cat([K64, B.double().mT], -1), torch.cat([B.double(), C.double()], -1)], -2)
+        x64 = torch.cholesky_solve(rhs.double(), torch.linalg.cholesky(full))
+        evals = torch.linalg.eigvalsh(full)
+        kappa = float(evals[-1] / evals[0])
+    for precondition in (False, True):
+        sol, wall, iters, k3, resid = solve(op, rhs, FANTASY_HELD_TOL, 4 * N_FANTASY_HELD, precondition)
+        err = float((sol.double() - x64).norm() / x64.norm())
+        true_resid = float((full @ sol.double() - rhs.double()).norm() / rhs.double().norm())
+        say(f"  n={N_FANTASY_HELD}+{M_FANTASY} {'default_preconditioner' if precondition else 'unpreconditioned'}: "
+            f"CG iterations {iters}, relative residual {true_resid:.3e} (f64), |x - x_chol| / |x_chol| {err:.3e}, "
+            f"held to kappa tol = {kappa:.3e} x {FANTASY_HELD_TOL}")
+        if not (true_resid <= 2 * FANTASY_HELD_TOL and err <= kappa * FANTASY_HELD_TOL):
+            fail("the fantasy solve disagrees with the f64 Cholesky solve")
+
+    # the root route, in f64: a carried root is updated (add_low_rank joins
+    # [L | V]; cat_rows builds the block-triangular root), none is computed
+    n = N_FANTASY_ROOT
+    with torch.no_grad():
+        K64 = K64[:n, :n]
+        Kop = lo.DenseLinearOperator(K64)
+        rooted = Kop.with_factorization(Kop.cholesky())
+        V = torch.randn(n, 3, device=c.dev, generator=g, dtype=torch.float64)
+        Bn, Cn = B.double()[:, :n], C.double()
+        low = rooted.add_low_rank(V)
+        cat = rooted.cat_rows(Bn, Cn)
+        full = torch.cat([torch.cat([K64, Bn.mT], -1), torch.cat([Bn, Cn], -1)], -2)
+        e_low = float((low.to_dense() - (K64 + V @ V.mT)).abs().max() / K64.abs().max())
+        e_cat = float((cat.to_dense() - full).abs().max() / full.abs().max())
+    say(f"  root route n={n} (f64): add_low_rank -> {type(low).__name__}, max err {e_low:.3e}; cat_rows -> "
+        f"{type(cat).__name__} with a root of {tuple(cat.root.shape)}, max err {e_cat:.3e} (of the largest entry)")
+    if not (type(low) is lo.RootLinearOperator and type(cat) is lo.RootLinearOperator and max(e_low, e_cat) <= 1e-10):
+        fail("add_low_rank or cat_rows on a carried root disagrees with the dense result")
+    del op, K64, full, x64
+    torch.cuda.empty_cache()
+
+
+def phase_harness(c) -> None:
+    """16c. The port's shipped property suite (linear_operator_tpu_torch.test)
+    on the card: LinearOperatorTestCase with device="cuda" on a fused RBF
+    KernelLinearOperator in f32 at n = 512 (K1, K2 and K3 must launch), a
+    CatLinearOperator and a MulLinearOperator (float64, as the CPU suite's
+    classes).  Any failure or error fails the run."""
+    import io
+    import unittest
+
+    import numpy as np
+
+    torch, lo = c.torch, c.lo
+    from linear_operator_tpu_torch.test import LinearOperatorTestCase
+
+    # tolerance key -> (largest |actual - expected|, largest share of the
+    # limit atol + rtol |expected|, and of the harness's own limit) over the
+    # kernel case's comparisons
+    seen = {}
+    own_limits = LinearOperatorTestCase.tolerances
+
+    def share_of(diff, expected, rtol, atol):
+        limit = atol + rtol * np.abs(expected)
+        return float(np.max(diff[limit > 0] / limit[limit > 0])) if np.any(limit > 0) else 0.0
+
+    class KeyedTolerances(dict):
+        """The kernel case's tolerances; a read notes its key, so that the
+        comparisons made at those values are credited to it (any other
+        comparison, with limits of its own, to "explicit")."""
+
+        key = None
+
+        def __getitem__(self, key):
+            self.key = key
+            return super().__getitem__(key)
+
+    class KernelOnCard(LinearOperatorTestCase):
+        seed = 0
+        device = str(c.dev)
+        should_test_sample = False
+        tolerances = KeyedTolerances({**LinearOperatorTestCase.tolerances, **HARNESS_KERNEL_TOLERANCES})
+
+        def assertAllClose(self, actual, expected, rtol=1e-4, atol=1e-5, msg=None):
+            key = self.tolerances.key
+            if key is None or dict.__getitem__(self.tolerances, key) != {"rtol": rtol, "atol": atol}:
+                key = "explicit"
+            a, e = (np.asarray(v.detach().double().cpu() if torch.is_tensor(v) else v, dtype=np.float64)
+                    for v in (actual, expected))
+            if a.shape == e.shape and a.size:
+                diff = np.abs(a - e)
+                share = share_of(diff, e, rtol, atol)
+                own = share_of(diff, e, **own_limits[key]) if key in own_limits else share
+                before = seen.get(key, (0.0, 0.0, 0.0))
+                seen[key] = (max(before[0], float(np.max(diff))), max(before[1], share), max(before[2], own))
+            super().assertAllClose(actual, expected, rtol=rtol, atol=atol, msg=msg)
+        # a jittered 8 x 8 x 8 grid: no point without neighbours, so that the
+        # spectrum has no cluster at the outputscale (which a Lanczos root
+        # from one start vector resolves once) and K stays well conditioned
+        side = round(N_HARNESS ** (1 / 3))
+        grid = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"), -1).reshape(-1, 3) / (side - 1)
+        x = grid + HARNESS_JITTER * np.random.default_rng(95).normal(size=grid.shape)
+
+        def create_linear_op(self):
+            return lo.rbf_kernel_operator(self.tensor(self.x, dtype=torch.float32), lengthscale=HARNESS_LS,
+                                          outputscale=1.0)
+
+        def evaluate_linear_op(self, op):
+            x1, x2 = op.x1 / op.params["lengthscale"], op.x2 / op.params["lengthscale"]
+            d2 = torch.sum((x1[:, None, :] - x2[None, :, :]) ** 2, dim=-1)
+            return op.params["outputscale"] * torch.exp(-0.5 * d2)
+
+    def psd(seed, n):
+        a = np.random.default_rng(seed).normal(size=(n, n))
+        return a @ a.T + n * np.eye(n)
+
+    class CatOnCard(LinearOperatorTestCase):
+        seed = 1
+        device = str(c.dev)
+        full = psd(20, 7)
+
+        def create_linear_op(self):
+            f = self.tensor(self.full)
+            top = lo.CatLinearOperator((lo.DenseLinearOperator(f[:4, :4]), lo.DenseLinearOperator(f[:4, 4:])), cat_dim=-1)
+            bottom = lo.CatLinearOperator((lo.DenseLinearOperator(f[4:, :4]), lo.DenseLinearOperator(f[4:, 4:])),
+                                          cat_dim=-1)
+            return lo.CatLinearOperator((top, bottom), cat_dim=-2)
+
+        def evaluate_linear_op(self, op):
+            top, bottom = op.operators
+            return torch.cat([torch.cat([b.to_dense() for b in blk.operators], -1) for blk in (top, bottom)], -2)
+
+    class MulOnCard(LinearOperatorTestCase):
+        seed = 4
+        device = str(c.dev)
+        should_call_cg = False
+        la = np.random.default_rng(67).normal(size=(6, 6)) + 3 * np.eye(6)
+        lb = np.random.default_rng(68).normal(size=(6, 6)) + 3 * np.eye(6)
+
+        def create_linear_op(self):
+            return lo.MulLinearOperator(lo.DenseLinearOperator(self.tensor(self.la)),
+                                        lo.DenseLinearOperator(self.tensor(self.lb)))
+
+        def evaluate_linear_op(self, op):
+            la, lb = op.left_root.tensor, op.right_root.tensor
+            return (la @ la.mT) * (lb @ lb.mT)
+
+    # what the fused kernels' three-pass bf16 products cost the kernel case:
+    # its mat-vecs (K3 at t = 4, K1 through the transpose) against the dense
+    # f32 matrix, and the x-gradient (K2) against autograd through it
+    probe = KernelOnCard("test_to_dense")
+    probe.setUp()
+    op = probe.create_linear_op()
+    dense = probe.evaluate_linear_op(op)
+    rhs = probe.randn(N_HARNESS, 4, dtype=torch.float32)
+    with torch.no_grad():
+        e_mm = float((op @ rhs - dense @ rhs).abs().max())
+        e_tmm = float((op._t_matmul(rhs) - dense.mT @ rhs).abs().max())
+    g_fused = probe._leaf_grads(op, lambda o: torch.sum(torch.sin(o @ rhs)))
+    g_dense = probe._leaf_grads(op, lambda o: torch.sum(torch.sin(probe.evaluate_linear_op(o) @ rhs)))
+    e_grad = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(g_fused, g_dense))
+    say(f"harness (16c) kernel case n={N_HARNESS} f32 ls={HARNESS_LS}: |K v - dense v| {e_mm:.3e} (max|dense v| "
+        f"{float((dense @ rhs).abs().max()):.3e}), transposed {e_tmm:.3e}; gradient max rel err {e_grad:.3e}; "
+        f"tolerances beyond the harness's own: {HARNESS_KERNEL_TOLERANCES or 'none'}")
+
+    for case in (KernelOnCard, CatOnCard, MulOnCard):
+        c.reset_counts()
+        stream = io.StringIO()
+        t0 = time.perf_counter()
+        # the kernel case's spectrum is flat (a well conditioned K): its
+        # Lanczos root needs k = n
+        with c.settings.max_root_decomposition_size(N_HARNESS):
+            result = unittest.TextTestRunner(stream=stream, verbosity=0).run(
+                unittest.TestLoader().loadTestsFromTestCase(case))
+        wall = time.perf_counter() - t0
+        launched = c.counts()
+        bad = result.failures + result.errors
+        say(f"harness (16c) {case.__name__}: {result.testsRun} tests in {wall:.1f} s, {len(result.failures)} failed, "
+            f"{len(result.errors)} errors; launches {launched}")
+        for test, trace in bad:
+            say(f"  {test.id().rsplit('.', 1)[-1]}: " + trace.strip().splitlines()[-1][:400])
+        if case is KernelOnCard:
+            limits = KernelOnCard.tolerances
+            for key in sorted(seen):
+                err, share, own = seen[key]
+                limit = dict.get(limits, key, "its own")
+                widened = f" (widened; {own:.3f} of the harness's own)" if key in HARNESS_KERNEL_TOLERANCES else ""
+                say(f"  kernel case, key {key}: largest |err| {err:.3e}, {share:.3f} of its limit {limit}{widened}")
+        if bad:
+            fail(f"the shipped harness failed on the card for {case.__name__}")
+        if case is KernelOnCard and not all(launched[k] for k in ("K1", "K2", "K3")):
+            fail(f"the kernel operator's harness run launched {launched}: K1, K2 and K3 must each launch")
+
+
+PHASES = ("woodbury", "kron_toeplitz", "ski", "indexing", "fantasy", "harness")
+
+
 def main() -> None:
     import torch
 
+    # optional: --only PHASE[,PHASE...] runs those module-level phases alone
+    # (after the build), --package DIR takes the package from DIR (a checkout
+    # of another commit), so that the phases time two commits on one card
+    args, only, root = sys.argv[1:], None, ROOT
+    while args:
+        flag, value, args = args[0], args[1] if len(args) > 1 else "", args[2:]
+        if flag == "--only" and set(value.split(",")) <= set(PHASES):
+            only = value.split(",")
+        elif flag == "--package":
+            root = Path(value).resolve()
+        else:
+            fail(f"usage: {Path(__file__).name} [--only {','.join(PHASES)}] [--package DIR]")
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
-    if not (ROOT / "linear_operator_tpu_torch" / "__init__.py").is_file():
+    if not (root / "linear_operator_tpu_torch" / "__init__.py").is_file():
         fail(f"the port package linear_operator_tpu_torch is not beside {Path(__file__).name}")
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(root))
     import linear_operator_tpu_torch as lo
     from linear_operator_tpu_torch import _build, settings
     from linear_operator_tpu_torch.functions._inv_quad_logdet import _stochastic_iqld
@@ -1202,6 +1600,19 @@ def main() -> None:
         log_path = _build.library_path(name).with_suffix(".log")
         if log_path.is_file():
             say(f"  {name} main-path instantiation: {_build.ptxas_report(log_path.read_text(), mangled)}")
+
+    if only:
+        if not Path(lo.__file__).resolve().is_relative_to(root):
+            fail(f"the package came from {lo.__file__}, not from {root}")
+        log = SolverLog()
+        logging.getLogger("linear_operator_tpu_torch").setLevel(logging.DEBUG)
+        logging.getLogger("linear_operator_tpu_torch").addHandler(log)
+        ctx = types.SimpleNamespace(torch=torch, lo=lo, settings=settings, rbf=rbf, dev=dev, counts=counts,
+                                    reset_counts=reset_counts, log=log, launches={key: 0 for key in wrappers})
+        say(f"package: {root}")
+        for name in only:
+            globals()[f"phase_{name}"](ctx)
+        return
 
     gen = torch.Generator(device=dev).manual_seed(0)
 
@@ -2426,6 +2837,10 @@ def main() -> None:
     # config 4b (SKI / KISS-GP)
     phase_kron_toeplitz(ctx)
     phase_ski(ctx)
+    # 16. indexing, the fantasy update and the shipped harness on the card
+    phase_indexing(ctx)
+    phase_fantasy(ctx)
+    phase_harness(ctx)
 
     # 7. the kernels line, then the result
     kernels = []

@@ -23,7 +23,7 @@ Its entry points run on a CUDA device unless the caller asks for the CPU,
 where the kernels' plain PyTorch versions take their place.
 """
 
-from . import distributions, operators, settings, solvers
+from . import beta_features, distributions, operators, settings, solvers
 from .distributions import MultivariateNormal
 from .functions import (
     add_diagonal,
@@ -50,12 +50,18 @@ from .models import (
 )
 from .operators import (
     AddedDiagLinearOperator,
+    BatchRepeatLinearOperator,
+    BlockDiagLinearOperator,
+    BlockInterleavedLinearOperator,
+    BlockLinearOperator,
+    CatLinearOperator,
     CholLinearOperator,
     ConstantDiagLinearOperator,
     ConstantMulLinearOperator,
     DenseLinearOperator,
     DiagLinearOperator,
     GridInterpolatedLinearOperator,
+    IdentityLinearOperator,
     InterpolatedLinearOperator,
     InterpolationMatrix,
     KernelLinearOperator,
@@ -66,17 +72,31 @@ from .operators import (
     LinearOperator,
     LowRankRootAddedDiagLinearOperator,
     LowRankRootLinearOperator,
+    MaskedLinearOperator,
     MatmulLinearOperator,
+    MulLinearOperator,
+    PermutationLinearOperator,
     RootLinearOperator,
+    SumBatchLinearOperator,
     SumKroneckerLinearOperator,
     SumLinearOperator,
     ToeplitzLinearOperator,
+    TransposePermutationLinearOperator,
     TriangularLinearOperator,
+    ZeroLinearOperator,
+    cat,
     rbf_kernel_operator,
+    to_dense,
+    to_linear_operator,
 )
 
 __all__ = [
     "AddedDiagLinearOperator",
+    "BatchRepeatLinearOperator",
+    "BlockDiagLinearOperator",
+    "BlockInterleavedLinearOperator",
+    "BlockLinearOperator",
+    "CatLinearOperator",
     "CholLinearOperator",
     "ConstantDiagLinearOperator",
     "ConstantMulLinearOperator",
@@ -85,6 +105,7 @@ __all__ = [
     "ExactGPRegression",
     "GridInterpolatedLinearOperator",
     "GridSpec",
+    "IdentityLinearOperator",
     "InterpolatedLinearOperator",
     "InterpolationMatrix",
     "KernelLinearOperator",
@@ -95,18 +116,26 @@ __all__ = [
     "LinearOperator",
     "LowRankRootAddedDiagLinearOperator",
     "LowRankRootLinearOperator",
+    "MaskedLinearOperator",
     "MatmulLinearOperator",
+    "MulLinearOperator",
     "MultivariateNormal",
+    "PermutationLinearOperator",
     "PosteriorCache",
     "RootLinearOperator",
     "SKIGPRegression",
     "SKIParams",
+    "SumBatchLinearOperator",
     "SumKroneckerLinearOperator",
     "SumLinearOperator",
     "ToeplitzLinearOperator",
+    "TransposePermutationLinearOperator",
     "TriangularLinearOperator",
+    "ZeroLinearOperator",
     "add_diagonal",
     "add_jitter",
+    "beta_features",
+    "cat",
     "diagonalization",
     "distributions",
     "inv_quad",
@@ -124,4 +153,6 @@ __all__ = [
     "solve",
     "solvers",
     "sqrt_inv_matmul",
+    "to_dense",
+    "to_linear_operator",
 ]

@@ -45,11 +45,15 @@ def inv_quad_logdet(
     *,
     generator: torch.Generator | None = None,
     num_probes: int | None = None,
+    factored=None,
 ):
     """(inv_quad, logdet); each is zeros(batch) when not requested.
 
     ``generator`` draws the probes (on its own device); without one, a fixed
-    seed is used and successive calls share probes."""
+    seed is used and successive calls share probes.  ``factored`` reuses a
+    factorization of ``op`` (see ``solve``)."""
+    if factored is not None:
+        op = op.with_factorization(factored)
     squeeze = inv_quad_rhs is not None and inv_quad_rhs.ndim == 1
     rhs = inv_quad_rhs[:, None] if squeeze else inv_quad_rhs
     if settings.debug.on():

@@ -61,9 +61,13 @@ class _Solve(torch.autograd.Function):
         return (None, rhs_bar, *op_grads)
 
 
-def solve(op, rhs: torch.Tensor, lhs: torch.Tensor | None = None) -> torch.Tensor:
+def solve(op, rhs: torch.Tensor, lhs: torch.Tensor | None = None, *, factored=None) -> torch.Tensor:
     """K^{-1} rhs for a vector (n,) or matrix (*b, n, t) rhs; with ``lhs``,
-    lhs @ K^{-1} rhs."""
+    lhs @ K^{-1} rhs.  ``factored``, a factorization of ``op`` computed
+    before (``op.cholesky()``, a root decomposition), routes the solve
+    through its closed form instead of factorizing again."""
+    if factored is not None:
+        op = op.with_factorization(factored)
     squeeze = rhs.ndim == 1
     if squeeze:
         rhs = rhs[:, None]

@@ -1,9 +1,13 @@
-from ._linear_operator import LinearOperator
+from ._linear_operator import LinearOperator, to_dense, to_linear_operator
 from .added_diag import AddedDiagLinearOperator
+from .batch_repeat import BatchRepeatLinearOperator
+from .block import BlockDiagLinearOperator, BlockInterleavedLinearOperator, BlockLinearOperator
+from .cat import CatLinearOperator, cat
 from .chol import CholLinearOperator
 from .constant_mul import ConstantMulLinearOperator
 from .dense import DenseLinearOperator
 from .diag import ConstantDiagLinearOperator, DiagLinearOperator
+from .identity import IdentityLinearOperator
 from .grid_interpolated import GridInterpolatedLinearOperator
 from .interpolated import InterpolatedLinearOperator, InterpolationMatrix
 from .kernel import (
@@ -20,21 +24,32 @@ from .kronecker import (
 )
 from .kronecker_added_diag import KroneckerProductAddedDiagLinearOperator
 from .low_rank_root_added_diag import LowRankRootAddedDiagLinearOperator
+from .masked import MaskedLinearOperator
 from .matmul import MatmulLinearOperator
+from .mul import MulLinearOperator
+from .permutation import PermutationLinearOperator, TransposePermutationLinearOperator
 from .root import LowRankRootLinearOperator, RootLinearOperator
 from .sum import SumLinearOperator
+from .sum_batch import SumBatchLinearOperator
 from .sum_kronecker import SumKroneckerLinearOperator
 from .toeplitz import ToeplitzLinearOperator
 from .triangular import TriangularLinearOperator
+from .zero import ZeroLinearOperator
 
 __all__ = [
     "AddedDiagLinearOperator",
+    "BatchRepeatLinearOperator",
+    "BlockDiagLinearOperator",
+    "BlockInterleavedLinearOperator",
+    "BlockLinearOperator",
+    "CatLinearOperator",
     "CholLinearOperator",
     "ConstantDiagLinearOperator",
     "ConstantMulLinearOperator",
     "DenseLinearOperator",
     "DiagLinearOperator",
     "GridInterpolatedLinearOperator",
+    "IdentityLinearOperator",
     "InterpolatedLinearOperator",
     "InterpolationMatrix",
     "KernelLinearOperator",
@@ -45,14 +60,23 @@ __all__ = [
     "LinearOperator",
     "LowRankRootAddedDiagLinearOperator",
     "LowRankRootLinearOperator",
+    "MaskedLinearOperator",
     "MatmulLinearOperator",
+    "MulLinearOperator",
+    "PermutationLinearOperator",
     "RootLinearOperator",
+    "SumBatchLinearOperator",
     "SumKroneckerLinearOperator",
     "SumLinearOperator",
     "ToeplitzLinearOperator",
+    "TransposePermutationLinearOperator",
     "TriangularLinearOperator",
+    "ZeroLinearOperator",
+    "cat",
     "rbf_covar",
     "rbf_fused_closure",
     "rbf_fused_matvec",
     "rbf_kernel_operator",
+    "to_dense",
+    "to_linear_operator",
 ]

@@ -1,8 +1,7 @@
 """Abstract base class for lazy (batched) linear operators.
 
-PyTorch counterpart of ``linear_operator_tpu/operators/_linear_operator.py``,
-ported as far as the exact-GP, Woodbury, sampling and structured slices need
-it.  An operator represents a (batch of) M x N matrix implicitly through
+PyTorch counterpart of ``linear_operator_tpu/operators/_linear_operator.py``.
+An operator represents a (batch of) M x N matrix implicitly through
 ``_matmul``, ``_shape`` and ``_transpose``; everything else is built on them.
 
 Operators are plain classes whose fields are tensors, nested operators or
@@ -127,9 +126,30 @@ class LinearOperator:
         TriangularLinearOperator around it keeps its structured paths."""
         return False
 
+    def _parts(self) -> Iterator:
+        """The tensor fields and nested operators, in field order (a nested
+        operator is not walked into)."""
+
+        def walk(value):
+            if isinstance(value, (torch.Tensor, LinearOperator)):
+                yield value
+            elif isinstance(value, tuple):
+                for v in value:
+                    yield from walk(v)
+            elif isinstance(value, dict):
+                for v in value.values():
+                    yield from walk(v)
+
+        for value in vars(self).values():
+            yield from walk(value)
+
     @property
     def dtype(self) -> torch.dtype:
-        dtypes = [t.dtype for t in self._leaves() if t.is_floating_point()]
+        # a nested operator answers for itself: one whose only tensors are
+        # indices (Permutation) or that has none (Identity) carries its dtype
+        dtypes = [
+            p.dtype for p in self._parts() if isinstance(p, LinearOperator) or p.is_floating_point() or p.is_complex()
+        ]
         if not dtypes:
             return torch.get_default_dtype()
         out = dtypes[0]
@@ -139,20 +159,73 @@ class LinearOperator:
 
     @property
     def device(self) -> torch.device | None:
+        # a tensor's, else a nested operator's (Identity and Zero hold none)
         for t in self._leaves():
             return t.device
+        for p in self._parts():
+            if p.device is not None:
+                return p.device
         return None
 
     @property
     def mT(self) -> "LinearOperator":
         return self._transpose()
 
+    @property
+    def T(self) -> "LinearOperator":
+        if self.ndim != 2:
+            raise RuntimeError("Use .mT for batched operators")
+        return self._transpose()
+
     def __repr__(self) -> str:
         return f"{type(self).__name__}(shape={self.shape}, dtype={self.dtype})"
+
+    def representation(self) -> tuple[torch.Tensor, ...]:
+        """The operator's tensors, in ``_leaves`` order."""
+        return tuple(self._leaves())
 
     def detach(self) -> "LinearOperator":
         """Copy with every tensor detached from autograd."""
         return self._map_tensors(torch.Tensor.detach)
+
+    def clone(self) -> "LinearOperator":
+        return self._map_tensors(torch.Tensor.clone)
+
+    def astype(self, dtype) -> "LinearOperator":
+        """Every floating tensor cast to ``dtype``; index tensors stay."""
+
+        def cast(t: torch.Tensor) -> torch.Tensor:
+            return t.to(dtype) if (t.is_floating_point() or t.is_complex()) else t
+
+        return self._map_tensors(cast)
+
+    def float(self) -> "LinearOperator":
+        return self.astype(torch.float32)
+
+    def double(self) -> "LinearOperator":
+        return self.astype(torch.float64)
+
+    def type(self, dtype=None):
+        """The dtype without an argument; a cast with one."""
+        return self.dtype if dtype is None else self.astype(dtype)
+
+    def to(self, *args, **kwargs) -> "LinearOperator":
+        """``Tensor.to`` on every tensor: a device moves them all, a dtype
+        casts the floating ones (index tensors keep their dtype)."""
+        dtype, device = kwargs.pop("dtype", None), kwargs.pop("device", None)
+        for a in args:
+            if isinstance(a, torch.dtype):
+                dtype = a
+            else:
+                device = a
+        out = self if device is None else self._map_tensors(lambda t: t.to(device, **kwargs))
+        return out if dtype is None else out.astype(dtype)
+
+    def cpu(self) -> "LinearOperator":
+        return self.to("cpu")
+
+    def cuda(self, device=None) -> "LinearOperator":
+        return self.to(torch.device("cuda", device) if isinstance(device, int) else (device or "cuda"))
 
     # ------------------------------------------------------------------
     # Derived primitives
@@ -230,7 +303,19 @@ class LinearOperator:
 
     def _preconditioner(self):
         """(closure, preconditioner_operator, logdet_of_preconditioner) or
-        (None, None, None)."""
+        (None, None, None).  Under ``beta_features.default_preconditioner``
+        an operator without a preconditioner of its own gets the randomized
+        rangefinder one."""
+        from .. import beta_features
+
+        if (
+            beta_features.default_preconditioner.on()
+            and self.is_square
+            and self.shape[-1] >= settings.min_preconditioning_size.value()
+        ):
+            return beta_features.build_default_preconditioner(
+                self.detach(), rank=settings.max_preconditioner_size.value()
+            )
         return None, None, None
 
     def _matmul_closure(self) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -252,31 +337,52 @@ class LinearOperator:
     # Matmul and arithmetic
     # ------------------------------------------------------------------
 
-    def matmul(self, other: torch.Tensor) -> torch.Tensor:
+    def matmul(self, other):
+        """K @ other: a tensor for a tensor, the lazy product for an
+        operator."""
+        from .matmul import MatmulLinearOperator
+
         if isinstance(other, LinearOperator):
-            raise NotImplementedError(
-                "lazy operator @ operator products are not ported yet"
-            )
+            return MatmulLinearOperator(self, other)
         if other.ndim == 1:
             return self._matmul(other[..., None])[..., 0]
         if settings.debug.on():
             matmul_broadcast_shape(self.shape, tuple(other.shape))
         return self._matmul(other)
 
+    def rmatmul(self, other):
+        """other @ K."""
+        if isinstance(other, LinearOperator):
+            return other.matmul(self)
+        if other.ndim == 1:
+            return self._t_matmul(other[..., None])[..., 0]
+        return self._t_matmul(other.mT).mT
+
     def __matmul__(self, other):
         return self.matmul(other)
 
+    def __rmatmul__(self, other):
+        return self.rmatmul(other)
+
     def __add__(self, other):
         """Structure-dispatching sum: a diagonal gives an AddedDiag (or the
-        subclass's own structure), an operator a lazy sum, a scalar a dense
-        operator, a tensor a lazy sum with it."""
+        subclass's own structure), a root operator a low-rank update, another
+        operator a lazy sum, a scalar a dense operator, a tensor a lazy sum
+        with it."""
         from .added_diag import AddedDiagLinearOperator
         from .dense import DenseLinearOperator
         from .diag import DiagLinearOperator
+        from .root import RootLinearOperator
         from .sum import SumLinearOperator
+        from .zero import ZeroLinearOperator
 
+        if isinstance(other, ZeroLinearOperator):
+            return self
         if isinstance(other, DiagLinearOperator):
             return AddedDiagLinearOperator(self, other)
+        if isinstance(other, RootLinearOperator):
+            # the root stays lazy: a structured root keeps its mat-vec
+            return self.add_low_rank(other.root)
         if isinstance(other, LinearOperator):
             return SumLinearOperator((self, other))
         other = torch.as_tensor(other, dtype=self.dtype, device=self.device)
@@ -300,24 +406,41 @@ class LinearOperator:
         """``self + alpha * other``."""
         return self + other if alpha is None else self + other * alpha
 
-    def mul(self, other) -> "LinearOperator":
-        """Product with a constant: a scalar, a batch-shaped tensor, or one
-        whose matrix dims are (1, 1), as a ConstantMulLinearOperator.  The
-        elementwise product with an operator or a full-size tensor needs
-        MulLinearOperator, which is not ported yet (ROADMAP queue 1 item 5)."""
-        from .constant_mul import ConstantMulLinearOperator
+    def sub(self, other, alpha: float | None = None) -> "LinearOperator":
+        """``self - alpha * other``."""
+        return self - other if alpha is None else self - other * alpha
 
-        if not isinstance(other, LinearOperator):
-            const = torch.as_tensor(other, dtype=self.dtype, device=self.device)
-            unit_matrix = const.ndim >= 2 and tuple(const.shape[-2:]) == (1, 1)
-            if const.ndim == 0 or unit_matrix or const.ndim <= self.ndim - 2:
-                # ConstantMul holds a batch-shaped constant and appends the
-                # (1, 1) matrix dims itself
-                return ConstantMulLinearOperator(self, const[..., 0, 0] if unit_matrix else const)
-        raise NotImplementedError(
-            "the elementwise product with an operator or a full-size tensor needs "
-            "MulLinearOperator, which is not ported yet (ROADMAP queue 1 item 5)"
-        )
+    def div(self, other) -> "LinearOperator":
+        """``self * (1 / other)``."""
+        from .zero import ZeroLinearOperator
+
+        if isinstance(other, ZeroLinearOperator):
+            raise RuntimeError("Attempted to divide by a ZeroLinearOperator")
+        return self.mul(1.0 / torch.as_tensor(other, dtype=self.dtype, device=self.device))
+
+    def t(self) -> "LinearOperator":
+        if self.ndim != 2:
+            raise RuntimeError("Cannot call t for more than 2 dimensions")
+        return self._transpose()
+
+    def mul(self, other) -> "LinearOperator":
+        """Elementwise product: with a scalar, a batch-shaped tensor or one
+        whose matrix dims are (1, 1), a ConstantMulLinearOperator; with an
+        operator or a full-size tensor, the Hadamard product of root
+        decompositions (MulLinearOperator)."""
+        from .constant_mul import ConstantMulLinearOperator
+        from .dense import DenseLinearOperator
+        from .mul import MulLinearOperator
+
+        if isinstance(other, LinearOperator):
+            return MulLinearOperator.from_operators(self, other)
+        const = torch.as_tensor(other, dtype=self.dtype, device=self.device)
+        unit_matrix = const.ndim >= 2 and tuple(const.shape[-2:]) == (1, 1)
+        if const.ndim == 0 or unit_matrix or const.ndim <= self.ndim - 2:
+            # ConstantMul holds a batch-shaped constant and appends the
+            # (1, 1) matrix dims itself
+            return ConstantMulLinearOperator(self, const[..., 0, 0] if unit_matrix else const)
+        return MulLinearOperator.from_operators(self, DenseLinearOperator(const))
 
     def __mul__(self, other):
         return self.mul(other)
@@ -328,8 +451,25 @@ class LinearOperator:
     def __truediv__(self, other):
         return self.mul(1.0 / torch.as_tensor(other, dtype=self.dtype, device=self.device))
 
+    # Elementwise spectrum and entry functions: only operators whose structure
+    # allows them (Diag, Identity) implement these.
+    def abs(self) -> "LinearOperator":
+        raise NotImplementedError(f"abs({type(self).__name__}) is not implemented.")
+
+    def exp(self) -> "LinearOperator":
+        raise NotImplementedError(f"exp({type(self).__name__}) is not implemented.")
+
+    def log(self) -> "LinearOperator":
+        raise NotImplementedError(f"log({type(self).__name__}) is not implemented.")
+
     def sqrt(self) -> "LinearOperator":
         raise NotImplementedError(f"sqrt({type(self).__name__}) is not implemented.")
+
+    def inverse(self) -> "LinearOperator":
+        raise NotImplementedError(
+            f"inverse({type(self).__name__}) is not implemented; "
+            "use solve(rhs) for matrix-free application of the inverse."
+        )
 
     def add_diagonal(self, diag) -> "LinearOperator":
         """K + diag(d); a scalar or trailing-singleton ``diag`` becomes a
@@ -344,15 +484,112 @@ class LinearOperator:
         """K + jitter_val I."""
         return self.add_diagonal(jitter_val)
 
+    def add_low_rank(self, low_rank_mat, generate_roots: bool = True) -> "LinearOperator":
+        """K + V V^T.  When K carries a root R (``_carried_root``) and
+        ``generate_roots``, the result is the RootLinearOperator of [R | V];
+        otherwise a lazy sum, and no root is computed."""
+        from .dense import DenseLinearOperator
+        from .root import RootLinearOperator
+        from .sum import SumLinearOperator
+
+        if isinstance(low_rank_mat, LinearOperator):
+            # a structured root stays lazy: its mat-vec carries the structure
+            v_op = low_rank_mat
+        else:
+            v = torch.as_tensor(low_rank_mat, dtype=self.dtype, device=self.device)
+            v_op = DenseLinearOperator(v[:, None] if v.ndim == 1 else v)
+        root = self._carried_root() if generate_roots else None
+        if root is not None:
+            return RootLinearOperator(DenseLinearOperator(torch.cat([root.to_dense(), v_op.to_dense()], dim=-1)))
+        return SumLinearOperator((self, RootLinearOperator(v_op)))
+
+    def cat_rows(self, cross_mat, new_mat, generate_roots: bool = True) -> "LinearOperator":
+        """Append m rows and columns to a PSD operator: ``cross_mat`` is the
+        new rows (*b, m, n), ``new_mat`` the new block C (*b, m, m), so that
+
+            K' = [[K,   B],
+                  [B^T, C]]   with B = cross_mat^T.
+
+        When K carries a root R and ``generate_roots``, the result carries
+        the block-triangular root [[R, 0], [B^T R^{-T}, S]] with S S^T the
+        Schur complement C - B^T K^{-1} B; otherwise it is the lazy
+        Cat-of-Cat block operator, and no root is computed."""
+        from ..functions import solve
+        from ..utils.cholesky import psd_safe_cholesky
+        from .cat import CatLinearOperator
+        from .dense import DenseLinearOperator
+        from .root import RootLinearOperator
+
+        B = torch.as_tensor(cross_mat, dtype=self.dtype, device=self.device).mT
+        C = torch.as_tensor(new_mat, dtype=self.dtype, device=self.device)
+        root_op = self._carried_root() if generate_roots else None
+        if root_op is None:
+            top = CatLinearOperator((self, DenseLinearOperator(B)), cat_dim=-1)
+            bottom = CatLinearOperator((DenseLinearOperator(B.mT), DenseLinearOperator(C)), cat_dim=-1)
+            return CatLinearOperator((top, bottom), cat_dim=-2)
+
+        R = root_op.to_dense()  # (*b, n, k)
+        m = C.shape[-1]
+        KinvB = solve(self, B)  # (*b, n, m)
+        lower_left = KinvB.mT @ R  # B^T K^{-1} R = B^T R^{-T}
+        schur = C - B.mT @ KinvB
+        S = psd_safe_cholesky((schur + schur.mT) / 2.0)
+        top = torch.cat([R, torch.zeros((*R.shape[:-1], m), dtype=R.dtype, device=R.device)], dim=-1)
+        bottom = torch.cat([lower_left, S], dim=-1)
+        return RootLinearOperator(DenseLinearOperator(torch.cat([top, bottom], dim=-2)))
+
+    def trace(self) -> torch.Tensor:
+        return torch.sum(self._diagonal(), dim=-1)
+
     # ------------------------------------------------------------------
     # Solves, quadratic forms, log-determinants (see ``functions``)
     # ------------------------------------------------------------------
 
-    def solve(self, rhs: torch.Tensor, lhs: torch.Tensor | None = None) -> torch.Tensor:
-        """K^{-1} rhs, or lhs @ K^{-1} rhs."""
+    def solve(self, rhs: torch.Tensor, lhs: torch.Tensor | None = None, *, factored=None) -> torch.Tensor:
+        """K^{-1} rhs, or lhs @ K^{-1} rhs; ``factored`` reuses a
+        factorization (see :meth:`with_factorization`)."""
         from ..functions import solve
 
-        return solve(self, rhs, lhs)
+        return solve(self, rhs, lhs, factored=factored)
+
+    def with_factorization(self, factor: "LinearOperator") -> "LinearOperator":
+        """The operator through which later solves, log-determinants and
+        samples should go, given a factorization of this one (``cholesky()``,
+        a root decomposition): a triangular factor L becomes
+        CholLinearOperator(L) = L L^T, a factor-carrying operator passes
+        through.  Gradients reach the original tensors through the
+        factorization's own."""
+        factor = self._wrap_factor(factor)
+        if settings.debug.on() and tuple(factor.shape) != tuple(self.shape):
+            raise RuntimeError(f"factorization shape {factor.shape} != operator shape {self.shape}")
+        return factor
+
+    @staticmethod
+    def _wrap_factor(factor: "LinearOperator") -> "LinearOperator":
+        from .chol import CholLinearOperator
+        from .triangular import TriangularLinearOperator
+
+        if isinstance(factor, TriangularLinearOperator):
+            return CholLinearOperator(factor._transpose() if factor.upper else factor)
+        return factor
+
+    def _carried_root(self) -> "LinearOperator | None":
+        """The root this operator carries as its own data (Root, LowRankRoot,
+        Chol), or None.  ``add_low_rank`` and ``cat_rows`` update such a root
+        but never compute one: a merely computable root (a Kronecker factor's,
+        a diagonal's square root) does not count."""
+        from .chol import CholLinearOperator
+        from .root import RootLinearOperator
+
+        if isinstance(self, (RootLinearOperator, CholLinearOperator)):
+            return self._root_structure()
+        return None
+
+    def solve_triangular(self, rhs: torch.Tensor, *, upper: bool, left: bool = True):
+        """Defined for triangular operators only."""
+        raise NotImplementedError(
+            f"solve_triangular({type(self).__name__}) is not implemented; only triangular operators support it."
+        )
 
     def inv_quad(self, rhs: torch.Tensor, reduce_inv_quad: bool = True) -> torch.Tensor:
         """rhs^T K^{-1} rhs, summed over the columns with ``reduce_inv_quad``."""
@@ -367,12 +604,19 @@ class LinearOperator:
         reduce_inv_quad: bool = True,
         *,
         generator: torch.Generator | None = None,
+        factored=None,
     ):
-        """(rhs^T K^{-1} rhs, log|K|) from one batched solve."""
+        """(rhs^T K^{-1} rhs, log|K|) from one batched solve; ``factored``
+        reuses a factorization (see :meth:`with_factorization`)."""
         from ..functions import inv_quad_logdet
 
         return inv_quad_logdet(
-            self, inv_quad_rhs, logdet=logdet, reduce_inv_quad=reduce_inv_quad, generator=generator
+            self,
+            inv_quad_rhs,
+            logdet=logdet,
+            reduce_inv_quad=reduce_inv_quad,
+            generator=generator,
+            factored=factored,
         )
 
     def logdet(self, *, generator: torch.Generator | None = None) -> torch.Tensor:
@@ -446,6 +690,138 @@ class LinearOperator:
         batch = tuple(s if new == -1 else new for new, s in zip(sizes[:-2], own))
         return self._expand_batch(broadcast_shapes(batch, self.batch_shape))
 
+    def reshape(self, *sizes) -> "LinearOperator":
+        """:meth:`expand`, with reshape's leading -1 accepted."""
+        if len(sizes) == 1 and isinstance(sizes[0], (tuple, list, torch.Size)):
+            sizes = tuple(sizes[0])
+        if len(sizes) == self.ndim + 1 and sizes[0] == -1:
+            sizes = (1,) + tuple(sizes[1:])
+        return self.expand(*sizes)
+
+    def repeat(self, *sizes) -> "LinearOperator":
+        """Lazy tiling of the batch dims; the matrix dims take (1, 1)."""
+        from .batch_repeat import BatchRepeatLinearOperator
+
+        if len(sizes) == 1 and isinstance(sizes[0], (tuple, list, torch.Size)):
+            sizes = tuple(sizes[0])
+        if len(sizes) < 2 or sizes[-1] != 1 or sizes[-2] != 1:
+            raise RuntimeError("repeat on an operator requires trailing (1, 1) for matrix dims")
+        return BatchRepeatLinearOperator(self, batch_repeat=tuple(sizes[:-2]))
+
+    def _unsqueeze_batch(self, dim: int) -> "LinearOperator":
+        """Dense fallback; structured subclasses reshape their tensors."""
+        from .dense import DenseLinearOperator
+
+        return DenseLinearOperator(self.to_dense().unsqueeze(dim))
+
+    def unsqueeze(self, dim: int) -> "LinearOperator":
+        if dim < 0:
+            dim = dim + self.ndim + 1
+        if dim > self.ndim - 2:
+            raise RuntimeError("cannot unsqueeze into matrix dims")
+        return self._unsqueeze_batch(dim)
+
+    def squeeze(self, dim: int) -> "LinearOperator":
+        if self.shape[dim] != 1:
+            return self
+        index = [slice(None)] * self.ndim
+        index[dim] = 0
+        return self[tuple(index)]
+
+    def _permute_batch(self, *dims: int) -> "LinearOperator":
+        """Dense fallback; structured subclasses permute their tensors."""
+        from .dense import DenseLinearOperator
+
+        return DenseLinearOperator(self.to_dense().permute(*dims, self.ndim - 2, self.ndim - 1))
+
+    def permute(self, *dims: int) -> "LinearOperator":
+        """Permutes the batch dims; a full-length permutation must keep the
+        matrix dims last."""
+        if len(dims) == 1 and isinstance(dims[0], (tuple, list)):
+            dims = tuple(dims[0])
+        num_batch = self.ndim - 2
+        # negative dims count from the full ndim in a full-length permutation
+        offset = self.ndim if len(dims) == self.ndim else num_batch
+        dims = tuple(d + offset if -self.ndim <= d < 0 else d for d in dims)
+        if len(dims) == self.ndim:
+            if dims[-2:] != (self.ndim - 2, self.ndim - 1):
+                raise RuntimeError("permute cannot move matrix dims")
+            dims = dims[:-2]
+        if sorted(dims) != list(range(num_batch)):
+            raise RuntimeError(f"invalid batch permutation {dims}")
+        return self._permute_batch(*dims)
+
+    def transpose(self, dim0: int, dim1: int) -> "LinearOperator":
+        ndim = self.ndim
+        dim0, dim1 = dim0 % ndim, dim1 % ndim
+        if dim0 == dim1:
+            return self
+        matrix_dims = {ndim - 2, ndim - 1}
+        if {dim0, dim1} == matrix_dims:
+            return self._transpose()
+        if dim0 in matrix_dims or dim1 in matrix_dims:
+            raise RuntimeError("cannot transpose a batch dim with a matrix dim")
+        perm = list(range(ndim - 2))
+        perm[dim0], perm[dim1] = perm[dim1], perm[dim0]
+        return self._permute_batch(*perm)
+
+    def sum(self, dim: int | None = None):
+        """Over a batch dim, a lazy SumBatchLinearOperator; over a matrix dim
+        or everything, a tensor."""
+        if dim is None:
+            return torch.sum(self.to_dense())
+        ndim = self.ndim
+        dim = dim % ndim
+        if dim >= ndim - 2:
+            return torch.sum(self.to_dense(), dim=dim - ndim)
+        from .sum_batch import SumBatchLinearOperator
+
+        num_batch = ndim - 2
+        perm = [d for d in range(num_batch) if d != dim] + [dim]
+        moved = self._permute_batch(*perm) if perm != list(range(num_batch)) else self
+        return SumBatchLinearOperator(moved, block_dim=-3)
+
+    def prod(self, dim: int, *, lazy: bool = False):
+        """Elementwise product over a batch dim: exact and dense by default;
+        with ``lazy``, the divide-and-conquer product of root decompositions,
+        which stays a lazy MulLinearOperator (PSD batches only)."""
+        ndim = self.ndim
+        dim = dim % ndim
+        if dim >= ndim - 2:
+            raise RuntimeError("prod over matrix dims is not defined")
+        if lazy:
+            return self._prod_batch(dim)
+        from .dense import DenseLinearOperator
+
+        return DenseLinearOperator(torch.prod(self.to_dense(), dim=dim))
+
+    def _prod_batch(self, dim: int) -> "LinearOperator":
+        """Pairs of roots combine through MulLinearOperator's row-wise
+        Khatri-Rao product; an odd count is padded with the exact rank-1
+        all-ones root."""
+        from .dense import DenseLinearOperator
+        from .mul import MulLinearOperator
+
+        if self.shape[dim] == 1:
+            return self.squeeze(dim)
+        roots = self.root_decomposition().root.to_dense()
+        num_batch = roots.shape[dim]
+        while True:
+            if num_batch % 2:
+                pad_shape = list(roots.shape)
+                pad_shape[dim] = 1
+                ones_root = torch.zeros(pad_shape, dtype=roots.dtype, device=roots.device)
+                ones_root[..., 0] = 1.0
+                roots = torch.cat([roots, ones_root], dim=dim)
+                num_batch += 1
+            half = num_batch // 2
+            part1 = roots.narrow(dim, 0, half)
+            part2 = roots.narrow(dim, half, half)
+            if half == 1:
+                return MulLinearOperator(DenseLinearOperator(part1.squeeze(dim)), DenseLinearOperator(part2.squeeze(dim)))
+            roots = MulLinearOperator(DenseLinearOperator(part1), DenseLinearOperator(part2))._root_structure().to_dense()
+            num_batch = half
+
     # ------------------------------------------------------------------
     # Factorizations
     # ------------------------------------------------------------------
@@ -512,12 +888,11 @@ class LinearOperator:
         """(U, S, V) with U and V DenseLinearOperators."""
         from .dense import DenseLinearOperator
 
-        U, S, Vt = torch.linalg.svd(self.to_dense(), full_matrices=False)
+        dense = self.to_dense()
+        # on the card, cuSOLVER's QR-based gesvd: the default Jacobi
+        # iterations stop at ~1e-4 reconstruction error in f32
+        U, S, Vt = torch.linalg.svd(dense, full_matrices=False, driver="gesvd" if dense.is_cuda else None)
         return DenseLinearOperator(U), S, DenseLinearOperator(Vt.mT)
-
-    # ------------------------------------------------------------------
-    # Indexing
-    # ------------------------------------------------------------------
 
     def pivoted_cholesky(self, rank: int, error_tol: float | None = None, return_pivots: bool = False):
         """Partial pivoted Cholesky factor L (*b, n, rank), and the pivots
@@ -525,6 +900,10 @@ class LinearOperator:
         from ..functions import pivoted_cholesky
 
         return pivoted_cholesky(self, rank, error_tol=error_tol, return_pivots=return_pivots)
+
+    # ------------------------------------------------------------------
+    # Indexing
+    # ------------------------------------------------------------------
 
     def _getitem(self, row_index, col_index, *batch_indices) -> "LinearOperator":
         """K[*batch_indices, row_index, col_index] as an operator, for slices
@@ -538,11 +917,39 @@ class LinearOperator:
         index tensors (dense fallback; structured subclasses override)."""
         return self.to_dense()[(*batch_indices, row_index, col_index)]
 
-    def _select_cols(self, idx: torch.Tensor) -> "LinearOperator":
-        """K[..., :, idx] (dense fallback; structured subclasses override)."""
-        from .dense import DenseLinearOperator
+    def _select_rows(self, idx: torch.Tensor) -> "LinearOperator":
+        """Lazy K[..., idx, :] for a 1-D index tensor: the operator between
+        one-hot interpolation matrices, so that a matrix-free operator stays
+        matrix-free (structured subclasses override)."""
+        from .interpolated import InterpolatedLinearOperator
 
-        return DenseLinearOperator(self.to_dense()[..., :, idx])
+        m = self.shape[-1]
+        li = torch.as_tensor(idx, device=self.device).reshape(-1, 1)
+        ri = torch.arange(m, device=self.device)[:, None]
+        lv = torch.ones(li.shape, dtype=self.dtype, device=self.device)
+        rv = torch.ones((m, 1), dtype=self.dtype, device=self.device)
+        return InterpolatedLinearOperator(self, li, lv, ri, rv)
+
+    def _select_cols(self, idx: torch.Tensor) -> "LinearOperator":
+        """Lazy K[..., :, idx] (see ``_select_rows``)."""
+        return self._transpose()._select_rows(idx)._transpose()
+
+    def __getitem__(self, index):
+        """Tensor-style indexing (``utils.getitem``): slices give lazy
+        operators, a 1-D index tensor on one matrix dim a lazy selection,
+        index tensors on both matrix dims dense values."""
+        from ..utils.getitem import normalize_getitem_index
+
+        return normalize_getitem_index(self, index)
+
+    def isclose(self, other, rtol: float = 1e-5, atol: float = 1e-8) -> torch.Tensor:
+        other_dense = other.to_dense() if isinstance(other, LinearOperator) else torch.as_tensor(other)
+        return torch.isclose(self.to_dense(), other_dense.to(self.device), rtol=rtol, atol=atol)
+
+
+def to_dense(obj) -> torch.Tensor:
+    """An operator densified; a tensor as it is."""
+    return obj.to_dense() if isinstance(obj, LinearOperator) else torch.as_tensor(obj)
 
 
 def to_linear_operator(obj) -> LinearOperator:

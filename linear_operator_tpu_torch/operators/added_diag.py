@@ -51,13 +51,20 @@ def auto_preconditioner_rank(n: int, k_setting: int = 15) -> int:
 
 class AddedDiagLinearOperator(SumLinearOperator):
     """(op, diag_op); ``precond_factor`` optionally carries a precomputed
-    rank-k preconditioner factor (see :meth:`with_preconditioner`)."""
+    rank-k preconditioner factor (see :meth:`with_preconditioner`).
 
-    def __init__(self, op: LinearOperator, diag_op: DiagLinearOperator, *, precond_factor=None):
+    ``preconditioner_override(self) -> (closure, precond_op, logdet_p)`` is a
+    user's own preconditioner: when set, ``_preconditioner`` returns what it
+    returns, whatever the rank and size settings."""
+
+    def __init__(
+        self, op: LinearOperator, diag_op: DiagLinearOperator, *, precond_factor=None, preconditioner_override=None
+    ):
         if not isinstance(diag_op, DiagLinearOperator):
             raise TypeError("second operand must be a DiagLinearOperator")
         super().__init__((op, diag_op))
         self.precond_factor = precond_factor
+        self.preconditioner_override = preconditioner_override
 
     @property
     def _linear_op(self) -> LinearOperator:
@@ -70,6 +77,9 @@ class AddedDiagLinearOperator(SumLinearOperator):
     def __add__(self, other):
         if isinstance(other, DiagLinearOperator):
             return AddedDiagLinearOperator(self._linear_op, self._diag_op + other)
+        if isinstance(other, LinearOperator):
+            # the diagonal stays outside, so the sum keeps its preconditioner
+            return AddedDiagLinearOperator(self._linear_op + other, self._diag_op)
         return super().__add__(other)
 
     def _preconditioning_off(self) -> bool:
@@ -106,6 +116,8 @@ class AddedDiagLinearOperator(SumLinearOperator):
     def _preconditioner(self):
         """(closure, precond_op, logdet_p), or (None, None, None) when gated
         off: P^{-1} by Woodbury, log det P by the determinant lemma."""
+        if self.preconditioner_override is not None:
+            return self.preconditioner_override(self)
         if self._preconditioning_off():
             return None, None, None
 

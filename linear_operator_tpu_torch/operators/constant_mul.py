@@ -1,6 +1,5 @@
 """c * K with a scalar or batch-shaped constant (counterpart of
-linear_operator_tpu/operators/constant_mul.py; indexing, ``_getitem``, is not
-ported yet)."""
+linear_operator_tpu/operators/constant_mul.py)."""
 
 from __future__ import annotations
 
@@ -70,14 +69,23 @@ class ConstantMulLinearOperator(LinearOperator):
         c = self.constant.expand(batch_shape) if self.constant.ndim else self.constant
         return ConstantMulLinearOperator(self.base._expand_batch(batch_shape), c)
 
+    def _indexed_constant(self, batch_indices) -> torch.Tensor:
+        """The constant broadcast to the operator's batch shape before batch
+        indexing (it may carry fewer or singleton batch dims)."""
+        c = self.constant
+        if c.ndim and batch_indices:
+            c = c.expand(self.batch_shape)[tuple(batch_indices)]
+        return c
+
+    def _getitem(self, row_index, col_index, *batch_indices) -> "ConstantMulLinearOperator":
+        base = self.base._expanded_to(self.batch_shape)
+        return ConstantMulLinearOperator(
+            base._getitem(row_index, col_index, *batch_indices), self._indexed_constant(batch_indices)
+        )
+
     def _get_indices(self, row_index, col_index, *batch_indices) -> torch.Tensor:
         """c K[*batch_indices, row_index, col_index], the base broadcast to
         the operator's batch before batch indexing (the constant and the base
         may each carry fewer or singleton batch dims)."""
-        c = self.constant
-        if c.ndim and batch_indices:
-            c = c.expand(self.batch_shape)[tuple(batch_indices)]
-        base = self.base
-        if tuple(base.batch_shape) != tuple(self.batch_shape):
-            base = base._expand_batch(self.batch_shape)
-        return c * base._get_indices(row_index, col_index, *batch_indices)
+        base = self.base._expanded_to(self.batch_shape)
+        return self._indexed_constant(batch_indices) * base._get_indices(row_index, col_index, *batch_indices)

@@ -35,8 +35,26 @@ class DenseLinearOperator(LinearOperator):
     def _expand_batch(self, batch_shape) -> "DenseLinearOperator":
         return DenseLinearOperator(self.tensor.expand(*batch_shape, *self.matrix_shape))
 
+    def _unsqueeze_batch(self, dim: int) -> "DenseLinearOperator":
+        return DenseLinearOperator(self.tensor.unsqueeze(dim))
+
+    def _permute_batch(self, *dims: int) -> "DenseLinearOperator":
+        nd = self.tensor.ndim
+        return DenseLinearOperator(self.tensor.permute(*dims, nd - 2, nd - 1))
+
+    def _getitem(self, row_index, col_index, *batch_indices) -> "DenseLinearOperator":
+        return DenseLinearOperator(self.tensor[(*batch_indices, row_index, col_index)])
+
     def _get_indices(self, row_index, col_index, *batch_indices) -> torch.Tensor:
         return self.tensor[(*batch_indices, row_index, col_index)]
 
+    def _select_rows(self, idx) -> "DenseLinearOperator":
+        return DenseLinearOperator(self.tensor[..., idx, :])
+
     def _select_cols(self, idx) -> "DenseLinearOperator":
         return DenseLinearOperator(self.tensor[..., :, idx])
+
+    def __add__(self, other):
+        if isinstance(other, DenseLinearOperator):
+            return DenseLinearOperator(self.tensor + other.tensor)
+        return super().__add__(other)

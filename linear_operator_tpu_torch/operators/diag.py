@@ -56,8 +56,74 @@ class DiagLinearOperator(LinearOperator):
     def inverse(self) -> "DiagLinearOperator":
         return DiagLinearOperator(1.0 / self.diag)
 
+    def exp(self) -> "DiagLinearOperator":
+        return DiagLinearOperator(torch.exp(self._diagonal()))
+
+    def log(self) -> "DiagLinearOperator":
+        return DiagLinearOperator(torch.log(self._diagonal()))
+
+    def abs(self) -> "DiagLinearOperator":
+        return DiagLinearOperator(torch.abs(self._diagonal()))
+
+    def sqrt(self) -> "DiagLinearOperator":
+        return DiagLinearOperator(torch.sqrt(self._diagonal()))
+
+    def solve_triangular(self, rhs: torch.Tensor, *, upper: bool, left: bool = True, unitriangular: bool = False):
+        """A diagonal is both upper and lower triangular, so ``upper`` does
+        not matter; with ``unitriangular`` the diagonal must be ones."""
+        if unitriangular:
+            if not bool(torch.all(self._diagonal() == 1)):
+                raise RuntimeError("Received `unitriangular=True` but `LinearOperator` does not have a unit diagonal.")
+            return rhs
+        d = self._diagonal()
+        if rhs.ndim == 1:
+            return rhs / d
+        return rhs / (d[..., :, None] if left else d[..., None, :])
+
+    def matmul(self, other):
+        from .dense import DenseLinearOperator
+        from .triangular import TriangularLinearOperator
+
+        if isinstance(other, DiagLinearOperator):
+            return DiagLinearOperator(self._diagonal() * other._diagonal())
+        if isinstance(other, DenseLinearOperator):
+            return DenseLinearOperator(self._diagonal()[..., :, None] * other.tensor)
+        if isinstance(other, TriangularLinearOperator):
+            inner = other.tensor if isinstance(other.tensor, LinearOperator) else DenseLinearOperator(other.tensor)
+            return TriangularLinearOperator(self.matmul(inner), upper=other.upper)
+        from .block import BlockDiagLinearOperator
+
+        if isinstance(other, BlockDiagLinearOperator) and type(other) is BlockDiagLinearOperator:
+            # D blockdiag(B_1, ..., B_k) = blockdiag(D_1 B_1, ..., D_k B_k)
+            diag = self._diagonal().reshape(*other.base.shape[:-1])
+            return BlockDiagLinearOperator(DiagLinearOperator(diag).matmul(other.base))
+        return super().matmul(other)
+
+    def mul(self, other):
+        if isinstance(other, DiagLinearOperator):
+            return DiagLinearOperator(self._diagonal() * other._diagonal())
+        return super().mul(other)
+
     def _expand_batch(self, batch_shape) -> "DiagLinearOperator":
         return DiagLinearOperator(self.diag.expand(*batch_shape, self.diag.shape[-1]))
+
+    def _unsqueeze_batch(self, dim: int) -> "DiagLinearOperator":
+        return self._replace(diag=self.diag.unsqueeze(dim))
+
+    def _getitem(self, row_index, col_index, *batch_indices) -> LinearOperator:
+        if isinstance(row_index, slice) and isinstance(col_index, slice) and row_index == col_index:
+            return DiagLinearOperator(self._diagonal()[(*batch_indices, row_index)])
+        return super()._getitem(row_index, col_index, *batch_indices)
+
+    def _get_indices(self, row_index, col_index, *batch_indices) -> torch.Tensor:
+        vals = self._diagonal()[(*batch_indices, row_index)]
+        return torch.where(row_index == col_index, vals, torch.zeros_like(vals))
+
+    def zero_mean_mvn_samples(self, num_samples: int, *, generator: torch.Generator | None = None) -> torch.Tensor:
+        from ..utils.random import randn
+
+        base = randn((num_samples, *self.batch_shape, self.shape[-1]), self.dtype, self.device, generator)
+        return base * torch.sqrt(self._diagonal())
 
     def __add__(self, other):
         if isinstance(other, DiagLinearOperator):
@@ -93,13 +159,46 @@ class ConstantDiagLinearOperator(DiagLinearOperator):
     def inverse(self) -> "ConstantDiagLinearOperator":
         return ConstantDiagLinearOperator(1.0 / self.diag, diag_shape=self.diag_shape)
 
+    def _map_constant(self, fn) -> "ConstantDiagLinearOperator":
+        return ConstantDiagLinearOperator(fn(self.diag), diag_shape=self.diag_shape)
+
+    # the JAX package's ConstantDiag inherits Diag's exp, log, abs and matmul,
+    # which apply to its (*b, 1) constant and return a 1 x 1 operator
+    def sqrt(self) -> "ConstantDiagLinearOperator":
+        return self._map_constant(torch.sqrt)
+
+    def exp(self) -> "ConstantDiagLinearOperator":
+        return self._map_constant(torch.exp)
+
+    def log(self) -> "ConstantDiagLinearOperator":
+        return self._map_constant(torch.log)
+
+    def abs(self) -> "ConstantDiagLinearOperator":
+        return self._map_constant(torch.abs)
+
+    def matmul(self, other):
+        if isinstance(other, ConstantDiagLinearOperator):
+            return ConstantDiagLinearOperator(self.diag * other.diag, diag_shape=self.diag_shape)
+        return super().matmul(other)
+
     def _expand_batch(self, batch_shape) -> "ConstantDiagLinearOperator":
         return ConstantDiagLinearOperator(self.diag.expand(*batch_shape, 1), diag_shape=self.diag_shape)
+
+    def _getitem(self, row_index, col_index, *batch_indices):
+        if isinstance(row_index, slice) and isinstance(col_index, slice) and row_index == col_index:
+            new_n = len(range(*row_index.indices(self.diag_shape)))
+            return ConstantDiagLinearOperator(self.diag[(*batch_indices, slice(None))], diag_shape=new_n)
+        return super()._getitem(row_index, col_index, *batch_indices)
 
     def __add__(self, other):
         if isinstance(other, ConstantDiagLinearOperator):
             return ConstantDiagLinearOperator(self.diag + other.diag, diag_shape=self.diag_shape)
         return super().__add__(other)
+
+    def mul(self, other):
+        if isinstance(other, ConstantDiagLinearOperator):
+            return ConstantDiagLinearOperator(self.diag * other.diag, diag_shape=self.diag_shape)
+        return super().mul(other)
 
 
 def diag_operator(diag, op: LinearOperator) -> DiagLinearOperator:

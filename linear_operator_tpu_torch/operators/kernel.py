@@ -156,7 +156,8 @@ class KernelLinearOperator(LinearOperator):
         # n shoved into a batch dim: the covariance of each point with itself;
         # a batched hyperparameter gains the n singleton before its last two dims
         params = {k: v.unsqueeze(-3) if v.ndim > 2 else v for k, v in self.params.items()}
-        vals = self.covar_func(self.x1[..., :, None, :], self.x2[..., :, None, :], **params)
+        k = min(self.x1.shape[-2], self.x2.shape[-2])  # a rectangular sub-operator's
+        vals = self.covar_func(self.x1[..., :k, None, :], self.x2[..., :k, None, :], **params)
         return vals[..., 0, 0]
 
     def to_dense(self) -> torch.Tensor:
@@ -166,8 +167,8 @@ class KernelLinearOperator(LinearOperator):
         """val[*batch_indices, ...] with the hyperparameter broadcast to the
         operator's batch shape first; its last two dims (or fewer) are not
         batch dims and stay whole."""
-        if not batch_indices:
-            return val
+        if not batch_indices or val.ndim <= 2:
+            return val  # no batch dims: it broadcasts as it is
         nonbatch = tuple(val.shape[max(0, val.ndim - 2) :])
         val = val.expand(*self._batch_shape(), *nonbatch)
         return val[(*batch_indices, *([slice(None)] * len(nonbatch)))]
@@ -185,10 +186,37 @@ class KernelLinearOperator(LinearOperator):
         params = {name: self._index_param(val, batch_indices) for name, val in self.params.items()}
         return self.covar_func(x1[..., None, :], x2[..., None, :], **params)[..., 0, 0]
 
+    def _getitem(self, row_index, col_index, *batch_indices) -> "KernelLinearOperator":
+        """K[*batch_indices, rows, cols] stays a lazy kernel operator on the
+        sliced points.  It keeps the fused mat-vec, which takes every n, m,
+        d and batch on the card: K1, and K3 where the slices are equal (a
+        principal block stays symmetric).  The JAX package drops its fused
+        engine here, whose Pallas path assumed the whole operator's shape;
+        the values are the same."""
+        x1, x2 = self.x1, self.x2
+        if batch_indices:
+            batch = self._batch_shape()
+            x1 = x1.expand(*batch, *x1.shape[-2:])
+            x2 = x2.expand(*batch, *x2.shape[-2:])
+        params = {k: self._index_param(v, batch_indices) for k, v in self.params.items()}
+        symmetric = self.symmetric and isinstance(row_index, slice) and row_index == col_index
+        return self._replace(
+            x1=x1[(*batch_indices, row_index, slice(None))],
+            x2=x2[(*batch_indices, col_index, slice(None))],
+            params=params,
+            symmetric=symmetric,
+            matvec_closure_impl=self.matvec_closure_impl if symmetric else None,
+        )
+
+    def _select_rows(self, idx) -> "KernelLinearOperator":
+        """K[..., idx, :] stays a lazy kernel operator on the gathered points,
+        with the fused rectangular mat-vec (K1 on the card)."""
+        return self._replace(x1=self.x1[..., idx, :], symmetric=False, matvec_closure_impl=None)
+
     def _select_cols(self, idx) -> "KernelLinearOperator":
         """K[..., :, idx] stays a lazy kernel operator on the gathered points,
-        on the blocked path (the fused kernels and the per-solve closure
-        builder take whole operators only)."""
+        on the blocked path: the Nystrom preconditioner takes its landmark
+        columns through here, in full f32 (the JAX package's choice)."""
         return self._replace(
             x2=self.x2[..., idx, :], symmetric=False, matvec_impl=None, matvec_closure_impl=None
         )

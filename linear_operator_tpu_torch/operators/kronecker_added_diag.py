@@ -36,6 +36,7 @@ class KroneckerProductAddedDiagLinearOperator(AddedDiagLinearOperator):
             raise TypeError("second operand must be a Diag or Kronecker-diag operator")
         SumLinearOperator.__init__(self, (op, diag_op))
         self.precond_factor = precond_factor
+        self.preconditioner_override = None
 
     @property
     def _kron(self) -> KroneckerProductLinearOperator:

@@ -31,6 +31,10 @@ class RootLinearOperator(LinearOperator):
         root = self.root.to_dense()
         return torch.sum(root * root, dim=-1)
 
+    def to_dense(self) -> torch.Tensor:
+        root = self.root.to_dense()
+        return root @ root.mT
+
     def _root_structure(self) -> LinearOperator:
         return self.root
 
@@ -39,6 +43,25 @@ class RootLinearOperator(LinearOperator):
 
     def _expand_batch(self, batch_shape) -> "RootLinearOperator":
         return type(self)(self.root._expand_batch(batch_shape))
+
+    def _getitem(self, row_index, col_index, *batch_indices) -> LinearOperator:
+        """K[i, j] = R[i, :] R[j, :]^T: the root's rows sliced."""
+        from .matmul import MatmulLinearOperator
+
+        left = self.root._getitem(row_index, slice(None), *batch_indices)
+        if isinstance(row_index, slice) and isinstance(col_index, slice) and row_index == col_index:
+            # a subclass with a constraint on its root (Chol's triangular
+            # one) becomes a plain root operator: the sliced rows are a root
+            cls = type(self) if type(self) in (RootLinearOperator, LowRankRootLinearOperator) else RootLinearOperator
+            return cls(left)
+        right = self.root._getitem(col_index, slice(None), *batch_indices)
+        return MatmulLinearOperator(left, right._transpose())
+
+    def _get_indices(self, row_index, col_index, *batch_indices) -> torch.Tensor:
+        root = self.root.to_dense()
+        left = root[(*batch_indices, row_index, slice(None))]
+        right = root[(*batch_indices, col_index, slice(None))]
+        return torch.sum(left * right, dim=-1)
 
 
 class LowRankRootLinearOperator(RootLinearOperator):

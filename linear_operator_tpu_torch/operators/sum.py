@@ -63,6 +63,42 @@ class SumLinearOperator(LinearOperator):
     def _expand_batch(self, batch_shape) -> "SumLinearOperator":
         return SumLinearOperator(tuple(op._expand_batch(batch_shape) for op in self.operators))
 
+    def __add__(self, other):
+        from .added_diag import AddedDiagLinearOperator
+        from .dense import DenseLinearOperator
+        from .diag import DiagLinearOperator
+        from .zero import ZeroLinearOperator
+
+        if isinstance(other, ZeroLinearOperator):
+            return self
+        if isinstance(other, DiagLinearOperator):
+            return AddedDiagLinearOperator(self, other)
+        if isinstance(other, SumLinearOperator):
+            return SumLinearOperator((*self.operators, *other.operators))
+        if isinstance(other, LinearOperator):
+            return SumLinearOperator((*self.operators, other))
+        other = torch.as_tensor(other, dtype=self.dtype, device=self.device)
+        if other.ndim == 0:
+            return super().__add__(other)
+        return SumLinearOperator((*self.operators, DenseLinearOperator(other)))
+
+    def _batch_expanded_terms(self) -> tuple:
+        """The terms expanded to the sum's batch shape: a term with fewer or
+        singleton batch dims cannot take the sum's batch indices."""
+        return tuple(op._expanded_to(self.batch_shape) for op in self.operators)
+
+    def _getitem(self, row_index, col_index, *batch_indices) -> LinearOperator:
+        return SumLinearOperator(
+            tuple(op._getitem(row_index, col_index, *batch_indices) for op in self._batch_expanded_terms())
+        )
+
+    def _get_indices(self, row_index, col_index, *batch_indices) -> torch.Tensor:
+        terms = self._batch_expanded_terms()
+        out = terms[0]._get_indices(row_index, col_index, *batch_indices)
+        for op in terms[1:]:
+            out = out + op._get_indices(row_index, col_index, *batch_indices)
+        return out
+
     def to_dense(self) -> torch.Tensor:
         out = self.operators[0].to_dense()
         for op in self.operators[1:]:

@@ -1,6 +1,5 @@
 """Triangular operator with direct triangular solves (counterpart of
-linear_operator_tpu/operators/triangular.py, as far as the Cholesky paths of
-``solve`` and ``inv_quad_logdet`` and the root decompositions need it)."""
+linear_operator_tpu/operators/triangular.py)."""
 
 from __future__ import annotations
 
@@ -63,6 +62,28 @@ class TriangularLinearOperator(LinearOperator):
         y = torch.linalg.solve_triangular(dense, rhs, upper=self.upper)
         return torch.linalg.solve_triangular(dense.mT, y, upper=not self.upper)
 
+    def solve_triangular(self, rhs: torch.Tensor, *, upper: bool, left: bool = True, unitriangular: bool = False):
+        """``upper`` must be the operator's own orientation."""
+        if upper != self.upper:
+            raise RuntimeError(
+                f"solve_triangular called with upper={upper}, but the operator is "
+                f"{'upper' if self.upper else 'lower'} triangular"
+            )
+        if unitriangular:
+            raise NotImplementedError("unitriangular=True is not supported")
+        if not left:
+            return self._transpose()._solve_structure(rhs.mT).mT
+        return self._solve_structure(rhs)
+
+    def _logdet_structure(self) -> torch.Tensor:
+        """log |det| = sum log |diag|."""
+        return torch.sum(torch.log(torch.abs(self._diagonal())), dim=-1)
+
+    def _inv_quad_logdet_structure(self, rhs, logdet):
+        zeros = torch.zeros(self.batch_shape, dtype=self.dtype, device=self.device)
+        iq = zeros if rhs is None else torch.sum(self._solve_structure(rhs) * rhs, dim=-2)
+        return iq, self._logdet_structure() if logdet else zeros
+
     def _cholesky_impl(self, upper: bool = False):
         raise NotPSDError("TriangularLinearOperator is not PSD")
 
@@ -73,6 +94,37 @@ class TriangularLinearOperator(LinearOperator):
         if isinstance(self.tensor, LinearOperator):
             return TriangularLinearOperator(self.tensor._expand_batch(batch_shape), upper=self.upper)
         return TriangularLinearOperator(self.tensor.expand(*batch_shape, *self.matrix_shape), upper=self.upper)
+
+    def _inner_op(self) -> LinearOperator:
+        from .dense import DenseLinearOperator
+
+        return self.tensor if isinstance(self.tensor, LinearOperator) else DenseLinearOperator(self.tensor)
+
+    def _getitem(self, row_index, col_index, *batch_indices) -> LinearOperator:
+        if (
+            isinstance(row_index, slice)
+            and isinstance(col_index, slice)
+            and row_index == col_index
+            # a negative step reverses rows and columns and flips the triangle
+            and (row_index.step is None or row_index.step > 0)
+        ):
+            # a principal submatrix of a triangular matrix is triangular
+            inner = self._inner_op()._getitem(row_index, col_index, *batch_indices)
+            return TriangularLinearOperator(inner, upper=self.upper)
+        # other slices lose the structure: mask, then slice
+        from .dense import DenseLinearOperator
+
+        return DenseLinearOperator(self.to_dense()[(*batch_indices, row_index, col_index)])
+
+    def _get_indices(self, row_index, col_index, *batch_indices) -> torch.Tensor:
+        vals = self._inner_op()._get_indices(row_index, col_index, *batch_indices)
+        keep = (row_index <= col_index) if self.upper else (row_index >= col_index)
+        return torch.where(keep, vals, torch.zeros_like(vals))
+
+    def __add__(self, other):
+        if isinstance(other, TriangularLinearOperator) and other.upper == self.upper:
+            return TriangularLinearOperator(self.to_dense() + other.to_dense(), upper=self.upper)
+        return super().__add__(other)
 
     def inverse(self) -> "TriangularLinearOperator":
         """L^{-1} by a triangular solve against the identity."""

@@ -1,4 +1,4 @@
-from . import sparse
+from . import getitem, permutation, sparse
 from . import sparse as interpolation
 from .cholesky import psd_safe_cholesky
 from .errors import CachingError, NanError, NotPSDError
@@ -14,6 +14,8 @@ from .toeplitz import (
 from .warnings import NumericalWarning, PerformanceWarning
 
 __all__ = [
+    "getitem",
+    "permutation",
     "psd_safe_cholesky",
     "CachingError",
     "NanError",

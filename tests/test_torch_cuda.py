@@ -880,3 +880,42 @@ def test_ski_default_settings_step_does_not_densify(cuda):
     torch.cuda.synchronize()
     assert torch.cuda.max_memory_allocated() - base <= 256 * 2**20
     assert all(torch.isfinite(p.grad).all() for p in model.parameters())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 11])
+def test_kernel_row_selection_launches_k1(cuda, t):
+    """K[idx] stays a kernel operator on the gathered rows; its mat-vec is
+    one K1 launch, held against both plain versions."""
+    x, v = _data(cuda, 30, (6000, 3), (6000, t))
+    idx = torch.randperm(6000, generator=torch.Generator().manual_seed(31))[:300].to(cuda)
+    op = rbf_kernel_operator(x, lengthscale=0.7, outputscale=1.3, materialize_threshold=None)
+    sub = op[idx]
+    assert type(sub).__name__ == "KernelLinearOperator" and not sub.symmetric
+    k1, k3 = rbf.kernel_matvec.launches, rbf.kernel_matvec_sym.launches
+    got = sub @ v
+    assert (rbf.kernel_matvec.launches, rbf.kernel_matvec_sym.launches) == (k1 + 1, k3)
+    xs = x / 0.7
+    _both_close(got / 1.3, xs[idx], xs, v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", [(slice(0, 3000), slice(0, 3000)), (slice(1000, 5000, 2), slice(1000, 5000, 2))])
+def test_kernel_principal_block_launches_k3(cuda, index):
+    """K[s, s] stays a symmetric kernel operator; its mat-vec is one K3
+    launch, held against both plain versions; K[s, s'] is one K1 launch."""
+    x, v = _data(cuda, 32, (6000, 3), (6000, 4))
+    op = rbf_kernel_operator(x, lengthscale=0.7, outputscale=1.3, materialize_threshold=None)
+    sub = op[index]
+    assert type(sub).__name__ == "KernelLinearOperator" and sub.symmetric
+    xs = (x / 0.7)[index[0]]
+    w = v[: xs.shape[0]]
+    k1, k3 = rbf.kernel_matvec.launches, rbf.kernel_matvec_sym.launches
+    got = sub @ w
+    assert (rbf.kernel_matvec.launches, rbf.kernel_matvec_sym.launches) == (k1, k3 + 1)
+    _both_close(got / 1.3, xs, xs, w)
+    rect = op[index[0], slice(0, 2000)]
+    assert not rect.symmetric
+    got = rect @ v[:2000]
+    assert rbf.kernel_matvec.launches == k1 + 1
+    _both_close(got / 1.3, xs, (x / 0.7)[:2000], v[:2000])
