@@ -122,13 +122,25 @@ Phases, each reported on its own line:
     card (device="cuda") for a fused RBF kernel operator in f32 at n = 512
     (K1, K2 and K3 must launch), a CatLinearOperator and a
     MulLinearOperator;
+17. the rest of the kernel operator (phase_kernel_family): (a) Matern-5/2,
+    3/2, 1/2 and RQ at config 3's data (N = 100,000, per-dimension
+    lengthscale) through inv_quad_logdet and its backward on the fused
+    kernels, every launch under the covariance's id (K3 once per CG
+    iteration, two K2 and one K3 in the backward, K1 in the predictive
+    mean), held against the plain path (Matern-5/2 at N, the others at
+    N_FAMILY_HELD), and K3, K2 and K1 of each timed beside RBF's; (b) the
+    periodic and spectral mixture kernels on a 1-D series and the LMC
+    multi-output operator on the blocked engine, no kernel launch, held
+    against f64; (c) a covariance registered at run time with CUDA bodies,
+    compiled into builds of K1-K4 of its own and launched under its id;
  7. one JSON line listing every ported kernel with its launches (K3's and
     K1's including phases 12 and 13), error, times and bound (bound_basis:
     the f32 rate for K4, the tensor cores' for K1, K2, K3 and K5; K5's t = 1
     time as ms_t1, the write-only pass beside K4 as write_only_ms; K3 at
     t = 1 as ms_t1, at config 6's shapes as ms_ciq_t16 and ms_ciq_t1, and K1
     at the LOVE shapes as ms_love_t1 and ms_love_t100, each with its plain
-    time, bound and error), then, as the last line,
+    time, bound and error; K1, K2 and K3 of each covariance as ms_by_covar,
+    K3 at t = 1 as ms_t1_by_covar), then, as the last line,
     {"ok": true, "device": {...}}.
 
 Any failed check, or any exception, exits non-zero without the last line.
@@ -137,7 +149,7 @@ Without a CUDA device, or without the package beside it, it fails at once.
     python3 chip_smoke.py --only woodbury,kron_toeplitz,ski [--package DIR]
 
 runs only the named module-level phases (woodbury, kron_toeplitz, ski,
-indexing, fantasy, harness) after the build, with the package taken from DIR
+indexing, fantasy, harness, kernel_family) after the build, with the package taken from DIR
 (another commit's checkout) when given: the same phases, one card, two
 commits.
 """
@@ -220,6 +232,14 @@ N_HARNESS, HARNESS_JITTER, HARNESS_LS = 512, 0.04, 0.06
 # run to run (3.1% and 4.9% in two runs on an H100).  The phase
 # prints the largest error each key sees, as a share of its limit and of the
 # harness's own; PERF.md puts the card's readings beside these limits)
+# 17: the kernel family at config 3's data: the per-dimension lengthscale,
+# outputscale and noise of 17a, the size at which Matern-3/2, Matern-1/2 and
+# RQ are held against the plain path; 17b's 1-D series (periodic and spectral
+# mixture: 16,384^2 f32 entries are the 1 GiB materialize_threshold) with its
+# mixture's components, and the LMC operator's points (two rows each); 17c's
+# size
+FAMILY_LS, FAMILY_OS, FAMILY_NOISE, N_FAMILY_HELD = (0.6, 0.7, 0.8), 0.693, 0.127, 20_000
+N_SERIES, Q_MIXTURE, N_LMC, N_REGISTERED = 16_384, 4, 20_000, 4096
 HARNESS_KERNEL_TOLERANCES = {
     "matmul": {"rtol": 1e-4, "atol": 2e-4},
     "grad": {"rtol": 1e-3, "atol": 1e-3},
@@ -1527,7 +1547,369 @@ def phase_harness(c) -> None:
             fail(f"the kernel operator's harness run launched {launched}: K1, K2 and K3 must each launch")
 
 
-PHASES = ("woodbury", "kron_toeplitz", "ski", "indexing", "fantasy", "harness")
+def bench_context(settings):
+    """bench.py's settings for the N = 1e5 MLL (bench.py:100-129)."""
+    stack = contextlib.ExitStack()
+    for c in [
+        settings.max_cholesky_size(0), settings.num_trace_samples(PROBES),
+        settings.max_cg_iterations(100), settings.cg_tolerance(1.0),
+        settings.preconditioner_mode("auto"), settings.max_lanczos_quadrature_iterations(20),
+    ]:
+        stack.enter_context(c)
+    return stack
+
+
+@contextlib.contextmanager
+def f32_probes(torch):
+    """inv_quad_logdet's probes drawn in f32 and cast to the operator's
+    dtype, so that an f64 run draws the f32 run's probes from the same seed
+    (torch draws other numbers in f64).  inv_quad_logdet takes no probes and
+    no probe dtype, as in the JAX package, so the draw is replaced where the
+    module makes it."""
+    mod = sys.modules["linear_operator_tpu_torch.functions._inv_quad_logdet"]
+    real = mod.randn
+    mod.randn = lambda shape, dtype, device, generator: real(shape, torch.float32, device, generator).to(dtype)
+    try:
+        yield
+    finally:
+        mod.randn = real
+
+
+def phase_kernel_family(c) -> None:
+    """17. The rest of the kernel operator on the card.
+
+    (a) Matern-5/2, 3/2, 1/2 and RQ (alpha = 2) at config 3's data (N =
+    100,000, d = 3), lengthscale (0.6, 0.7, 0.8), outputscale 0.693, noise
+    0.127: each constructor's fused operator plus the noise through
+    inv_quad_logdet and its backward under the bench's settings, cold and
+    warm, then the predictive mean K(x*, x) K^-1 y at m = 64.  Launches by
+    covariance id: K3 once per CG iteration with the covariance's id and
+    none with RBF's (0), two K2 and one K3 in the backward, K1 in the mean.
+    Matern-5/2 held against the plain path (use_fused_kernels=False) at N,
+    the other three at N_FAMILY_HELD, on the same probes, to PATH_RTOL: the
+    loss at the bench's settings, the gradient and the mean with CG to 1e-4;
+    K3 (t = 11 and 1), K2 (t = 11) and K1 (t = 65) of each covariance and of
+    RBF at the main path's shapes, held against their plain versions and
+    timed with CUDA events.  (b) The blocked engine, no kernel: periodic and
+    spectral mixture on a 1-D series of N_SERIES points (the per-solve dense
+    f32 cache) and the LMC operator of examples/multitask_lmc.py (RBF (x)
+    B B^T, T = 2) on N_LMC points, streamed in blocks; inv_quad_logdet and its
+    backward, held against f64 on the same probes (f64 streams its blocks:
+    the dense cache holds f32) to PATH_RTOL, the loss at the bench's
+    settings and the gradient with CG to 1e-4; K1-K5 must not launch.  (c) A
+    covariance registered at run time with CUDA bodies (Cauchy, 1 / (1 +
+    d2)) on CUDA tensors at N_REGISTERED points: its own builds of K1, K3,
+    K2 and K4 launch under its id, values within 1e-4 and gradients within
+    1e-3 of f64, each kernel against its plain version; registered without
+    CUDA bodies, every wrapper raises on CUDA tensors."""
+    import functools
+
+    torch, lo, settings, rbf, dev = c.torch, c.lo, c.settings, c.rbf, c.dev
+    launches = getattr(c, "launches", None)
+    wrappers = dict(K1=rbf.kernel_matvec, K3=rbf.kernel_matvec_sym, K2=rbf.kernel_weighted,
+                    K4=rbf.rbf_build_sym_tiles, K5=rbf.rbf_matvec_sym_cached)
+
+    def by_covar():
+        return {k: dict(w.launches_by_covar) for k, w in wrappers.items() if k in ("K1", "K2", "K3")}
+
+    rq = rbf.rq_tile_covar(2.0)
+    family = {
+        "matern52": (functools.partial(lo.matern_kernel_operator, nu=2.5), "matern52"),
+        "matern32": (functools.partial(lo.matern_kernel_operator, nu=1.5), "matern32"),
+        "matern12": (functools.partial(lo.matern_kernel_operator, nu=0.5), "matern12"),
+        "rq": (functools.partial(lo.rq_kernel_operator, alpha=2.0), rq),
+    }
+    x, y = _main_path_data(c)
+    x_star = torch.randn(M_STAR, D, device=dev, generator=torch.Generator(device=dev).manual_seed(12))
+    ls = torch.tensor(FAMILY_LS, device=dev)
+
+    def step(make, n, fused, *overrides):
+        """inv_quad_logdet of make(x[:n]) + noise I at y[:n] under the
+        bench's settings (and ``overrides``; probes from seed 1), (iq +
+        logdet) / 2n, and its backward into the lengthscale, outputscale and
+        noise; times and launches of each half."""
+        leaves = [ls.clone(), torch.tensor(FAMILY_OS, device=dev), torch.tensor(FAMILY_NOISE, device=dev)]
+        leaves = [t.requires_grad_() for t in leaves]
+        c.reset_counts()
+        c.log.clear()
+        with bench_context(settings), settings.verbose_linalg(True), contextlib.ExitStack() as more:
+            for o in overrides:
+                more.enter_context(o)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            K = make(x[:n], lengthscale=leaves[0], outputscale=leaves[1], use_fused_kernels=fused)
+            iq, ld = lo.inv_quad_logdet(K.add_diagonal(leaves[2]), y[:n, None], logdet=True,
+                                        generator=torch.Generator().manual_seed(1))
+            loss = 0.5 * (iq + ld) / n
+            val = float(loss.detach())
+            t1 = time.perf_counter()
+            fwd, fwd_by, iters = c.counts(), by_covar(), list(c.log.counts)
+            loss.backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            grad = torch.cat([t.grad.double().reshape(-1) for t in leaves])
+        bwd = {k: v - fwd[k] for k, v in c.counts().items()}
+        bwd_by = {k: {i: v - fwd_by[k].get(i, 0) for i, v in d.items() if v - fwd_by[k].get(i, 0)}
+                  for k, d in by_covar().items()}
+        return dict(loss=val, grad=grad, fwd_s=t1 - t0, bwd_s=t2 - t1, fwd=fwd, fwd_by=fwd_by, bwd=bwd,
+                    bwd_by=bwd_by, iters=iters)
+
+    def mean(make, n, fused, *overrides):
+        """The predictive mean K(x*, x) (K + noise I)^-1 y on the first n
+        points under the bench's settings (and ``overrides``); its launches
+        by covariance id and CG iterations."""
+        c.reset_counts()
+        c.log.clear()
+        with bench_context(settings), settings.verbose_linalg(True), torch.no_grad(), \
+                contextlib.ExitStack() as more:
+            for o in overrides:
+                more.enter_context(o)
+            K = make(x[:n], lengthscale=ls, outputscale=FAMILY_OS, use_fused_kernels=fused)
+            alpha = lo.solve(K.add_diagonal(torch.tensor(FAMILY_NOISE, device=dev)), y[:n, None])
+            out = (make(x_star, x[:n], lengthscale=ls, outputscale=FAMILY_OS, use_fused_kernels=fused) @ alpha)[:, 0]
+            torch.cuda.synchronize()
+        return out, by_covar(), list(c.log.counts)
+
+    say(f"kernel family (17a) N={N} d={D}, lengthscale {FAMILY_LS}, outputscale {FAMILY_OS}, noise {FAMILY_NOISE}:")
+    for label, (make, name) in family.items():
+        cid = rbf.TILE_COVARS[name].covar_id
+        steps = [step(make, N, True) for _ in ("cold", "warm")]
+        for tag, st in zip(("cold", "warm"), steps):
+            say(f"  {label} ({tag}): loss {st['loss']:.8f}, forward {st['fwd_s']:.3f} s (CG iterations {st['iters']}, "
+                f"launches by id {st['fwd_by']}), backward {st['bwd_s']:.3f} s (launches by id {st['bwd_by']}), "
+                f"grad {st['grad'].tolist()}")
+            if not (math.isfinite(st["loss"]) and torch.isfinite(st["grad"]).all()):
+                fail(f"{label}: the loss or its gradient is not finite")
+            if st["fwd_by"] != dict(K1={}, K2={}, K3={cid: sum(st["iters"])}) or not st["iters"]:
+                fail(f"{label}: the forward did not make one K3 launch of id {cid} per CG iteration and nothing else")
+            if st["bwd_by"] != dict(K1={}, K2={cid: 2}, K3={cid: 1}) or st["bwd"]["K4"] or st["bwd"]["K5"]:
+                fail(f"{label}: the backward did not make two K2 launches and one K3 launch of id {cid}")
+        mu, mean_by, mean_iters = mean(make, N, True)
+        say(f"  {label} predictive mean m={M_STAR}: CG iterations {mean_iters}, launches by id {mean_by}")
+        if mean_by != dict(K1={cid: 1}, K2={}, K3={cid: sum(mean_iters)}) or not torch.isfinite(mu).all():
+            fail(f"{label}: the predictive mean did not make one K1 launch and one K3 launch per CG iteration")
+        if launches is not None:
+            for st in steps[:1]:
+                for key in ("K1", "K2", "K3"):
+                    launches[key] += st["fwd"][key] + st["bwd"][key]
+            launches["K1"] += 1
+            launches["K3"] += sum(mean_iters)
+        # the hold: the fused path against the plain one, on the same probes,
+        # as phase 6 holds RBF.  The gradient and the mean are held with CG
+        # run to 1e-4: at the bench's tolerance of 1.0 CG stops after a few
+        # iterations, and the kernels' three bf16 products move the
+        # unconverged gradient and mean (reported)
+        n = N if label == "matern52" else N_FAMILY_HELD
+        fused = steps[0] if n == N else step(make, n, True)
+        plain = step(make, n, False)
+        rel = abs(fused["loss"] - plain["loss"]) / abs(plain["loss"])
+        grel_bench = float((fused["grad"] - plain["grad"]).norm() / plain["grad"].norm())
+        tight = (settings.cg_tolerance(1e-4), settings.max_cg_iterations(1000))
+        fused_t, plain_t = step(make, n, True, *tight), step(make, n, False, *tight)
+        grel = float((fused_t["grad"] - plain_t["grad"]).norm() / plain_t["grad"].norm())
+        mu_f = mu if n == N else mean(make, n, True)[0]
+        rel_bench = float((mu_f - mean(make, n, False)[0]).abs().max() / mu_f.abs().max())
+        (mu_f, _, it_f), (mu_p, _, it_p) = mean(make, n, True, *tight), mean(make, n, False, *tight)
+        rel_mu = float((mu_f - mu_p).abs().max() / mu_p.abs().max())
+        say(f"  {label} held at n={n}: loss fused {fused['loss']:.8f}, plain {plain['loss']:.8f} "
+            f"(plain forward {plain['fwd_s']:.3f} s, backward {plain['bwd_s']:.3f} s, CG iterations "
+            f"{plain['iters']}), rel diff {rel:.2e}; gradient rel diff {grel:.2e} with CG to 1e-4 (iterations "
+            f"fused {fused_t['iters']}, plain {plain_t['iters']}; plain forward {plain_t['fwd_s']:.3f} s, "
+            f"backward {plain_t['bwd_s']:.3f} s; fused grad {fused_t['grad'].tolist()}, plain "
+            f"{plain_t['grad'].tolist()}), {grel_bench:.2e} at the bench's tolerance (reported); predictive mean "
+            f"rel diff {rel_mu:.2e} with CG to 1e-4 (iterations fused {it_f}, plain {it_p}), {rel_bench:.2e} at "
+            f"the bench's tolerance (reported)")
+        if not (rel <= PATH_RTOL and grel <= PATH_RTOL and rel_mu <= PATH_RTOL):
+            fail(f"{label}: the fused path disagrees with the plain path")
+
+    # the kernels at the main path's shapes, each covariance beside RBF's
+    g = torch.Generator(device=dev).manual_seed(13)
+    xs = x / ls
+    v11, v1, v65, g11 = (torch.randn(N, t, device=dev, generator=g) for t in (PROBES + 1, 1, M_STAR + 1, PROBES + 1))
+    family_ms = {}
+    for name in ["rbf", *(n for _, n in family.values())]:
+        k3 = rbf.kernel_matvec_sym(xs, v11, name)
+        k1 = rbf.kernel_matvec(xs, xs, v65, name)
+        wx, ws = rbf.kernel_weighted(xs, xs, g11, v11, name)
+        errs = []
+        for label, got, want in [("K3 t=11", k3, rbf.kernel_matvec_plain(xs, xs, v11, name)),
+                                 ("K1 t=65", k1, rbf.kernel_matvec_plain(xs, xs, v65, name))]:
+            torch.cuda.synchronize()
+            errs.append(float((got - want).abs().max() / want.abs().max()))
+        pwx, pws = rbf.kernel_weighted_plain(xs, xs, g11, v11, name)
+        errs.append(max(float((wx - pwx).abs().max() / pwx.abs().max()), float((ws - pws).abs().max() / pws.abs().max())))
+        ms = dict(K3=cuda_ms(torch, lambda: rbf.kernel_matvec_sym(xs, v11, name), 5),
+                  K3_t1=cuda_ms(torch, lambda: rbf.kernel_matvec_sym(xs, v1, name), 5),
+                  K2=cuda_ms(torch, lambda: rbf.kernel_weighted(xs, xs, g11, v11, name), 5),
+                  K1=cuda_ms(torch, lambda: rbf.kernel_matvec(xs, xs, v65, name), 5))
+        key = "rq" if name == rq else name
+        family_ms[key] = ms
+        say(f"  {key}: K3 {ms['K3']:.3f} ms (t = 11), {ms['K3_t1']:.3f} ms (t = 1); K2 {ms['K2']:.3f} ms (t = 11); "
+            f"K1 {ms['K1']:.3f} ms (t = 65); relative error against the plain version: K3 {errs[0]:.2e}, "
+            f"K1 {errs[1]:.2e}, K2 {errs[2]:.2e}")
+        if not max(errs) <= KERNEL_RTOL:
+            fail(f"{key}: a kernel disagrees with its plain version at the main path's shapes")
+    c.family_ms = family_ms
+    del xs, v11, v1, v65, g11, wx, ws, pwx, pws, k1, k3
+    torch.cuda.empty_cache()
+
+    _family_blocked(c)
+    _family_registered(c)
+
+
+def _family_blocked(c) -> None:
+    """17b: periodic and spectral mixture on a 1-D series, and the LMC
+    operator, on the blocked engine; held against f64 on the same probes."""
+    torch, lo, settings, dev = c.torch, c.lo, c.settings, c.dev
+    x, y = _main_path_data(c)
+    say("blocked engine (17b), no kernel:")
+    gs = torch.Generator(device=dev).manual_seed(14)
+    t_series = torch.sort(10.0 * torch.rand(N_SERIES, 1, device=dev, generator=gs), dim=0).values
+    y_series = torch.sin(2.0 * math.pi * t_series[:, 0]) + 0.1 * torch.randn(N_SERIES, device=dev, generator=gs)
+    mix = dict(weights=torch.full((Q_MIXTURE,), 0.25, device=dev),
+               means=torch.linspace(0.5, 2.0, Q_MIXTURE, device=dev)[:, None],
+               scales=torch.full((Q_MIXTURE, 1), 0.2, device=dev))
+    x_lmc, y_lmc_raw = x[:N_LMC, :2], torch.stack([y[:N_LMC], 0.7 * y[:N_LMC] + 0.2 * x[:N_LMC, 0]], dim=-1)
+
+    def lmc_covar(x1, x2, lengthscale, outputscale, lmc_coeffs):
+        k = lo.operators.rbf_covar(x1, x2, lengthscale, outputscale)
+        return lo.KroneckerProductLinearOperator(lo.DenseLinearOperator(k),
+                                                 lo.RootLinearOperator(lo.DenseLinearOperator(lmc_coeffs)))
+
+    def series_op(kind, dtype, params):
+        tt = t_series.to(dtype)
+        thr = None if dtype == torch.float64 else 2**30
+        if kind == "periodic":
+            return lo.periodic_kernel_operator(tt, lengthscale=params[0], outputscale=params[1], period=1.0,
+                                               materialize_threshold=thr)
+        if kind == "spectral mixture":
+            return lo.spectral_mixture_kernel_operator(tt, weights=params[0], means=mix["means"].to(dtype),
+                                                       scales=params[1], materialize_threshold=thr)
+        return lo.KernelLinearOperator(
+            x_lmc.to(dtype), x_lmc.to(dtype),
+            {"lengthscale": params[0], "outputscale": params[1],
+             "lmc_coeffs": (torch.eye(2, device=dev) + 0.1).to(dtype)},
+            covar_func=lmc_covar, num_outputs_per_input=(2, 2), symmetric=True, block_rows=4096,
+            nonbatch_dims=(("lengthscale", 0), ("outputscale", 0), ("lmc_coeffs", 2)), materialize_threshold=None,
+        )
+
+    def blocked_step(kind, dtype, *overrides):
+        if kind == "spectral mixture":
+            params = [mix["weights"].to(dtype), mix["scales"].to(dtype)]
+        elif kind == "periodic":
+            params = [torch.tensor(0.5, dtype=dtype, device=dev), torch.tensor(FAMILY_OS, dtype=dtype, device=dev)]
+        else:  # the LMC example's initial lengthscale and outputscale, softplus(0.5)
+            params = [torch.tensor(math.log1p(math.exp(0.5)), dtype=dtype, device=dev) for _ in range(2)]
+        params = [p.clone().requires_grad_() for p in params]
+        yy = (y_lmc_raw.reshape(-1) if kind == "LMC" else y_series).to(dtype)
+        op = series_op(kind, dtype, params)
+        c.reset_counts()
+        c.log.clear()
+        with bench_context(settings), settings.verbose_linalg(True), f32_probes(torch), contextlib.ExitStack() as more:
+            for o in overrides:
+                more.enter_context(o)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            iq, ld = lo.inv_quad_logdet(op.add_diagonal(torch.tensor(FAMILY_NOISE, dtype=dtype, device=dev)),
+                                        yy[:, None], logdet=True, generator=torch.Generator().manual_seed(1))
+            loss = 0.5 * (iq + ld) / yy.shape[0]
+            val = float(loss.detach())
+            t1 = time.perf_counter()
+            grads = torch.autograd.grad(loss, params)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        grad = torch.cat([gr.double().reshape(-1) for gr in grads])
+        return dict(loss=val, grad=grad, fwd_s=t1 - t0, bwd_s=t2 - t1, counts=c.counts(), rows=yy.shape[0],
+                    iters=list(c.log.counts))
+
+    for kind in ("periodic", "spectral mixture", "LMC"):
+        runs = [blocked_step(kind, torch.float32) for _ in ("cold", "warm")] + [blocked_step(kind, torch.float64)]
+        f32, f64 = runs[1], runs[2]
+        rel = abs(f32["loss"] - f64["loss"]) / abs(f64["loss"])
+        grel = float((f32["grad"] - f64["grad"]).norm() / f64["grad"].norm())
+        tight = [blocked_step(kind, dt, settings.cg_tolerance(1e-4), settings.max_cg_iterations(1000), settings.min_preconditioning_size(10**9))
+                 for dt in (torch.float32, torch.float64)]
+        trel = float((tight[0]["grad"] - tight[1]["grad"]).norm() / tight[1]["grad"].norm())
+        say(f"  {kind} ({f32['rows']} rows): loss {f32['loss']:.8f}, f64 {f64['loss']:.8f}, rel diff {rel:.2e}; "
+            f"gradient rel diff {grel:.2e} (reported), with CG to 1e-4 {trel:.2e} (CG iterations f32 {f32['iters']}, "
+            f"f64 {f64['iters']}, to 1e-4 {tight[0]['iters']}, {tight[1]['iters']}); forward cold {runs[0]['fwd_s']:.3f} "
+            f"s, warm {f32['fwd_s']:.3f} s, backward warm {f32['bwd_s']:.3f} s; f64 forward {f64['fwd_s']:.3f} s; "
+            f"launches {f32['counts']}")
+        if any(any(r["counts"].values()) for r in runs):
+            fail(f"{kind}: a kernel launched on the blocked engine")
+        if not (rel <= PATH_RTOL and trel <= PATH_RTOL and torch.isfinite(f32["grad"]).all()):
+            fail(f"{kind}: the f32 blocked route disagrees with f64")
+    torch.cuda.empty_cache()
+
+
+
+def _family_registered(c) -> None:
+    """17c: a covariance registered at run time with CUDA bodies is compiled
+    into builds of K1, K3, K2 and K4 of its own and launches them under its
+    id; one registered without them raises on CUDA tensors."""
+    from linear_operator_tpu_torch import _build
+
+    torch, rbf, dev = c.torch, c.rbf, c.dev
+    wrappers = dict(K1=rbf.kernel_matvec, K3=rbf.kernel_matvec_sym, K2=rbf.kernel_weighted,
+                    K4=rbf.rbf_build_sym_tiles)
+    name = rbf.register_tile_covar("cauchy", lambda d2: 1.0 / (1.0 + d2), lambda d2: -1.0 / (1.0 + d2) ** 2,
+                                   cuda_covar="1.0f / (1.0f + d2)",
+                                   cuda_dcovar="-1.0f / ((1.0f + d2) * (1.0f + d2))")
+    spec = rbf.TILE_COVARS[name]
+    t0 = time.perf_counter()
+    times = _build.build(["kernel_matvec", "kernel_matvec_sym", "kernel_weighted", "kernel_build_sym"], spec.header)
+    build_s = time.perf_counter() - t0
+    gr = torch.Generator(device=dev).manual_seed(15)
+    x1, x2 = (torch.randn(N_REGISTERED, D, device=dev, generator=gr) for _ in range(2))
+    v, w = (torch.randn(N_REGISTERED, PROBES + 1, device=dev, generator=gr) for _ in range(2))
+
+    def registered(dtype, k1, k3):
+        leaves = [t.to(dtype, copy=True).requires_grad_() for t in (x1, x2, v)]
+        out = k1(*leaves, name)
+        sym = k3(leaves[0], leaves[2], name)
+        grads = torch.autograd.grad(torch.sum(out * w.to(dtype)) + torch.sum(sym * w.to(dtype)), leaves)
+        return out.detach(), sym.detach(), grads
+
+    c.reset_counts()
+    got = registered(torch.float32, rbf.kernel_matvec, rbf.kernel_matvec_sym)
+    torch.cuda.synchronize()
+    by_id = {k: dict(wr.launches_by_covar) for k, wr in wrappers.items()}
+    want = registered(torch.float64, rbf.kernel_matvec_plain, lambda x, u, cv: rbf.kernel_matvec_plain(x, x, u, cv))
+    val_err = max(float((a.double() - b).abs().max() / b.abs().max()) for a, b in zip(got[:2], want[:2]))
+    grad_err = max(float((a.double() - b).abs().max() / b.abs().max()) for a, b in zip(got[2], want[2]))
+    # each kernel against its plain version on the same inputs, K4's tiles
+    # within one bf16 ulp
+    errs = [float((rbf.kernel_matvec(x1, x2, v, name) - rbf.kernel_matvec_plain(x1, x2, v, name)).abs().max()
+                  / rbf.kernel_matvec_plain(x1, x2, v, name).abs().max()),
+            float((rbf.kernel_matvec_sym(x1, v, name) - rbf.kernel_matvec_plain(x1, x1, v, name)).abs().max()
+                  / rbf.kernel_matvec_plain(x1, x1, v, name).abs().max())]
+    errs += [float((a - b).abs().max() / b.abs().max())
+             for a, b in zip(rbf.kernel_weighted(x1, x2, w, v, name), rbf.kernel_weighted_plain(x1, x2, w, v, name))]
+    tiles, plain_tiles = rbf.rbf_build_sym_tiles(x1, TILE, name), rbf.rbf_build_sym_tiles_plain(x1, TILE, name)
+    ulp = int((tiles.view(torch.int16).int() - plain_tiles.view(torch.int16).int()).abs().max())
+    refused = 0
+    bare = rbf.register_tile_covar("cauchy_bare", spec.fn, spec.dfn)
+    launched = sum(wr.launches for wr in wrappers.values())
+    for call in (lambda: rbf.kernel_matvec(x1, x2, v, bare), lambda: rbf.kernel_matvec_sym(x1, v, bare),
+                 lambda: rbf.kernel_weighted(x1, x2, w, v, bare), lambda: rbf.rbf_build_sym_tiles(x1, TILE, bare)):
+        try:
+            call()
+        except ValueError:
+            refused += 1
+    say(f"registered covariance (17c) {name!r} (id {spec.covar_id}), n={N_REGISTERED}: its build {build_s:.1f} s wall "
+        f"({', '.join(f'{k} {s:.1f} s' for k, s in times.items())}); launches by id {by_id}; against f64: values "
+        f"{val_err:.2e}, gradients {grad_err:.2e}; against the plain versions: K1 {errs[0]:.2e}, K3 {errs[1]:.2e}, "
+        f"K2 {max(errs[2:]):.2e}, K4 {ulp} bf16 ulp; registered without CUDA bodies: {refused} of 4 wrappers "
+        f"refused CUDA tensors")
+    if by_id != dict(K1={spec.covar_id: 2}, K3={spec.covar_id: 2}, K2={spec.covar_id: 4}, K4={}):
+        fail("the registered covariance did not launch its own build of each kernel")
+    if not (val_err <= 1e-4 and grad_err <= 1e-3 and max(errs) <= KERNEL_RTOL and ulp <= 1):
+        fail("the registered covariance's kernels disagree with f64 or with their plain versions")
+    if refused != 4 or sum(wr.launches for wr in wrappers.values()) != launched:
+        fail("a covariance registered without CUDA bodies did not raise on CUDA tensors")
+
+
+PHASES = ("woodbury", "kron_toeplitz", "ski", "indexing", "fantasy", "harness", "kernel_family")
 
 
 def main() -> None:
@@ -1570,8 +1952,7 @@ def main() -> None:
                     K4=rbf.rbf_build_sym_tiles, K5=rbf.rbf_matvec_sym_cached)
 
     def reset_counts():
-        for w in wrappers.values():
-            w.launches = 0
+        rbf.reset_launch_counts()
 
     def counts():
         return {key: w.launches for key, w in wrappers.items()}
@@ -1931,15 +2312,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     def bench_settings():
-        """bench.py's settings for the N = 1e5 MLL (bench.py:100-129)."""
-        stack = contextlib.ExitStack()
-        for c in [
-            settings.max_cholesky_size(0), settings.num_trace_samples(PROBES),
-            settings.max_cg_iterations(100), settings.cg_tolerance(1.0),
-            settings.preconditioner_mode("auto"), settings.max_lanczos_quadrature_iterations(20),
-        ]:
-            stack.enter_context(c)
-        return stack
+        return bench_context(settings)
 
     # 4. a small MLL against the CPU run of the same model on the same probes
     # (the CPU run takes the kernels' plain versions)
@@ -2841,6 +3214,12 @@ def main() -> None:
     phase_indexing(ctx)
     phase_fantasy(ctx)
     phase_harness(ctx)
+    # 17. the rest of the kernel operator: Matern and RQ on K1-K3 at N = 1e5,
+    # the blocked engine's covariances and layouts, a registered covariance
+    phase_kernel_family(ctx)
+    for key in ("K1", "K2", "K3"):
+        stats[key]["ms_by_covar"] = {name: ms[key] for name, ms in ctx.family_ms.items()}
+    stats["K3"]["ms_t1_by_covar"] = {name: ms["K3_t1"] for name, ms in ctx.family_ms.items()}
 
     # 7. the kernels line, then the result
     kernels = []

@@ -18,17 +18,21 @@ structured operators with the KISS-GP model on them: Kronecker products
 (closed-form solves and log-determinants through the factors'
 eigendecompositions), Toeplitz factors (dense or FFT mat-vecs),
 interpolated operators (gather and scatter-add) and
-``SKIGPRegression``.
+``SKIGPRegression``, and the kernel operator's covariances: RBF, Matern and
+the rational quadratic on the fused kernels, periodic and spectral mixture
+on the blocked engine, multi-output and parameter-batched layouts, and
+covariances registered at run time (``ops.register_tile_covar``).
 Its entry points run on a CUDA device unless the caller asks for the CPU,
 where the kernels' plain PyTorch versions take their place.
 """
 
-from . import beta_features, distributions, operators, settings, solvers
+from . import beta_features, distributions, operators, settings, solvers, utils
 from .distributions import MultivariateNormal
 from .functions import (
     add_diagonal,
     add_jitter,
     diagonalization,
+    dsmm,
     inv_quad,
     inv_quad_logdet,
     pivoted_cholesky,
@@ -64,6 +68,7 @@ from .operators import (
     IdentityLinearOperator,
     InterpolatedLinearOperator,
     InterpolationMatrix,
+    KeOpsLinearOperator,
     KernelLinearOperator,
     KroneckerProductAddedDiagLinearOperator,
     KroneckerProductDiagLinearOperator,
@@ -76,6 +81,7 @@ from .operators import (
     MatmulLinearOperator,
     MulLinearOperator,
     PermutationLinearOperator,
+    PsdSumLinearOperator,
     RootLinearOperator,
     SumBatchLinearOperator,
     SumKroneckerLinearOperator,
@@ -85,12 +91,19 @@ from .operators import (
     TriangularLinearOperator,
     ZeroLinearOperator,
     cat,
+    matern_kernel_operator,
+    periodic_kernel_operator,
     rbf_kernel_operator,
+    rq_kernel_operator,
+    spectral_mixture_kernel_operator,
     to_dense,
     to_linear_operator,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
+    "__version__",
     "AddedDiagLinearOperator",
     "BatchRepeatLinearOperator",
     "BlockDiagLinearOperator",
@@ -108,6 +121,7 @@ __all__ = [
     "IdentityLinearOperator",
     "InterpolatedLinearOperator",
     "InterpolationMatrix",
+    "KeOpsLinearOperator",
     "KernelLinearOperator",
     "KroneckerProductAddedDiagLinearOperator",
     "KroneckerProductDiagLinearOperator",
@@ -122,6 +136,7 @@ __all__ = [
     "MultivariateNormal",
     "PermutationLinearOperator",
     "PosteriorCache",
+    "PsdSumLinearOperator",
     "RootLinearOperator",
     "SKIGPRegression",
     "SKIParams",
@@ -138,21 +153,27 @@ __all__ = [
     "cat",
     "diagonalization",
     "distributions",
+    "dsmm",
     "inv_quad",
     "inv_quad_logdet",
     "load_jax_cache",
     "load_jax_grid",
     "load_jax_params",
     "make_grid",
+    "matern_kernel_operator",
     "operators",
+    "periodic_kernel_operator",
     "pivoted_cholesky",
     "rbf_kernel_operator",
     "root_decomposition",
     "root_inv_decomposition",
+    "rq_kernel_operator",
     "settings",
     "solve",
     "solvers",
+    "spectral_mixture_kernel_operator",
     "sqrt_inv_matmul",
     "to_dense",
     "to_linear_operator",
+    "utils",
 ]

@@ -6,6 +6,12 @@ PyTorch headers, so a build takes seconds).  The hash covers the source, every
 ``csrc/*.cuh`` header and the flags, so an edited source rebuilds and an
 unchanged one is reused.  Builds run at first use; :func:`build` starts one
 nvcc per stale source, all at once, and raises if any of them fails.
+
+A covariance registered with CUDA bodies (``ops.rbf.register_tile_covar``)
+gets builds of its own: :func:`covar_header` writes its bodies as the
+``user_covar`` and ``user_dcovar`` of ``csrc/covar.cuh``, nvcc takes that
+text as a pre-included header, and the text is part of the hash
+(``_build/<name>-covar-<hash>.so``).
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ MAIN_PATH_KERNELS = {
     "kernel_build_sym": "build_sym_tiles_kernelILi0ELi3E",
 }
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[tuple[str, str], ctypes.CDLL] = {}
 
 
 def sources() -> list[str]:
@@ -53,31 +59,50 @@ def nvcc() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def library_path(name: str) -> Path:
+def covar_header(covar: str, dcovar: str) -> str:
+    """The header that compiles a registered covariance into the kernels:
+    ``covar`` and ``dcovar`` are CUDA C++ expressions of the float ``d2``
+    (k(d2) and dk/d(d2))."""
+    return (
+        "#pragma once\n#include <cuda_runtime.h>\n#define LO_USER_COVAR 1\n"
+        f"__device__ __forceinline__ float user_covar(float d2) {{ return ({covar}); }}\n"
+        f"__device__ __forceinline__ float user_dcovar(float d2) {{ return ({dcovar}); }}\n"
+    )
+
+
+def library_path(name: str, header: str = "") -> Path:
+    """The library of ``csrc/<name>.cu``, built with the pre-included
+    ``header`` text (a :func:`covar_header`) when one is given."""
     h = hashlib.sha256()
     for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(path.name.encode())
         h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    h.update(header.encode())
+    return BUILD_DIR / f"{name}{'-covar' if header else ''}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: list[str] | None = None) -> dict[str, float]:
+def build(names: list[str] | None = None, header: str = "") -> dict[str, float]:
     """Compile every stale library among ``names`` (default: all sources) in
-    parallel.  Returns the seconds each build took (0.0 when reused).  The
-    ptxas report (registers, spills) is kept beside each library as
+    parallel, with the pre-included ``header`` text when one is given.
+    Returns the seconds each build took (0.0 when reused).  The ptxas report
+    (registers, spills) is kept beside each library as
     ``<name>-<hash>.log``."""
     names = sources() if names is None else names
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     times = {name: 0.0 for name in names}
     for name in names:
-        out = library_path(name)
+        out = library_path(name, header)
         if out.exists():
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
         cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        if header:
+            pre = out.with_suffix(".cuh")
+            pre.write_text(header)
+            cmd[1:1] = ["-include", str(pre)]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         procs[name] = (proc, tmp, out, time.perf_counter())
     failures = []
@@ -95,18 +120,20 @@ def build(names: list[str] | None = None) -> dict[str, float]:
     return times
 
 
-def load(name: str, path: Path | None = None) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed.  With
-    ``path``, the library there (another build of the same source) is loaded
-    and serves every later call in its place."""
+def load(name: str, path: Path | None = None, header: str = "") -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` (with the pre-included
+    ``header``), built first if needed.  With ``path``, the library there
+    (another build of the same source) is loaded and serves every later call
+    in its place."""
+    key = (name, header)
     if path is not None:
-        _loaded[name] = ctypes.CDLL(str(path))
-    elif name not in _loaded:
-        path = library_path(name)
+        _loaded[key] = ctypes.CDLL(str(path))
+    elif key not in _loaded:
+        path = library_path(name, header)
         if not path.exists():
-            build([name])
-        _loaded[name] = ctypes.CDLL(str(path))
-    return _loaded[name]
+            build([name], header)
+        _loaded[key] = ctypes.CDLL(str(path))
+    return _loaded[key]
 
 
 def ptxas_summary(log: str) -> str:

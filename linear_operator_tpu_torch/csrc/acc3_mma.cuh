@@ -146,6 +146,8 @@ __device__ __forceinline__ float covar_fast(float d2, float alpha) {
     return (1.0f + sd) * ex2((-LOG2E * H) * sd);
   } else if (COVAR == COVAR_MATERN12) {
     return ex2((-LOG2E * H) * sqrt_approx(d2 + 1e-30f));
+  } else if (COVAR == COVAR_USER) {
+    return user_covar(d2);
   } else {
     // (1 + d2 / (2 alpha))^-alpha
     return ex2((-alpha * H) * lg2_approx(1.0f + d2 / (2.0f * alpha)));
@@ -154,12 +156,17 @@ __device__ __forceinline__ float covar_fast(float d2, float alpha) {
 
 // dk/d(d2) of ops/rbf.py's TILE_COVARS dfn, for K2, divided by
 // dcovar_scale<COVAR>() (K2 multiplies its sums by that constant once, at the
-// end), with the exponent as covar_fast takes it.  Matern-1/2's weight is
+// end), with the exponent as covar_fast takes it (a registered covariance's
+// user_dcovar as it is written, scale 1).  Matern-1/2's weight is
 // singular at d = 0: a (near-)coincident pair gets weight 0, the plain
 // version's and the JAX package's convention.
 template <int COVAR>
 __device__ __forceinline__ constexpr float dcovar_scale() {
-  return COVAR == COVAR_RBF ? -0.5f : COVAR == COVAR_MATERN52 ? -5.0f / 6.0f : COVAR == COVAR_MATERN32 ? -1.5f : -0.5f;
+  return COVAR == COVAR_RBF        ? -0.5f
+         : COVAR == COVAR_MATERN52 ? -5.0f / 6.0f
+         : COVAR == COVAR_MATERN32 ? -1.5f
+         : COVAR == COVAR_USER     ? 1.0f
+                                   : -0.5f;
 }
 
 template <int COVAR>
@@ -180,6 +187,8 @@ __device__ __forceinline__ float dcovar_fast(float d2, float alpha) {
     if (!(d2 > 1e-12f)) return 0.0f;
     const float r = sqrt_approx(d2 + 1e-30f);
     return __fdividef(ex2_approx(-LOG2E * r), r);
+  } else if (COVAR == COVAR_USER) {
+    return user_dcovar(d2);
   } else {
     // -(1/2) (1 + d2 / (2 alpha))^(-alpha - 1)
     return ex2_approx((-alpha - 1.0f) * lg2_approx(1.0f + d2 / (2.0f * alpha)));

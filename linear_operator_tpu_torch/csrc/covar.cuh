@@ -13,4 +13,17 @@
 #define COVAR_MATERN32 2
 #define COVAR_MATERN12 3
 #define COVAR_RQ 4
+// A covariance registered at run time with CUDA bodies
+// (ops/rbf.py register_tile_covar): its builds of the sources are passed a
+// generated header (nvcc -include, _build.covar_header) that defines
+// LO_USER_COVAR and user_covar(d2), user_dcovar(d2).  The default builds
+// have none: NUM_COVARS leaves the id out and the stubs below are never
+// instantiated.
+#define COVAR_USER 5
+#ifdef LO_USER_COVAR
+#define NUM_COVARS 6
+#else
 #define NUM_COVARS 5
+__device__ __forceinline__ float user_covar(float) { return 0.0f; }
+__device__ __forceinline__ float user_dcovar(float) { return 0.0f; }
+#endif

@@ -280,6 +280,9 @@ extern "C" int kernel_build_sym_tiles(const float* x, void* tiles, void* scratch
     case COVAR_MATERN52: return by_dims<COVAR_MATERN52>(xp, sq, out, d, dx, tile, nblk, alpha, s);
     case COVAR_MATERN32: return by_dims<COVAR_MATERN32>(xp, sq, out, d, dx, tile, nblk, alpha, s);
     case COVAR_MATERN12: return by_dims<COVAR_MATERN12>(xp, sq, out, d, dx, tile, nblk, alpha, s);
+#ifdef LO_USER_COVAR
+    case COVAR_USER: return by_dims<COVAR_USER>(xp, sq, out, d, dx, tile, nblk, alpha, s);
+#endif
     default: return by_dims<COVAR_RQ>(xp, sq, out, d, dx, tile, nblk, alpha, s);
   }
 }

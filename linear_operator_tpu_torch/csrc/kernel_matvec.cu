@@ -259,6 +259,9 @@ extern "C" int kernel_matvec_f32(const float* x1, const float* x2, const float* 
     case COVAR_MATERN52: return by_chunk<COVAR_MATERN52>(tp, x1, p, out, batch, n, m, d, t, tcols, alpha, s);
     case COVAR_MATERN32: return by_chunk<COVAR_MATERN32>(tp, x1, p, out, batch, n, m, d, t, tcols, alpha, s);
     case COVAR_MATERN12: return by_chunk<COVAR_MATERN12>(tp, x1, p, out, batch, n, m, d, t, tcols, alpha, s);
+#ifdef LO_USER_COVAR
+    case COVAR_USER: return by_chunk<COVAR_USER>(tp, x1, p, out, batch, n, m, d, t, tcols, alpha, s);
+#endif
     default: return by_chunk<COVAR_RQ>(tp, x1, p, out, batch, n, m, d, t, tcols, alpha, s);
   }
 }

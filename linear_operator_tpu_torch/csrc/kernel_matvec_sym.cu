@@ -359,6 +359,9 @@ extern "C" int kernel_matvec_sym_f32(const float* x, const float* v, float* out_
     case COVAR_MATERN52: return by_columns<COVAR_MATERN52>(p, out_t, batch, n, d, t, alpha, s);
     case COVAR_MATERN32: return by_columns<COVAR_MATERN32>(p, out_t, batch, n, d, t, alpha, s);
     case COVAR_MATERN12: return by_columns<COVAR_MATERN12>(p, out_t, batch, n, d, t, alpha, s);
+#ifdef LO_USER_COVAR
+    case COVAR_USER: return by_columns<COVAR_USER>(p, out_t, batch, n, d, t, alpha, s);
+#endif
     default: return by_columns<COVAR_RQ>(p, out_t, batch, n, d, t, alpha, s);
   }
 }

@@ -401,6 +401,9 @@ extern "C" int kernel_weighted_f32(const float* x1, const float* x2, const float
       return by_steps<COVAR_MATERN32>(x1, g, xp, sq, vw, wx, ws, batch, n, m, mpad, d, dx, t, alpha, s);
     case COVAR_MATERN12:
       return by_steps<COVAR_MATERN12>(x1, g, xp, sq, vw, wx, ws, batch, n, m, mpad, d, dx, t, alpha, s);
+#ifdef LO_USER_COVAR
+    case COVAR_USER: return by_steps<COVAR_USER>(x1, g, xp, sq, vw, wx, ws, batch, n, m, mpad, d, dx, t, alpha, s);
+#endif
     default: return by_steps<COVAR_RQ>(x1, g, xp, sq, vw, wx, ws, batch, n, m, mpad, d, dx, t, alpha, s);
   }
 }

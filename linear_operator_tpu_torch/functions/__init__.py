@@ -1,6 +1,6 @@
 from ._inv_quad_logdet import inv_quad_logdet
 from ._root_decomposition import diagonalization, root_decomposition, root_inv_decomposition
-from ._solve import solve
+from ._solve import solve, solve_base
 
 
 def inv_quad(op, rhs, reduce_inv_quad: bool = True, *, generator=None):
@@ -51,16 +51,26 @@ def sqrt_matmul_ciq(op, rhs, *, generator=None):
     return _impl(op, rhs, generator=generator)
 
 
+def dsmm(sparse, dense):
+    """Batched sparse @ dense: an ``InterpolationMatrix`` by gather and
+    scatter-add (``utils.sparse.bdsmm``), anything else by a dense product."""
+    from ..utils.sparse import bdsmm
+
+    return bdsmm(sparse, dense)
+
+
 __all__ = [
     "add_diagonal",
     "add_jitter",
     "diagonalization",
+    "dsmm",
     "inv_quad",
     "inv_quad_logdet",
     "pivoted_cholesky",
     "root_decomposition",
     "root_inv_decomposition",
     "solve",
+    "solve_base",
     "sqrt_inv_matmul",
     "sqrt_matmul_ciq",
 ]

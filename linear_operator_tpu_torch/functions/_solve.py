@@ -61,6 +61,12 @@ class _Solve(torch.autograd.Function):
         return (None, rhs_bar, *op_grads)
 
 
+def solve_base(op, rhs: torch.Tensor) -> torch.Tensor:
+    """K^{-1} rhs for a matrix rhs (*b, n, t), differentiable in rhs and in
+    the operator's tensors: the primitive under :func:`solve`."""
+    return _Solve.apply(op, rhs, *op._leaves())
+
+
 def solve(op, rhs: torch.Tensor, lhs: torch.Tensor | None = None, *, factored=None) -> torch.Tensor:
     """K^{-1} rhs for a vector (n,) or matrix (*b, n, t) rhs; with ``lhs``,
     lhs @ K^{-1} rhs.  ``factored``, a factorization of ``op`` computed
@@ -76,7 +82,7 @@ def solve(op, rhs: torch.Tensor, lhs: torch.Tensor | None = None, *, factored=No
             raise RuntimeError("solve requires a square operator")
         if rhs.shape[-2] != op.shape[-1]:
             raise RuntimeError(f"rhs shape {tuple(rhs.shape)} incompatible with operator {op.shape}")
-    x = _Solve.apply(op, rhs, *op._leaves())
+    x = solve_base(op, rhs)
     if squeeze:
         x = x[..., 0]
     return x if lhs is None else lhs @ x

@@ -11,11 +11,22 @@ from .identity import IdentityLinearOperator
 from .grid_interpolated import GridInterpolatedLinearOperator
 from .interpolated import InterpolatedLinearOperator, InterpolationMatrix
 from .kernel import (
+    KeOpsLinearOperator,
     KernelLinearOperator,
+    matern12_covar,
+    matern32_covar,
+    matern52_covar,
+    matern_kernel_operator,
+    periodic_covar,
+    periodic_kernel_operator,
     rbf_covar,
     rbf_fused_closure,
     rbf_fused_matvec,
     rbf_kernel_operator,
+    rq_covar,
+    rq_kernel_operator,
+    spectral_mixture_covar,
+    spectral_mixture_kernel_operator,
 )
 from .kronecker import (
     KroneckerProductDiagLinearOperator,
@@ -29,7 +40,7 @@ from .matmul import MatmulLinearOperator
 from .mul import MulLinearOperator
 from .permutation import PermutationLinearOperator, TransposePermutationLinearOperator
 from .root import LowRankRootLinearOperator, RootLinearOperator
-from .sum import SumLinearOperator
+from .sum import PsdSumLinearOperator, SumLinearOperator
 from .sum_batch import SumBatchLinearOperator
 from .sum_kronecker import SumKroneckerLinearOperator
 from .toeplitz import ToeplitzLinearOperator
@@ -52,6 +63,7 @@ __all__ = [
     "IdentityLinearOperator",
     "InterpolatedLinearOperator",
     "InterpolationMatrix",
+    "KeOpsLinearOperator",
     "KernelLinearOperator",
     "KroneckerProductAddedDiagLinearOperator",
     "KroneckerProductDiagLinearOperator",
@@ -64,6 +76,7 @@ __all__ = [
     "MatmulLinearOperator",
     "MulLinearOperator",
     "PermutationLinearOperator",
+    "PsdSumLinearOperator",
     "RootLinearOperator",
     "SumBatchLinearOperator",
     "SumKroneckerLinearOperator",
@@ -73,10 +86,20 @@ __all__ = [
     "TriangularLinearOperator",
     "ZeroLinearOperator",
     "cat",
+    "matern12_covar",
+    "matern32_covar",
+    "matern52_covar",
+    "matern_kernel_operator",
+    "periodic_covar",
+    "periodic_kernel_operator",
     "rbf_covar",
     "rbf_fused_closure",
     "rbf_fused_matvec",
     "rbf_kernel_operator",
+    "rq_covar",
+    "rq_kernel_operator",
+    "spectral_mixture_covar",
+    "spectral_mixture_kernel_operator",
     "to_dense",
     "to_linear_operator",
 ]

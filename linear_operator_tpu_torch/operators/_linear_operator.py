@@ -14,6 +14,7 @@ pytree flattening.
 from __future__ import annotations
 
 import copy
+import math
 import warnings
 from typing import Callable, Iterator
 
@@ -119,6 +120,30 @@ class LinearOperator:
     def is_square(self) -> bool:
         return self.shape[-1] == self.shape[-2]
 
+    def size(self, dim: int | None = None):
+        """The shape (``torch.Size``-style), or its entry at ``dim``."""
+        return self.shape if dim is None else self.shape[dim]
+
+    def dim(self) -> int:
+        return self.ndim
+
+    def ndimension(self) -> int:
+        return self.ndim
+
+    @property
+    def batch_dim(self) -> int:
+        """The number of batch dimensions."""
+        return len(self.batch_shape)
+
+    def numel(self) -> int:
+        """The number of entries of the dense equivalent."""
+        return math.prod(self.shape)
+
+    def __len__(self) -> int:
+        if self.ndim <= 2:
+            raise TypeError("len() of an unbatched operator")
+        return self.shape[0]
+
     @property
     def _inherently_triangular(self) -> bool:
         """True when the operator is triangular by construction (a Kronecker
@@ -188,6 +213,19 @@ class LinearOperator:
         """Copy with every tensor detached from autograd."""
         return self._map_tensors(torch.Tensor.detach)
 
+    def detach_(self) -> "LinearOperator":
+        """In place: every tensor field detached from autograd; returns self."""
+        self.__dict__.update(vars(self.detach()))
+        return self
+
+    def requires_grad_(self, value: bool = True) -> "LinearOperator":
+        """In place: every floating tensor that is a leaf of autograd made to
+        require grad (or not); returns self."""
+        for t in self._leaves():
+            if (t.is_floating_point() or t.is_complex()) and t.is_leaf:
+                t.requires_grad_(value)
+        return self
+
     def clone(self) -> "LinearOperator":
         return self._map_tensors(torch.Tensor.clone)
 
@@ -204,6 +242,21 @@ class LinearOperator:
 
     def double(self) -> "LinearOperator":
         return self.astype(torch.float64)
+
+    def half(self) -> "LinearOperator":
+        return self.astype(torch.float16)
+
+    def bfloat16(self) -> "LinearOperator":
+        return self.astype(torch.bfloat16)
+
+    def numpy(self):
+        """The dense matrix as a numpy array (on the host, detached)."""
+        return self.to_dense().detach().cpu().numpy()
+
+    def evaluate_kernel(self) -> "LinearOperator":
+        """The operator rebuilt from its tensors: a lazy operator here is
+        already what a kernel evaluates to."""
+        return self._map_tensors(lambda t: t)
 
     def type(self, dtype=None):
         """The dtype without an argument; a cast with one."""
@@ -623,6 +676,22 @@ class LinearOperator:
         _, ld = self.inv_quad_logdet(None, logdet=True, generator=generator)
         return ld
 
+    def log_det(self, *, generator: torch.Generator | None = None) -> torch.Tensor:
+        """Deprecated spelling of :meth:`logdet`."""
+        warnings.warn("log_det is deprecated; use logdet", DeprecationWarning, stacklevel=2)
+        return self.logdet(generator=generator)
+
+    def inv_quad_log_det(
+        self,
+        inv_quad_rhs: torch.Tensor | None = None,
+        logdet: bool = False,
+        reduce_inv_quad: bool = True,
+        *,
+        generator: torch.Generator | None = None,
+    ):
+        """Deprecated spelling of :meth:`inv_quad_logdet`."""
+        warnings.warn("inv_quad_log_det is deprecated; use inv_quad_logdet", DeprecationWarning, stacklevel=2)
+        return self.inv_quad_logdet(inv_quad_rhs, logdet=logdet, reduce_inv_quad=reduce_inv_quad, generator=generator)
     def sqrt_inv_matmul(
         self, rhs: torch.Tensor, lhs: torch.Tensor | None = None, *, generator: torch.Generator | None = None
     ):

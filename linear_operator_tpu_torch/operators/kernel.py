@@ -10,6 +10,13 @@ fused kernels, whose backward is K2.  ``_matmul_closure`` is the per-solve
 cache: a ``matvec_closure_impl`` (:func:`rbf_fused_closure`, the bf16 tile
 cache of K4 and K5) if one applies, else the dense f32 matrix if it fits,
 else streaming.
+
+The covariances: RBF, Matern (nu 1/2, 3/2, 5/2) and the rational quadratic,
+whose operators take the fused kernels, and the periodic and spectral
+mixture kernels, which take the blocked engine only.  A covariance may
+return a LinearOperator; the layout fields (``num_outputs_per_input``,
+``nonbatch_dims``, ``static_params``) carry multi-output kernels and
+hyperparameters with batch dims.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from ..ops.rbf import (
     kernel_matvec_sym,
     rbf_build_sym_tiles,
     rbf_matvec_sym_cached,
+    rq_tile_covar,
     sq_dist as _sq_dist,
     sym_matvec_supported,
 )
@@ -34,7 +42,29 @@ from ..utils.cholesky import highest_matmul_precision
 from ._linear_operator import LinearOperator
 
 
+def _covar_matmul(kb, rhs: torch.Tensor) -> torch.Tensor:
+    """A kernel block @ rhs, where the covariance returned a dense tensor or
+    a LinearOperator; full f32 products either way."""
+    with highest_matmul_precision():
+        return kb.matmul(rhs) if isinstance(kb, LinearOperator) else torch.matmul(kb, rhs)
+
+
+def _covar_dense(kb) -> torch.Tensor:
+    return kb.to_dense() if isinstance(kb, LinearOperator) else kb
+
+
 class KernelLinearOperator(LinearOperator):
+    """K[i, j] = covar_func(x1_i, x2_j, **params, **static_params).
+
+    ``covar_func`` returns a dense block or a LinearOperator.  The layout
+    fields follow the JAX package: ``num_outputs_per_input`` (t1, t2) makes
+    each x1 point t1 rows and each x2 point t2 columns (multi-output
+    kernels); ``nonbatch_dims``, as ``(("name", k), ...)``, says that a
+    hyperparameter's last k dims are not batch dims (2 for a name not
+    listed), its leading ones broadcasting into the operator's batch shape;
+    ``static_params``, as ``(("name", value), ...)``, are covariance
+    arguments that are not tensors."""
+
     def __init__(
         self,
         x1: torch.Tensor,  # (*b, n, d)
@@ -46,6 +76,9 @@ class KernelLinearOperator(LinearOperator):
         matvec_impl: Callable | None = None,
         materialize_threshold: int | None = 2**30,
         matvec_closure_impl: Callable | None = None,
+        num_outputs_per_input: tuple = (1, 1),
+        nonbatch_dims: tuple | None = None,
+        static_params: tuple = (),
     ):
         self.x1 = x1
         self.x2 = x2
@@ -64,17 +97,52 @@ class KernelLinearOperator(LinearOperator):
         # cache once and streams it every iteration); None falls through to
         # the dense f32 cache and streaming
         self.matvec_closure_impl = matvec_closure_impl
+        self.num_outputs_per_input = tuple(num_outputs_per_input)
+        self.nonbatch_dims = nonbatch_dims
+        self.static_params = tuple(static_params)
+
+    @property
+    def tensor_params(self) -> dict:
+        """The differentiable hyperparameters."""
+        return self.params
+
+    @property
+    def nontensor_params(self) -> dict:
+        """The covariance's arguments that are not tensors."""
+        return dict(self.static_params)
+
+    def _all_params(self) -> dict:
+        return {**self.params, **dict(self.static_params)}
+
+    def _nonbatch(self, name: str) -> int:
+        for key, k in self.nonbatch_dims or ():
+            if key == name:
+                return k
+        return 2
+
+    def _param_batch_shapes(self) -> list[tuple[int, ...]]:
+        shapes = []
+        for name, val in self.params.items():
+            k = self._nonbatch(name)
+            shape = tuple(val.shape)
+            shapes.append(shape[: max(0, len(shape) - k)] if k else shape)
+        return shapes
 
     def _batch_shape(self) -> tuple[int, ...]:
-        # a hyperparameter's dims beyond its last two are batch dims
-        param_batches = [tuple(p.shape[: max(0, p.ndim - 2)]) for p in self.params.values()]
-        return broadcast_shapes(self.x1.shape[:-2], self.x2.shape[:-2], *param_batches)
+        return broadcast_shapes(self.x1.shape[:-2], self.x2.shape[:-2], *self._param_batch_shapes())
 
     def _shape(self) -> tuple[int, ...]:
-        return (*self._batch_shape(), self.x1.shape[-2], self.x2.shape[-2])
+        t1, t2 = self.num_outputs_per_input
+        return (*self._batch_shape(), self.x1.shape[-2] * t1, self.x2.shape[-2] * t2)
+
+    @property
+    def covar_mat(self):
+        """``covar_func(x1, x2, **params)``: a dense tensor or a LinearOperator."""
+        return self.covar_func(self.x1, self.x2, **self._all_params())
 
     def _transpose(self) -> "KernelLinearOperator":
-        return self._replace(x1=self.x2, x2=self.x1)
+        t1, t2 = self.num_outputs_per_input
+        return self._replace(x1=self.x2, x2=self.x1, num_outputs_per_input=(t2, t1))
 
     def _matmul_closure(self):
         """Per-solve K cache.  A ``matvec_closure_impl`` goes first (it gates
@@ -103,24 +171,26 @@ class KernelLinearOperator(LinearOperator):
     def _matmul(self, rhs: torch.Tensor) -> torch.Tensor:
         if self.matvec_impl is not None:
             return self.matvec_impl(self.x1, self.x2, rhs, self.params, symmetric=self.symmetric)
+        params = self._all_params()
         n = self.x1.shape[-2]
         out = []
         # f32 contractions in full f32: a TF32 K-block product would inject
         # ~1e-3 relative noise into every mat-vec and stall CG
         with highest_matmul_precision():
             for start in range(0, n, self.block_rows):
-                kb = self.covar_func(self.x1[..., start : start + self.block_rows, :], self.x2, **self.params)
-                out.append(torch.matmul(kb, rhs))
+                kb = self.covar_func(self.x1[..., start : start + self.block_rows, :], self.x2, **params)
+                out.append(_covar_matmul(kb, rhs))
         return torch.cat(out, dim=-2)
 
     def _bilinear_derivative(self, left_vecs, right_vecs) -> tuple:
-        """One-sweep blocked backward: each row block of K is formed, and its
-        gradient taken, inside the sweep, so that only one block's autograd
-        residuals are alive at a time (autograd through the blocked
-        ``_matmul`` would keep every block: at n = 1e5 the 40 GB kernel
-        matrix several times over).  The fused path and a single block take
-        the base path; there autograd runs through ``fused_covar_matvec``
-        into the kernels' own backward (K2)."""
+        """One-sweep blocked backward: each row block of K (t1 rows a point)
+        is formed, and its gradient taken, inside the sweep, so that only one
+        block's autograd residuals are alive at a time (autograd through the
+        blocked ``_matmul`` would keep every block: at n = 1e5 the 40 GB
+        kernel matrix several times over).  The fused path and a single
+        block take the base path; there autograd runs through
+        ``fused_covar_matvec`` into the kernels' own backward (K2)."""
+        t1 = self.num_outputs_per_input[0]
         n = self.x1.shape[-2]
         if self.matvec_impl is not None or n <= self.block_rows:
             return super()._bilinear_derivative(left_vecs, right_vecs)
@@ -131,16 +201,17 @@ class KernelLinearOperator(LinearOperator):
             return (None,) * len(leaves)
         sums = [None] * len(leaves)  # x2 and the params: summed over blocks
         dx1 = []
+        statics = dict(self.static_params)
         with torch.enable_grad():
             x2, *pvals = (t.detach().requires_grad_(r) for t, r in zip(leaves[1:], needs[1:]))
-            params = {**self.params, **dict(zip(names, pvals))}
+            params = {**self.params, **dict(zip(names, pvals)), **statics}
             for start in range(0, n, self.block_rows):
-                rows = slice(start, start + self.block_rows)
-                x1b = self.x1[..., rows, :].detach().requires_grad_(needs[0])
+                x1b = self.x1[..., start : start + self.block_rows, :].detach().requires_grad_(needs[0])
                 inputs = [x1b, x2, *pvals]
+                rows = slice(start * t1, (start + x1b.shape[-2]) * t1)
                 with highest_matmul_precision():
                     kb = self.covar_func(x1b, x2, **params)
-                    f = torch.sum(left_vecs[..., rows, :] * torch.matmul(kb, right_vecs))
+                f = torch.sum(left_vecs[..., rows, :] * _covar_matmul(kb, right_vecs))
                 wanted = [t for t, r in zip(inputs, needs) if r]
                 it = iter(torch.autograd.grad(f, wanted, allow_unused=True))
                 grads = [next(it) if r else None for r in needs]
@@ -152,53 +223,87 @@ class KernelLinearOperator(LinearOperator):
             sums[0] = torch.cat(dx1, dim=-2)
         return tuple(sums)
 
+    def _per_point_blocks(self, k: int) -> torch.Tensor:
+        """(*b, k, t1, t2): the covariance of each of the first k points of
+        x1 with the same point of x2, n shoved into a batch dim; a batched
+        hyperparameter gains the n singleton before its non-batch dims."""
+        params = {}
+        for name, val in self.params.items():
+            nb = self._nonbatch(name)
+            params[name] = val.unsqueeze(-(nb + 1)) if val.ndim > nb else val
+        vals = self.covar_func(
+            self.x1[..., :k, None, :], self.x2[..., :k, None, :], **params, **dict(self.static_params)
+        )
+        return _covar_dense(vals)
+
     def _diagonal(self) -> torch.Tensor:
-        # n shoved into a batch dim: the covariance of each point with itself;
-        # a batched hyperparameter gains the n singleton before its last two dims
-        params = {k: v.unsqueeze(-3) if v.ndim > 2 else v for k, v in self.params.items()}
-        k = min(self.x1.shape[-2], self.x2.shape[-2])  # a rectangular sub-operator's
-        vals = self.covar_func(self.x1[..., :k, None, :], self.x2[..., :k, None, :], **params)
-        return vals[..., 0, 0]
+        t1, t2 = self.num_outputs_per_input
+        if t1 != t2:
+            return super()._diagonal()
+        # a rectangular sub-operator's diagonal has min(n, m) points' blocks
+        vals = self._per_point_blocks(min(self.x1.shape[-2], self.x2.shape[-2]))
+        if t1 == 1:
+            return vals[..., 0, 0]
+        d = torch.diagonal(vals, dim1=-2, dim2=-1)  # (*b, k, t)
+        return d.reshape(*d.shape[:-2], -1)
 
     def to_dense(self) -> torch.Tensor:
-        return self.covar_func(self.x1, self.x2, **self.params)
+        return _covar_dense(self.covar_mat)
 
-    def _index_param(self, val: torch.Tensor, batch_indices) -> torch.Tensor:
+    def _covar_mat_operator(self) -> LinearOperator:
+        from .dense import DenseLinearOperator
+
+        mat = self.covar_mat
+        return mat if isinstance(mat, LinearOperator) else DenseLinearOperator(mat)
+
+    def _broadcast_data(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """x1 and x2 expanded to the operator's batch shape, before batch
+        indexing."""
+        batch = self._batch_shape()
+        return self.x1.expand(*batch, *self.x1.shape[-2:]), self.x2.expand(*batch, *self.x2.shape[-2:])
+
+    def _index_param(self, name: str, val: torch.Tensor, batch_indices) -> torch.Tensor:
         """val[*batch_indices, ...] with the hyperparameter broadcast to the
-        operator's batch shape first; its last two dims (or fewer) are not
-        batch dims and stay whole."""
-        if not batch_indices or val.ndim <= 2:
-            return val  # no batch dims: it broadcasts as it is
-        nonbatch = tuple(val.shape[max(0, val.ndim - 2) :])
+        operator's batch shape first; its non-batch dims stay whole."""
+        k = self._nonbatch(name)
+        if not batch_indices or val.ndim <= k:
+            return val  # no batch index, or no batch dims: it broadcasts as it is
+        nonbatch = tuple(val.shape[max(0, val.ndim - k) :]) if k else ()
         val = val.expand(*self._batch_shape(), *nonbatch)
         return val[(*batch_indices, *([slice(None)] * len(nonbatch)))]
 
     def _get_indices(self, row_index, col_index, *batch_indices) -> torch.Tensor:
         """k(x1[i], x2[j]) elementwise over broadcast index tensors: the
-        pointwise evaluation pivoted Cholesky gathers its columns with."""
-        x1, x2 = self.x1, self.x2
-        if batch_indices:
-            batch = self._batch_shape()
-            x1 = x1.expand(*batch, *x1.shape[-2:])
-            x2 = x2.expand(*batch, *x2.shape[-2:])
-        x1 = x1[(*batch_indices, row_index, slice(None))]  # (*idx, d)
-        x2 = x2[(*batch_indices, col_index, slice(None))]
-        params = {name: self._index_param(val, batch_indices) for name, val in self.params.items()}
-        return self.covar_func(x1[..., None, :], x2[..., None, :], **params)[..., 0, 0]
+        pointwise evaluation pivoted Cholesky gathers its columns with.  Row
+        i of a multi-output operator is output i % t1 of point i // t1."""
+        t1, t2 = self.num_outputs_per_input
+        x1, x2 = self._broadcast_data() if batch_indices else (self.x1, self.x2)
+        x1 = x1[(*batch_indices, row_index // t1 if t1 != 1 else row_index, slice(None))]  # (*idx, d)
+        x2 = x2[(*batch_indices, col_index // t2 if t2 != 1 else col_index, slice(None))]
+        params = {name: self._index_param(name, val, batch_indices) for name, val in self.params.items()}
+        vals = _covar_dense(
+            self.covar_func(x1[..., None, :], x2[..., None, :], **params, **dict(self.static_params))
+        )  # (*idx, t1, t2)
+        if (t1, t2) == (1, 1):
+            return vals[..., 0, 0]
+        vals = torch.take_along_dim(vals, (row_index % t1)[..., None, None].expand(*vals.shape[:-2], 1, t2), dim=-2)
+        return torch.take_along_dim(vals, (col_index % t2)[..., None, None].expand(*vals.shape[:-2], 1, 1), dim=-1)[
+            ..., 0, 0
+        ]
 
-    def _getitem(self, row_index, col_index, *batch_indices) -> "KernelLinearOperator":
+    def _getitem(self, row_index, col_index, *batch_indices) -> LinearOperator:
         """K[*batch_indices, rows, cols] stays a lazy kernel operator on the
         sliced points.  It keeps the fused mat-vec, which takes every n, m,
         d and batch on the card: K1, and K3 where the slices are equal (a
         principal block stays symmetric).  The JAX package drops its fused
         engine here, whose Pallas path assumed the whole operator's shape;
-        the values are the same."""
-        x1, x2 = self.x1, self.x2
-        if batch_indices:
-            batch = self._batch_shape()
-            x1 = x1.expand(*batch, *x1.shape[-2:])
-            x2 = x2.expand(*batch, *x2.shape[-2:])
-        params = {k: self._index_param(v, batch_indices) for k, v in self.params.items()}
+        the values are the same.  A multi-output operator's rows are not
+        its points: it indexes the covariance's own operator, as the JAX
+        package does."""
+        if self.num_outputs_per_input != (1, 1):
+            return self._covar_mat_operator()._getitem(row_index, col_index, *batch_indices)
+        x1, x2 = self._broadcast_data() if batch_indices else (self.x1, self.x2)
+        params = {k: self._index_param(k, v, batch_indices) for k, v in self.params.items()}
         symmetric = self.symmetric and isinstance(row_index, slice) and row_index == col_index
         return self._replace(
             x1=x1[(*batch_indices, row_index, slice(None))],
@@ -208,18 +313,27 @@ class KernelLinearOperator(LinearOperator):
             matvec_closure_impl=self.matvec_closure_impl if symmetric else None,
         )
 
-    def _select_rows(self, idx) -> "KernelLinearOperator":
+    def _select_rows(self, idx) -> LinearOperator:
         """K[..., idx, :] stays a lazy kernel operator on the gathered points,
         with the fused rectangular mat-vec (K1 on the card)."""
+        if self.num_outputs_per_input != (1, 1):
+            return super()._select_rows(idx)
         return self._replace(x1=self.x1[..., idx, :], symmetric=False, matvec_closure_impl=None)
 
-    def _select_cols(self, idx) -> "KernelLinearOperator":
+    def _select_cols(self, idx) -> LinearOperator:
         """K[..., :, idx] stays a lazy kernel operator on the gathered points,
         on the blocked path: the Nystrom preconditioner takes its landmark
         columns through here, in full f32 (the JAX package's choice)."""
+        if self.num_outputs_per_input != (1, 1):
+            return super()._select_cols(idx)
         return self._replace(
             x2=self.x2[..., idx, :], symmetric=False, matvec_impl=None, matvec_closure_impl=None
         )
+
+
+# The JAX package's name for the lazy kernel operator, after the deprecated
+# KeOps operator it stands in for
+KeOpsLinearOperator = KernelLinearOperator
 
 
 # ---------------------------------------------------------------------------
@@ -246,9 +360,51 @@ def matern12_covar(x1, x2, lengthscale, outputscale):
 
 
 def rq_covar(x1, x2, lengthscale, outputscale, alpha):
-    """Rational quadratic: outputscale * (1 + d2 / (2 alpha))^-alpha."""
+    """Rational quadratic: outputscale * (1 + d2 / (2 alpha))^-alpha, a scale
+    mixture of RBF kernels; all four hyperparameters are differentiable."""
     d2 = _sq_dist(x1 / lengthscale, x2 / lengthscale)
     return outputscale * (1.0 + d2 / (2.0 * alpha)) ** (-alpha)
+
+
+def periodic_covar(x1, x2, lengthscale, outputscale, period):
+    """Periodic (MacKay) kernel:
+    outputscale * exp(-2 sum_k sin^2(pi (x1_k - x2_k) / p_k) / l_k^2).
+
+    ``lengthscale`` and ``period`` are scalars or per-dimension (d,)
+    tensors.  Accumulated a dimension at a time, as ``sq_dist`` is, so that
+    no (n, m, d) intermediate is formed."""
+    ls, pd = torch.as_tensor(lengthscale), torch.as_tensor(period)
+    s2 = None
+    for k in range(x1.shape[-1]):
+        p_k = pd[..., k] if pd.ndim else pd
+        l_k = ls[..., k] if ls.ndim else ls
+        s = torch.sin(math.pi * (x1[..., :, None, k] - x2[..., None, :, k]) / p_k)
+        term = (s * s) / (l_k * l_k)
+        s2 = term if s2 is None else s2 + term
+    return outputscale * torch.exp(-2.0 * s2)
+
+
+def spectral_mixture_covar(x1, x2, weights, means, scales):
+    """Spectral mixture kernel (Wilson & Adams 2013, eq. 12):
+
+        k(tau) = sum_q w_q prod_d exp(-2 pi^2 tau_d^2 s_qd^2) cos(2 pi mu_qd tau_d)
+
+    with tau = x1 - x2, mixture ``weights`` (Q,), spectral ``means`` (Q, d)
+    and ``scales`` (Q, d), all differentiable.  Accumulated a (q, d) pair
+    at a time: the (n, m) difference of each dimension is formed once and
+    serves the Q components; no (n, m, d) or (n, m, Q) intermediate."""
+    means = torch.atleast_2d(torch.as_tensor(means))
+    scales = torch.atleast_2d(torch.as_tensor(scales))
+    acc = None  # each component's running product over the dimensions
+    for dim in range(x1.shape[-1]):
+        tau = x1[..., :, None, dim] - x2[..., None, :, dim]
+        tau2 = tau * tau
+        terms = [
+            torch.exp(-2.0 * math.pi**2 * tau2 * scales[q, dim] ** 2) * torch.cos(2.0 * math.pi * means[q, dim] * tau)
+            for q in range(means.shape[0])
+        ]
+        acc = [weights[q] * t for q, t in enumerate(terms)] if acc is None else [a * t for a, t in zip(acc, terms)]
+    return sum(acc)
 
 
 # ---------------------------------------------------------------------------
@@ -284,6 +440,37 @@ def fused_covar_matvec(covar: str, x1, x2, rhs, params, *, symmetric: bool = Fal
 
 def rbf_fused_matvec(x1, x2, rhs, params, *, symmetric: bool = False):
     return fused_covar_matvec("rbf", x1, x2, rhs, params, symmetric=symmetric)
+
+
+def matern52_fused_matvec(x1, x2, rhs, params, *, symmetric: bool = False):
+    return fused_covar_matvec("matern52", x1, x2, rhs, params, symmetric=symmetric)
+
+
+def matern32_fused_matvec(x1, x2, rhs, params, *, symmetric: bool = False):
+    return fused_covar_matvec("matern32", x1, x2, rhs, params, symmetric=symmetric)
+
+
+def matern12_fused_matvec(x1, x2, rhs, params, *, symmetric: bool = False):
+    return fused_covar_matvec("matern12", x1, x2, rhs, params, symmetric=symmetric)
+
+
+# One fused mat-vec per alpha, so that RQ operators of one alpha share it
+_RQ_FUSED_IMPLS: dict = {}
+
+
+def _rq_fused_matvec(alpha: float):
+    """The fused mat-vec of the rational quadratic with ``alpha`` bound here,
+    once: the kernels take it as a constant, so no alpha gradient flows
+    through this path (the lengthscale's and outputscale's do)."""
+    alpha = float(alpha)
+    if alpha not in _RQ_FUSED_IMPLS:
+        name = rq_tile_covar(alpha)
+
+        def impl(x1, x2, rhs, params, *, symmetric=False, _name=name):
+            return fused_covar_matvec(_name, x1, x2, rhs, params, symmetric=symmetric)
+
+        _RQ_FUSED_IMPLS[alpha] = impl
+    return _RQ_FUSED_IMPLS[alpha]
 
 
 # Device-memory budget of the bf16 upper-triangle tile cache; tiles are
@@ -342,22 +529,106 @@ def rbf_fused_closure(x1, x2, params, symmetric: bool):
     return closure
 
 
+def _param(x, value) -> torch.Tensor:
+    """A hyperparameter as a tensor of x's dtype on x's device (a tensor
+    given so, a leaf of autograd included, is kept as it is)."""
+    return torch.as_tensor(value, dtype=x.dtype, device=x.device)
+
+
+def _stationary_operator(x1, x2, params, covar_func, fused, block_rows, materialize_threshold):
+    return KernelLinearOperator(
+        x1,
+        x1 if x2 is None else x2,
+        {name: _param(x1, value) for name, value in params.items()},
+        covar_func=covar_func,
+        block_rows=block_rows,
+        symmetric=x2 is None,
+        matvec_impl=fused,
+        materialize_threshold=materialize_threshold,
+    )
+
+
 def rbf_kernel_operator(
     x1, x2=None, *, lengthscale, outputscale, block_rows: int = 4096,
     use_fused_kernels: bool = True, materialize_threshold: int | None = 2**30,
 ) -> KernelLinearOperator:
     """RBF kernel operator; ``use_fused_kernels`` routes its mat-vecs through
     the CUDA kernels (their plain versions for CPU tensors)."""
+    return _stationary_operator(
+        x1, x2, dict(lengthscale=lengthscale, outputscale=outputscale), rbf_covar,
+        rbf_fused_matvec if use_fused_kernels else None, block_rows, materialize_threshold,
+    )
+
+
+_MATERN = {
+    2.5: (matern52_covar, matern52_fused_matvec),
+    1.5: (matern32_covar, matern32_fused_matvec),
+    0.5: (matern12_covar, matern12_fused_matvec),
+}
+
+
+def matern_kernel_operator(
+    x1, x2=None, *, lengthscale, outputscale, nu: float = 2.5, block_rows: int = 4096,
+    use_fused_kernels: bool = True, materialize_threshold: int | None = 2**30,
+) -> KernelLinearOperator:
+    """Matern kernel operator, nu in {0.5, 1.5, 2.5}, on the engine of the
+    RBF operator: ``use_fused_kernels`` routes its mat-vecs through K1 and
+    K3 and its backward through K2 (their plain versions for CPU tensors).
+    ``lengthscale`` is a scalar or one per dimension."""
+    if nu not in _MATERN:
+        raise ValueError(f"nu must be 0.5, 1.5 or 2.5, got {nu}")
+    covar, fused = _MATERN[nu]
+    return _stationary_operator(
+        x1, x2, dict(lengthscale=lengthscale, outputscale=outputscale), covar,
+        fused if use_fused_kernels else None, block_rows, materialize_threshold,
+    )
+
+
+def rq_kernel_operator(
+    x1, x2=None, *, lengthscale, outputscale, alpha=2.0, block_rows: int = 4096,
+    use_fused_kernels: bool = True, materialize_threshold: int | None = 2**30,
+) -> KernelLinearOperator:
+    """Rational-quadratic kernel operator.  ``alpha`` is a differentiable
+    hyperparameter on the blocked path; with ``use_fused_kernels`` the
+    kernels take its value at construction as a constant, so no alpha
+    gradient flows through the fused mat-vec (the lengthscale's and
+    outputscale's do), as in the JAX package."""
+    return _stationary_operator(
+        x1, x2, dict(lengthscale=lengthscale, outputscale=outputscale, alpha=alpha), rq_covar,
+        _rq_fused_matvec(float(torch.as_tensor(alpha).detach())) if use_fused_kernels else None, block_rows, materialize_threshold,
+    )
+
+
+def periodic_kernel_operator(
+    x1, x2=None, *, lengthscale, outputscale, period, block_rows: int = 4096,
+    materialize_threshold: int | None = 2**30,
+) -> KernelLinearOperator:
+    """Periodic (MacKay) kernel operator.  Not a function of |x1 - x2|^2, so
+    no kernel of ops/rbf.py evaluates it: the blocked engine (and the
+    per-solve dense cache) only."""
+    return _stationary_operator(
+        x1, x2, dict(lengthscale=lengthscale, outputscale=outputscale, period=period), periodic_covar,
+        None, block_rows, materialize_threshold,
+    )
+
+
+def spectral_mixture_kernel_operator(
+    x1, x2=None, *, weights, means, scales, block_rows: int = 4096,
+    materialize_threshold: int | None = 2**30,
+) -> KernelLinearOperator:
+    """Spectral mixture kernel operator (:func:`spectral_mixture_covar`).
+    Not a function of |x1 - x2|^2, so no kernel of ops/rbf.py evaluates it:
+    the blocked engine (and the per-solve dense cache) only."""
     return KernelLinearOperator(
         x1,
         x1 if x2 is None else x2,
         {
-            "lengthscale": torch.as_tensor(lengthscale, dtype=x1.dtype, device=x1.device),
-            "outputscale": torch.as_tensor(outputscale, dtype=x1.dtype, device=x1.device),
+            "weights": _param(x1, weights),
+            "means": torch.atleast_2d(_param(x1, means)),
+            "scales": torch.atleast_2d(_param(x1, scales)),
         },
-        covar_func=rbf_covar,
+        covar_func=spectral_mixture_covar,
         block_rows=block_rows,
         symmetric=x2 is None,
-        matvec_impl=rbf_fused_matvec if use_fused_kernels else None,
         materialize_threshold=materialize_threshold,
     )

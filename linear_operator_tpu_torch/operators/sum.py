@@ -104,3 +104,18 @@ class SumLinearOperator(LinearOperator):
         for op in self.operators[1:]:
             out = out + op.to_dense()
         return out
+
+
+class PsdSumLinearOperator(SumLinearOperator):
+    """A sum of positive semi-definite terms, sampled by summing the terms'
+    own samples: each term draws from ``generator`` in turn (a fixed CPU
+    generator when None), so that every term keeps its structured sampler."""
+
+    def zero_mean_mvn_samples(self, num_samples: int, *, generator: torch.Generator | None = None) -> torch.Tensor:
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        out = None
+        for op in self.operators:
+            s = op.zero_mean_mvn_samples(num_samples, generator=generator)
+            out = s if out is None else out + s
+        return out

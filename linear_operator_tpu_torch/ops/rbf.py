@@ -38,8 +38,12 @@ K2 and K3 the full-precision one) for tensors on the CPU, launches the kernel
 for tensors on a CUDA device, and raises for anything else.  On the card the
 kernels take every d and batch the JAX package takes, and K2 every t: a batch
 above 65535 (a grid dimension) runs in groups and K2's columns above 128 in
-chunks, one launch each (:func:`_in_groups`).
-``<wrapper>.launches`` counts the kernel launches.
+chunks, one launch each (:func:`_in_groups`).  A covariance registered at
+run time (:func:`register_tile_covar`) runs in the kernels when it was given
+CUDA bodies, which are compiled into builds of its own, and raises on the
+card when it was not.
+``<wrapper>.launches`` counts the kernel launches and ``launches_by_covar``
+the same by covariance id; :func:`reset_launch_counts` sets them to 0.
 K1 and K3 are ``torch.autograd.Function``s whose backward is K2 (x-gradients)
 and K1 / K3 (v-gradient), each computed only when its input needs it.
 """
@@ -129,13 +133,16 @@ def _dcovar_matern12(d2):
 class TileCovar(NamedTuple):
     """A covariance k(d2) the kernels evaluate: its plain version, the plain
     version of its derivative dk/d(d2), the id the CUDA sources switch on
-    (``csrc/covar.cuh``), and its runtime parameter (alpha of the rational
-    quadratic)."""
+    (``csrc/covar.cuh``; None for a covariance registered without CUDA
+    bodies, which no kernel evaluates), its runtime parameter (alpha of the
+    rational quadratic), and, for one registered with CUDA bodies, the
+    header that compiles them into its builds (``_build.covar_header``)."""
 
     fn: Callable[[torch.Tensor], torch.Tensor]
     dfn: Callable[[torch.Tensor], torch.Tensor]
-    covar_id: int
+    covar_id: int | None
     alpha: float = 0.0
+    header: str = ""
 
 
 TILE_COVARS: dict[str, TileCovar] = {
@@ -145,6 +152,59 @@ TILE_COVARS: dict[str, TileCovar] = {
     "matern12": TileCovar(_covar_matern12, _dcovar_matern12, 3),
 }
 _COVAR_RQ = 4
+_COVAR_USER = 5
+
+
+def register_tile_covar(name: str, covar_fn, dcovar_fn, cuda_covar: str | None = None,
+                        cuda_dcovar: str | None = None) -> str:
+    """Register a stationary covariance ``k(d2)`` under ``name``, which then
+    is a ``covar=`` key of every wrapper in this module; returns ``name``.
+
+    ``covar_fn(d2) -> k`` and ``dcovar_fn(d2) -> dk/d(d2)`` are elementwise
+    torch functions of the squared distance of inputs pre-scaled by the
+    lengthscale: the plain versions, which CPU tensors take.  The kernels
+    cannot evaluate a Python function, so for the card ``cuda_covar`` and
+    ``cuda_dcovar`` give the same two functions as CUDA C++ expressions of
+    the float ``d2`` (``"1.0f / (1.0f + d2)"``).  They are compiled into
+    builds of K1-K4 of their own (id ``COVAR_USER`` of ``csrc/covar.cuh``;
+    at first use, keyed by a hash of their text), as in the JAX package a
+    registered covariance runs inside the Pallas kernels.  A covariance
+    registered without them raises on CUDA tensors."""
+    if (cuda_covar is None) != (cuda_dcovar is None):
+        raise ValueError("give both cuda_covar and cuda_dcovar, or neither")
+    if cuda_covar is None:
+        TILE_COVARS[name] = TileCovar(covar_fn, dcovar_fn, None)
+    else:
+        header = _build.covar_header(cuda_covar, cuda_dcovar)
+        TILE_COVARS[name] = TileCovar(covar_fn, dcovar_fn, _COVAR_USER, header=header)
+    return name
+
+
+def _card_spec(covar: str) -> TileCovar:
+    """The covariance ``covar`` for a launch on the card; raises for one
+    registered without CUDA bodies."""
+    spec = TILE_COVARS[covar]
+    if spec.covar_id is None:
+        raise ValueError(
+            f"the covariance {covar!r} was registered without CUDA bodies, so no kernel can evaluate it: "
+            "give register_tile_covar cuda_covar= and cuda_dcovar=, or pass CPU tensors"
+        )
+    return spec
+
+
+def _count_launch(wrapper, spec: TileCovar) -> None:
+    """One launch of ``wrapper``'s kernel, in ``wrapper.launches`` and, by
+    covariance id, in ``wrapper.launches_by_covar``."""
+    wrapper.launches += 1
+    wrapper.launches_by_covar[spec.covar_id] = wrapper.launches_by_covar.get(spec.covar_id, 0) + 1
+
+
+def reset_launch_counts() -> None:
+    """Every wrapper's counters set to 0: its launches and its launches by
+    covariance id."""
+    for wrapper in (kernel_matvec, kernel_matvec_sym, kernel_weighted, rbf_build_sym_tiles, rbf_matvec_sym_cached):
+        wrapper.launches = 0
+        wrapper.launches_by_covar = {}
 
 
 def rq_tile_covar(alpha: float) -> str:
@@ -261,8 +321,8 @@ def _check_kernel_inputs(tensors, d: int) -> None:
         raise ValueError(f"the kernels take d >= 1, got d={d}")
 
 
-def _launch(library: str, symbol: str, argtypes, *args) -> None:
-    fn = getattr(_build.load(library), symbol)
+def _launch(library: str, symbol: str, header: str, argtypes, *args) -> None:
+    fn = getattr(_build.load(library, header=header), symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     err = fn(*args)
@@ -274,10 +334,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _scratch(library: str, symbol: str, device, *shape_args: int) -> torch.Tensor:
+def _scratch(library: str, symbol: str, header: str, device, *shape_args: int) -> torch.Tensor:
     """The scratch a kernel's launch takes, sized by its library's
     ``<symbol>_scratch`` function of the same shapes."""
-    fn = getattr(_build.load(library), symbol + "_scratch")
+    fn = getattr(_build.load(library, header=header), symbol + "_scratch")
     fn.argtypes = [_I] * len(shape_args)
     fn.restype = ctypes.c_longlong
     nbytes = fn(*shape_args)
@@ -330,13 +390,14 @@ def kernel_matvec(x1, x2, v, covar: str = "rbf") -> torch.Tensor:
 def _kernel_matvec(x1, x2, v, covar):
     if not _on_cuda(x1, x2, v):
         return kernel_matvec_plain(x1, x2, v, covar)
+    spec = _card_spec(covar)
     batched, (a, b, w) = _as_batched(x1, x2, v)
     nb, n, d = a.shape
     m = w.shape[-2]
     if b.shape != (nb, m, d) or w.shape[0] != nb:
         raise ValueError(f"shape mismatch: x1 {tuple(x1.shape)}, x2 {tuple(x2.shape)}, v {tuple(v.shape)}")
     _check_kernel_inputs((a, b, w), d)
-    out = _in_groups(lambda a, b, w: _launch_matvec(a, b, w, TILE_COVARS[covar]), [a, b, w])
+    out = _in_groups(lambda a, b, w: _launch_matvec(a, b, w, spec), [a, b, w])
     return out if batched else out[0]
 
 
@@ -348,19 +409,17 @@ def _launch_matvec(a, b, w, spec):
     # the kernel writes one partial result per split of K1_SPLIT x2 points
     partial = torch.empty((_cdiv(m, K1_SPLIT), nb, n, t), dtype=torch.float32, device=a.device)
     # x2 padded and v split into bf16 words by the launch's prepass
-    scratch = _scratch("kernel_matvec", "kernel_matvec_f32", a.device, nb, m, d, t, tp)
+    scratch = _scratch("kernel_matvec", "kernel_matvec_f32", spec.header, a.device, nb, m, d, t, tp)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     _launch(
-        "kernel_matvec", "kernel_matvec_f32",
+        "kernel_matvec", "kernel_matvec_f32", spec.header,
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
         a.data_ptr(), b.data_ptr(), w.data_ptr(), partial.data_ptr(), scratch.data_ptr(),
         nb, n, m, d, t, tp, spec.covar_id, spec.alpha, stream,
     )
-    kernel_matvec.launches += 1
+    _count_launch(kernel_matvec, spec)
     return partial[0] if partial.shape[0] == 1 else partial.sum(dim=0)
 
-
-kernel_matvec.launches = 0
 
 # Columns per K1 CTA (8 NB in csrc/kernel_matvec.cu): its accumulators sit in
 # registers, so a rhs wider than 72 columns runs as several column chunks.
@@ -422,12 +481,13 @@ def _kernel_matvec_sym(x, v, covar):
         raise ValueError(f"K3 takes 1..{SYM_MAX_COLUMNS} rhs columns, got {v.shape[-1]}")
     if not _on_cuda(x, v):
         return kernel_matvec_plain(x, x, v, covar)
+    spec = _card_spec(covar)
     batched, (a, w) = _as_batched(x, v)
     nb, n, d = a.shape
     if w.shape[:2] != (nb, n):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, v {tuple(v.shape)}")
     _check_kernel_inputs((a, w), d)
-    out = _in_groups(lambda a, w: _launch_matvec_sym(a, w, TILE_COVARS[covar]), [a, w])
+    out = _in_groups(lambda a, w: _launch_matvec_sym(a, w, spec), [a, w])
     return out if batched else out[0]
 
 
@@ -438,19 +498,17 @@ def _launch_matvec_sym(a, w, spec):
     # rows of n rounded up to 4 floats, for the kernel's 16-byte atomics
     out_t = torch.zeros((nb, t, 4 * _cdiv(n, 4)), dtype=torch.float32, device=a.device)
     # x padded and v split into bf16 words by the launch's prepass
-    scratch = _scratch("kernel_matvec_sym", "kernel_matvec_sym_f32", a.device, nb, n, d, t)
+    scratch = _scratch("kernel_matvec_sym", "kernel_matvec_sym_f32", spec.header, a.device, nb, n, d, t)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     _launch(
-        "kernel_matvec_sym", "kernel_matvec_sym_f32",
+        "kernel_matvec_sym", "kernel_matvec_sym_f32", spec.header,
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
         a.data_ptr(), w.data_ptr(), out_t.data_ptr(), scratch.data_ptr(),
         nb, n, d, t, spec.covar_id, spec.alpha, stream,
     )
-    kernel_matvec_sym.launches += 1
+    _count_launch(kernel_matvec_sym, spec)
     return out_t[..., :n].mT
 
-
-kernel_matvec_sym.launches = 0
 
 
 class _KernelMatvecSym(torch.autograd.Function):
@@ -495,6 +553,7 @@ def kernel_weighted(x1, x2, g, v, covar: str = "rbf"):
     that arithmetic)."""
     if not _on_cuda(x1, x2, g, v):
         return kernel_weighted_plain(x1, x2, g, v, covar)
+    spec = _card_spec(covar)
     batched, (a, b, gg, w) = _as_batched(x1, x2, g, v)
     nb, n, d = a.shape
     m, t = w.shape[-2:]
@@ -505,7 +564,7 @@ def kernel_weighted(x1, x2, g, v, covar: str = "rbf"):
         )
     _check_kernel_inputs((a, b, gg, w), d)
     wx, ws = _in_groups(
-        lambda a, b, gg, w: _launch_weighted(a, b, gg, w, TILE_COVARS[covar]), [a, b, gg, w],
+        lambda a, b, gg, w: _launch_weighted(a, b, gg, w, spec), [a, b, gg, w],
         columns=(2, 3), max_columns=WEIGHTED_MAX_COLUMNS,
     )
     return (wx, ws) if batched else (wx[0], ws[0])
@@ -521,19 +580,17 @@ def _launch_weighted(a, b, gg, w, spec):
     wx = torch.empty((parts, nb, n, d), dtype=torch.float32, device=a.device)
     ws = torch.empty((parts, nb, n), dtype=torch.float32, device=a.device)
     # x2 padded and v split into bf16 words by the launch's prepass
-    scratch = _scratch("kernel_weighted", "kernel_weighted_f32", a.device, nb, m, d, t)
+    scratch = _scratch("kernel_weighted", "kernel_weighted_f32", spec.header, a.device, nb, m, d, t)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     _launch(
-        "kernel_weighted", "kernel_weighted_f32",
+        "kernel_weighted", "kernel_weighted_f32", spec.header,
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
         a.data_ptr(), b.data_ptr(), gg.data_ptr(), w.data_ptr(), wx.data_ptr(), ws.data_ptr(), scratch.data_ptr(),
         nb, n, m, d, t, spec.covar_id, spec.alpha, stream,
     )
-    kernel_weighted.launches += 1
+    _count_launch(kernel_weighted, spec)
     return (wx[0], ws[0]) if parts == 1 else (wx.sum(dim=0), ws.sum(dim=0))
 
-
-kernel_weighted.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -626,7 +683,7 @@ def rbf_build_sym_tiles(x, tile: int = 1024, covar: str = "rbf") -> torch.Tensor
     _check_tile(tile)
     if not _on_cuda(x):
         return rbf_build_sym_tiles_plain(x, tile, covar)
-    spec = TILE_COVARS[covar]
+    spec = _card_spec(covar)
     if x.ndim != 2:
         raise ValueError(f"K4 takes x of shape (n, d), got {tuple(x.shape)}")
     n, d = x.shape
@@ -634,18 +691,16 @@ def rbf_build_sym_tiles(x, tile: int = 1024, covar: str = "rbf") -> torch.Tensor
     nblk = _cdiv(n, tile)
     out = torch.empty((nblk * (nblk + 1) // 2, tile, tile), dtype=torch.bfloat16, device=x.device)
     # x padded to whole tiles (and its squared norms) by the launch's prepass
-    scratch = _scratch("kernel_build_sym", "kernel_build_sym_tiles", x.device, n, d, tile)
+    scratch = _scratch("kernel_build_sym", "kernel_build_sym_tiles", spec.header, x.device, n, d, tile)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _launch(
-        "kernel_build_sym", "kernel_build_sym_tiles",
+        "kernel_build_sym", "kernel_build_sym_tiles", spec.header,
         [_P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P],
         x.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, d, tile, spec.covar_id, spec.alpha, stream,
     )
-    rbf_build_sym_tiles.launches += 1
+    _count_launch(rbf_build_sym_tiles, spec)
     return out
 
-
-rbf_build_sym_tiles.launches = 0
 
 
 def rbf_matvec_sym_cached(tiles, v, n: int, tile: int = 1024, passes: int = 2) -> torch.Tensor:
@@ -678,10 +733,10 @@ def rbf_matvec_sym_cached(tiles, v, n: int, tile: int = 1024, passes: int = 2) -
     # rows of n rounded up to 4 floats, for the kernel's 16-byte atomics
     out_t = torch.zeros((t, 4 * _cdiv(n, 4)), dtype=torch.float32, device=v.device)
     # v split into bf16 words by the launch's prepass
-    scratch = _scratch("kernel_matvec_cached", "kernel_matvec_sym_cached", v.device, n, t)
+    scratch = _scratch("kernel_matvec_cached", "kernel_matvec_sym_cached", "", v.device, n, t)
     stream = torch.cuda.current_stream(v.device).cuda_stream
     _launch(
-        "kernel_matvec_cached", "kernel_matvec_sym_cached",
+        "kernel_matvec_cached", "kernel_matvec_sym_cached", "",
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         tiles.data_ptr(), v.data_ptr(), out_t.data_ptr(), scratch.data_ptr(), n, t, tile, npairs, passes, stream,
     )
@@ -689,4 +744,4 @@ def rbf_matvec_sym_cached(tiles, v, n: int, tile: int = 1024, passes: int = 2) -
     return out_t[:, :n].mT
 
 
-rbf_matvec_sym_cached.launches = 0
+reset_launch_counts()

@@ -27,3 +27,27 @@ def slq_quadrature(
     return [
         matrix_size * torch.sum(weights * f(safe_evals), dim=-1).mean(dim=0) for f in funcs
     ]
+
+
+class StochasticLQ:
+    """The object-style SLQ workflow of GPyTorch's ``StochasticLQ``, on
+    :func:`lanczos_tridiag` and :func:`slq_quadrature`:
+    ``lanczos_batch(matmul_closure, rhs_vectors)``, then ``to_dense(
+    matrix_shape, evals, evecs, funcs)``."""
+
+    def __init__(self, max_iter: int = 15, num_random_probes: int = 10):
+        self.max_iter = max_iter
+        self.num_random_probes = num_random_probes
+
+    def lanczos_batch(self, matmul_closure, rhs_vectors: torch.Tensor):
+        """``rhs_vectors`` (*b, n, p) -> (Q (p, *b, n, k), T (p, *b, k, k)):
+        the probes move to a leading dim, over which ``matmul_closure``
+        (an operator's ``matmul``) broadcasts."""
+        from .lanczos import lanczos_tridiag
+
+        res = lanczos_tridiag(matmul_closure, self.max_iter, init_vecs=torch.movedim(rhs_vectors, -1, 0))
+        return res.q_mat, res.t_mat
+
+    def to_dense(self, matrix_shape, eigenvalues, eigenvectors, funcs) -> list[torch.Tensor]:
+        """tr(f(A)) estimates from the probes' Ritz pairs."""
+        return slq_quadrature(matrix_shape[-1], eigenvalues, eigenvectors, funcs)

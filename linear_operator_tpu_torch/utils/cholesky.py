@@ -9,6 +9,7 @@ that never factor hold NaN, the JAX package's contract.
 from __future__ import annotations
 
 from contextlib import contextmanager
+from typing import NamedTuple
 
 import torch
 
@@ -27,6 +28,78 @@ def highest_matmul_precision():
         torch.set_float32_matmul_precision(prev)
 
 
+def blocked_cholesky(A: torch.Tensor, block: int = 256) -> torch.Tensor:
+    """Lower Cholesky factor by a right-looking blocked sweep: for each
+    block column i, L_ii = chol(A_ii - L_i: L_i:^T) and L_ji = (A_ji -
+    L_j: L_i:^T) L_ii^{-T}, the trailing products in full f32.  NaN
+    propagates from a block that is not positive definite, as
+    ``torch.linalg.cholesky_ex`` reports it; n not a multiple of ``block``
+    is padded with an identity tail.  Differentiable."""
+    n = A.shape[-1]
+    if n <= block:
+        L, info = torch.linalg.cholesky_ex(A)
+        return torch.where((info != 0)[..., None, None], torch.full_like(L, float("nan")), L)
+    nb = -(-n // block)
+    npad = nb * block - n
+    if npad:
+        A = torch.nn.functional.pad(A, (0, npad, 0, npad))
+        tail = torch.zeros(n + npad, dtype=A.dtype, device=A.device)
+        tail[n:] = 1.0
+        A = A + torch.diag(tail)
+    cols = []  # the factor's block columns below the diagonal, (*b, N - s, block)
+    with highest_matmul_precision():
+        for i in range(nb):
+            s = i * block
+            a = A[..., s:, s : s + block]
+            for c, col in enumerate(cols):
+                # block column c's rows from s on, against its rows s .. s + block
+                lc = col[..., s - c * block :, :]
+                a = a - lc @ lc[..., :block, :].mT
+            lii, info = torch.linalg.cholesky_ex(a[..., :block, :])
+            lii = torch.where((info != 0)[..., None, None], torch.full_like(lii, float("nan")), lii)
+            panel = torch.linalg.solve_triangular(lii, a[..., block:, :].mT, upper=False).mT
+            cols.append(torch.cat([lii, panel], dim=-2))
+    rows = [torch.nn.functional.pad(col, (0, 0, c * block, 0)) for c, col in enumerate(cols)]
+    out = torch.cat(rows, dim=-1)
+    return out[..., :n, :n] if npad else out
+
+
+class CholeskyResult(NamedTuple):
+    factor: torch.Tensor  # lower triangular, NaN where the factorization failed
+    ok: torch.Tensor  # bool (*batch,): the factorization succeeded
+    jitter: torch.Tensor  # (*batch,): the jitter finally added to the diagonal
+
+
+def psd_safe_cholesky_ex(
+    A: torch.Tensor,
+    jitter: float | None = None,
+    max_tries: int | None = None,
+) -> CholeskyResult:
+    """:func:`psd_safe_cholesky` with what it did: the factor, which batch
+    elements factored, and the jitter each one took."""
+    if jitter is None:
+        jitter = settings.cholesky_jitter.value(A.dtype)
+    if max_tries is None:
+        max_tries = settings.cholesky_max_tries.value()
+    settings.record_linalg("psd_safe_cholesky", A.shape)
+    L, info = torch.linalg.cholesky_ex(A)
+    ok = info == 0
+    applied = torch.zeros(A.shape[:-2], dtype=A.dtype, device=A.device)
+    if bool(ok.all()):
+        return CholeskyResult(L, ok, applied)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    for k in range(max_tries):
+        jit = jitter * 10.0**k
+        L_new, info_new = torch.linalg.cholesky_ex(A + jit * eye)
+        take = ~ok & (info_new == 0)
+        L = torch.where(take[..., None, None], L_new, L)
+        applied = torch.where(take, torch.full_like(applied, jit), applied)
+        ok = ok | take
+        if bool(ok.all()):
+            return CholeskyResult(L, ok, applied)
+    return CholeskyResult(torch.where(ok[..., None, None], L, torch.full_like(L, float("nan"))), ok, applied)
+
+
 def psd_safe_cholesky(
     A: torch.Tensor,
     jitter: float | None = None,
@@ -34,22 +107,4 @@ def psd_safe_cholesky(
 ) -> torch.Tensor:
     """Lower Cholesky factor of ``A`` (*batch, n, n) with per-batch-element
     jitter retries; NaN where not factorizable."""
-    if jitter is None:
-        jitter = settings.cholesky_jitter.value(A.dtype)
-    if max_tries is None:
-        max_tries = settings.cholesky_max_tries.value()
-    settings.record_linalg("psd_safe_cholesky", A.shape)
-
-    L, info = torch.linalg.cholesky_ex(A)
-    failed = info != 0
-    if not bool(failed.any()):
-        return L
-    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
-    for k in range(max_tries):
-        L_new, info_new = torch.linalg.cholesky_ex(A + (jitter * 10.0**k) * eye)
-        take = failed & (info_new == 0)
-        L = torch.where(take[..., None, None], L_new, L)
-        failed = failed & ~take
-        if not bool(failed.any()):
-            return L
-    return torch.where(failed[..., None, None], torch.full_like(L, float("nan")), L)
+    return psd_safe_cholesky_ex(A, jitter, max_tries).factor

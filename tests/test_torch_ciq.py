@@ -34,6 +34,7 @@ from linear_operator_tpu.solvers.minres import minres as j_minres
 from linear_operator_tpu_torch.solvers.minres import minres as t_minres
 from test_torch_gp_slice import _Both, _close, _gp_data, _models, _np
 from test_torch_roots import same_draws  # noqa: F401  (a fixture)
+from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # the modules (each package's ``solvers.contour_integral_quad`` is the function)
 jciq = importlib.import_module("linear_operator_tpu.solvers.contour_integral_quad")

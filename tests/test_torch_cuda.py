@@ -38,6 +38,18 @@ RTOL = 1e-4
 ACC3_RTOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread while this module runs: under pytest-xdist each
+    worker's torch would start a thread for every core, and the workers'
+    spinning threads slow each other (``test_torch_harness_common.py``'s
+    fixture, repeated here because that module imports JAX)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -919,3 +931,94 @@ def test_kernel_principal_block_launches_k3(cuda, index):
     got = rect @ v[:2000]
     assert rbf.kernel_matvec.launches == k1 + 1
     _both_close(got / 1.3, xs, (x / 0.7)[:2000], v[:2000])
+
+
+# the operators of the kernel family on the card: each fused covariance
+# against its plain route, with the launches by covariance id
+FAMILY = {
+    "matern52": (dict(nu=2.5), 1),
+    "matern32": (dict(nu=1.5), 2),
+    "matern12": (dict(nu=0.5), 3),
+    "rq": (dict(alpha=2.0), 4),
+}
+
+
+def _family_operator(family, x, x2=None, fused=True, **kw):
+    from linear_operator_tpu_torch.operators.kernel import matern_kernel_operator, rq_kernel_operator
+
+    extra, _ = FAMILY[family]
+    make = rq_kernel_operator if family == "rq" else matern_kernel_operator
+    return make(x, x2, lengthscale=torch.tensor([0.6, 0.7, 0.8], device=x.device), outputscale=0.693,
+                use_fused_kernels=fused, materialize_threshold=None, **extra, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", list(FAMILY))
+def test_kernel_family_fused_matches_plain(cuda, family):
+    """Each covariance's fused operator (K3 for a narrow symmetric rhs, K1
+    for a cross-covariance, K2 in the backward) against its plain route on
+    the card, with every launch under the covariance's id and none under
+    another."""
+    x, xs, v, g = _data(cuda, 40, (3000, 3), (64, 3), (3000, 11), (3000, 11))
+    covar_id = FAMILY[family][1]
+    rbf.reset_launch_counts()
+    op, plain = _family_operator(family, x), _family_operator(family, x, fused=False)
+    _close(op @ v, plain @ v, 1e-4)
+    cross, cross_plain = _family_operator(family, xs, x), _family_operator(family, xs, x, fused=False)
+    _close(cross @ v, cross_plain @ v, 1e-4)
+    leaves = [x.clone().requires_grad_() for _ in range(2)]
+    grads = [torch.autograd.grad(torch.sum(g * (_family_operator(family, a, fused=f) @ v)), a)[0]
+             for a, f in zip(leaves, (True, False))]
+    _close(grads[0], grads[1], 1e-3)
+    # K3: the mat-vec and the gradient's forward; K2: the gradient's two
+    # halves of dx (x is both arguments); K1: the cross-covariance
+    assert rbf.kernel_matvec_sym.launches_by_covar == {covar_id: 2}
+    assert rbf.kernel_matvec.launches_by_covar == {covar_id: 1}
+    assert rbf.kernel_weighted.launches_by_covar == {covar_id: 2}
+
+
+@pytest.mark.cuda
+def test_registered_covariance_runs_its_cuda_bodies_in_the_kernels(cuda):
+    """A covariance registered with CUDA bodies is compiled into builds of
+    K1, K3, K2 and K4 of its own and launches them under id 5 (COVAR_USER),
+    each against its plain version; the built-in covariances keep their
+    default builds."""
+    name = rbf.register_tile_covar("cuda_test_cauchy", lambda d2: 1.0 / (1.0 + d2), lambda d2: -1.0 / (1.0 + d2) ** 2,
+                                   cuda_covar="1.0f / (1.0f + d2)",
+                                   cuda_dcovar="-1.0f / ((1.0f + d2) * (1.0f + d2))")
+    x1, x2, v, g = _data(cuda, 41, (500, 3), (700, 3), (700, 4), (500, 4))
+    rbf.reset_launch_counts()
+    _close(rbf.kernel_matvec(x1, x2, v, name), rbf.kernel_matvec_plain(x1, x2, v, name))
+    _close(rbf.kernel_matvec(x1, x2, v, name), rbf.kernel_matvec_acc3_plain(x1, x2, v, name), ACC3_RTOL)
+    _close(rbf.kernel_matvec_sym(x1, g, name), rbf.kernel_matvec_plain(x1, x1, g, name))
+    for got, want in zip(rbf.kernel_weighted(x1, x2, g, v, name), rbf.kernel_weighted_plain(x1, x2, g, v, name)):
+        _close(got, want)
+    _tiles_close(rbf.rbf_build_sym_tiles(x1, 128, name), rbf.rbf_build_sym_tiles_plain(x1, 128, name))
+    counts = [w.launches_by_covar for w in (rbf.kernel_matvec, rbf.kernel_matvec_sym, rbf.kernel_weighted,
+                                            rbf.rbf_build_sym_tiles)]
+    assert counts == [{5: 2}, {5: 1}, {5: 1}, {5: 1}]
+    # the gradients: K2 twice through K1's backward, K1 again for dv
+    leaves = [a.clone().requires_grad_() for a in (x1, x2, v)]
+    grads = torch.autograd.grad(torch.sum(g * rbf.kernel_matvec(*leaves, name)), leaves)
+    want = torch.autograd.grad(torch.sum(g * rbf.kernel_matvec_plain(*leaves, name)), leaves)
+    for got, ref in zip(grads, want):
+        _close(got, ref)
+    assert rbf.kernel_weighted.launches_by_covar == {5: 3} and rbf.kernel_matvec.launches_by_covar == {5: 4}
+    rbf.kernel_matvec(x1, x2, v, "matern52")
+    assert rbf.kernel_matvec.launches_by_covar == {5: 4, 1: 1}
+
+
+@pytest.mark.cuda
+def test_registered_covariance_without_cuda_bodies_raises_on_the_card(cuda):
+    """A covariance registered with torch functions alone has no CUDA id:
+    every wrapper raises on CUDA tensors before any launch, and none runs a
+    plain version on the card."""
+    name = rbf.register_tile_covar("cuda_test_bare", lambda d2: 1.0 / (1.0 + d2), lambda d2: -1.0 / (1.0 + d2) ** 2)
+    x1, x2, v, g = _data(cuda, 42, (50, 3), (70, 3), (70, 4), (50, 4))
+    rbf.reset_launch_counts()
+    for call in (lambda: rbf.kernel_matvec(x1, x2, v, name), lambda: rbf.kernel_matvec_sym(x1, g, name),
+                 lambda: rbf.kernel_weighted(x1, x2, g, v, name), lambda: rbf.rbf_build_sym_tiles(x1, 128, name)):
+        with pytest.raises(ValueError, match="without CUDA bodies"):
+            call()
+    assert [w.launches for w in (rbf.kernel_matvec, rbf.kernel_matvec_sym, rbf.kernel_weighted,
+                                 rbf.rbf_build_sym_tiles)] == [0, 0, 0, 0]

@@ -21,6 +21,7 @@ import linear_operator_tpu as jlo
 import linear_operator_tpu_torch as tlo
 from test_torch_gp_slice import _Both, _close, _gp_data, _models, _np
 from test_torch_roots import same_draws  # noqa: F401  (a fixture)
+from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 RTOL = 1e-10
 

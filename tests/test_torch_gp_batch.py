@@ -25,6 +25,7 @@ from test_torch_gp_slice import (  # noqa: F401  (same_probes is a fixture)
     _port_grads,
     same_probes,
 )
+from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 

@@ -48,6 +48,7 @@ from linear_operator_tpu_torch.operators.low_rank_root_added_diag import (
 from linear_operator_tpu_torch.solvers.lanczos import lanczos_tridiag_to_diag as t_tridiag_to_diag
 from linear_operator_tpu_torch.solvers.linear_cg import linear_cg as t_linear_cg
 from linear_operator_tpu_torch.solvers.stochastic_lq import slq_quadrature as t_slq
+from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _np(a):

@@ -30,6 +30,7 @@ from linear_operator_tpu.ops import rbf as jrbf
 from linear_operator_tpu_torch import _build, kernel_variants
 from linear_operator_tpu_torch.operators.kernel import rbf_kernel_operator
 from linear_operator_tpu_torch.ops import rbf as trbf
+from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 COVARS = ["rbf", "matern52", "matern32", "matern12", "rq"]
@@ -361,6 +362,22 @@ def test_kernel_sources_hash_into_library_names():
     paths = {_build.library_path(name) for name in _build.sources()}
     assert len(paths) == 5 and all(p.parent == _build.BUILD_DIR for p in paths)
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_registered_covariance_builds_hash_its_cuda_bodies():
+    """A registered covariance's CUDA bodies go into a pre-included header,
+    whose text keys builds of their own beside the default ones."""
+    header = _build.covar_header("1.0f / (1.0f + d2)", "-1.0f / ((1.0f + d2) * (1.0f + d2))")
+    assert "#define LO_USER_COVAR 1" in header and "float user_dcovar(float d2)" in header
+    other = _build.covar_header("1.0f / (1.0f + 2.0f * d2)", "-2.0f / ((1.0f + 2.0f * d2) * (1.0f + 2.0f * d2))")
+    paths = {_build.library_path("kernel_matvec", h) for h in ("", header, other)}
+    assert len(paths) == 3 and _build.library_path("kernel_matvec", header).name.startswith("kernel_matvec-covar-")
+    # the sources compile the id only where the header defines it
+    covar = (_build.CSRC / "covar.cuh").read_text()
+    assert "#define COVAR_USER 5" in covar and "#ifdef LO_USER_COVAR" in covar
+    for src in ("kernel_matvec", "kernel_matvec_sym", "kernel_weighted", "kernel_build_sym"):
+        text = (_build.CSRC / f"{src}.cu").read_text()
+        assert "#ifdef LO_USER_COVAR\n    case COVAR_USER:" in text, src
 
 
 _PTXAS_LOG = """\

@@ -24,6 +24,7 @@ from linear_operator_tpu_torch.functions import _root_decomposition as t_roots
 from linear_operator_tpu_torch.models.gp import love_posterior
 from test_torch_gp_slice import _Both, _close, _models, _np
 from test_torch_roots import _gram, same_draws  # noqa: F401  (same_draws is a fixture)
+from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # the module (the package's ``solvers.linear_cg`` is the function)
 t_linear_cg = importlib.import_module("linear_operator_tpu_torch.solvers.linear_cg")

@@ -24,6 +24,7 @@ from linear_operator_tpu_torch.functions import pivoted_cholesky as t_pivoted_ch
 from linear_operator_tpu_torch.operators import kernel as tkernel
 from linear_operator_tpu_torch.operators.dense import DenseLinearOperator as TorchDense
 from linear_operator_tpu_torch.solvers.pivoted_cholesky import _blocked_pivoted_cholesky as t_blocked
+from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _np(a):

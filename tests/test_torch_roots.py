@@ -29,6 +29,7 @@ from linear_operator_tpu_torch.solvers.lanczos import lanczos_tridiag as t_lancz
 from linear_operator_tpu_torch.utils.eigh import eigh_safe as t_eigh_safe
 from linear_operator_tpu_torch.utils.errors import NotPSDError as TNotPSD
 from test_torch_gp_slice import _Both, _close, _np, _spd
+from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N = 60  # the dense operators' size
 

@@ -35,6 +35,7 @@ from linear_operator_tpu_torch.operators import GridInterpolatedLinearOperator, 
 from linear_operator_tpu_torch.utils import sparse as tsp
 from test_torch_gp_slice import _Both, _close, _grad_close, _np
 from test_torch_structure import _jit
+from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 F64 = 1e-8
 CG64 = 1e-7

@@ -25,6 +25,7 @@ from linear_operator_tpu.models.ski import rbf_toeplitz_column as j_column
 from linear_operator_tpu_torch.models.ski import rbf_toeplitz_column as t_column
 from test_torch_gp_slice import _Both, _close, _grad_close, _np
 from test_torch_roots import same_draws  # noqa: F401  (a fixture)
+from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # the modules (each package's utils exports a function of the same name)
 jtz = importlib.import_module("linear_operator_tpu.utils.toeplitz")

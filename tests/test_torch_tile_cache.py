@@ -34,6 +34,7 @@ from linear_operator_tpu_torch.operators.low_rank_root_added_diag import (
     LowRankRootAddedDiagLinearOperator as TorchLowRank,
 )
 from linear_operator_tpu_torch.ops import rbf as trbf
+from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 COVARS = ["rbf", "matern52", "matern32", "matern12", "rq"]
 

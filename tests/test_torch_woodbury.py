@@ -29,6 +29,7 @@ from linear_operator_tpu_torch import operators as tops
 from linear_operator_tpu_torch.utils.warnings import PerformanceWarning
 from test_torch_gp_slice import _Both, _close, _np
 from test_torch_roots import same_draws  # noqa: F401  (a fixture)
+from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N, RANK, NOISE = 1000, 20, 0.5
 RTOL = 1e-10
