@@ -133,8 +133,25 @@ Phases, each reported on its own line:
     multi-output operator on the blocked engine, no kernel launch, held
     against f64; (c) a covariance registered at run time with CUDA bodies,
     compiled into builds of K1-K4 of its own and launched under its id;
+18. the inducing-point, classification, multitask and deep-kernel models at
+    full width: (a) SGPR at N = 1,000,000, m = 512 (phase_sgpr): neg_elbo
+    and its backward through the exact Woodbury forms, three Adam steps, the
+    posterior at 1024 points, no kernel, CG or Lanczos; f32 against f64 at
+    n = 100,000; (b) SVGP at N = 1,000,000, m = 1024, minibatches of 1024
+    (phase_svgp): 50 timed steps, the full-data predictive, the posterior
+    distribution and its log_prob; f32 against f64 on one minibatch; (c) the
+    probit and logit classifiers and Poisson regression at (b)'s sizes
+    (phase_classification); (d) the multitask GP at n = 10,000, T = 4
+    (phase_multitask): the Kronecker closed forms, eigh's share of the step,
+    the posteriors, held against f64 at n = 2000; (e) DKL at N = 100,000,
+    d_in = 8, hidden (1000, 1000, 500, 50, 2) (phase_dkl): the training step
+    (K3 once per CG iteration, the backward's two K2 launches carrying the
+    gradient into the MLP), held against the plain path on the same probes
+    (the loss, and the first layer's gradient at a noise where f32 solves
+    are accurate), three Adam steps, the posterior (K1), the LOVE cache (K3 at t = 1) and
+    queries (two K1 launches); the launches join the kernels line;
  7. one JSON line listing every ported kernel with its launches (K3's and
-    K1's including phases 12 and 13), error, times and bound (bound_basis:
+    K1's including phases 12, 13 and 18e), error, times and bound (bound_basis:
     the f32 rate for K4, the tensor cores' for K1, K2, K3 and K5; K5's t = 1
     time as ms_t1, the write-only pass beside K4 as write_only_ms; K3 at
     t = 1 as ms_t1, at config 6's shapes as ms_ciq_t16 and ms_ciq_t1, and K1
@@ -149,7 +166,8 @@ Without a CUDA device, or without the package beside it, it fails at once.
     python3 chip_smoke.py --only woodbury,kron_toeplitz,ski [--package DIR]
 
 runs only the named module-level phases (woodbury, kron_toeplitz, ski,
-indexing, fantasy, harness, kernel_family) after the build, with the package taken from DIR
+indexing, fantasy, harness, kernel_family, sgpr, svgp, classification,
+multitask, dkl) after the build, with the package taken from DIR
 (another commit's checkout) when given: the same phases, one card, two
 commits.
 """
@@ -233,13 +251,50 @@ N_HARNESS, HARNESS_JITTER, HARNESS_LS = 512, 0.04, 0.06
 # prints the largest error each key sees, as a share of its limit and of the
 # harness's own; PERF.md puts the card's readings beside these limits)
 # 17: the kernel family at config 3's data: the per-dimension lengthscale,
-# outputscale and noise of 17a, the size at which Matern-3/2, Matern-1/2 and
-# RQ are held against the plain path; 17b's 1-D series (periodic and spectral
+# outputscale and noise of 17a, the size at which each covariance is held
+# against the plain path (the plain path at N = 1e5 with CG to 1e-4 took a
+# minute for Matern-5/2); 17b's 1-D series (periodic and spectral
 # mixture: 16,384^2 f32 entries are the 1 GiB materialize_threshold) with its
 # mixture's components, and the LMC operator's points (two rows each); 17c's
 # size
 FAMILY_LS, FAMILY_OS, FAMILY_NOISE, N_FAMILY_HELD = (0.6, 0.7, 0.8), 0.693, 0.127, 20_000
 N_SERIES, Q_MIXTURE, N_LMC, N_REGISTERED = 16_384, 4, 20_000, 4096
+# 18, the models at full width: (a) SGPR's points, inducing points and the
+# size of its f32-against-f64 hold; (b, c) SVGP's points, inducing points,
+# minibatch and steps; (d) the multitask model's points, tasks, task rank and
+# the size of its hold; (e) DKL's points, input dimension and MLP widths
+# (Wilson et al. 2016's for data sets above 6000 points); the query points of
+# every posterior, and the Adam steps of 18a and 18e
+N_SGPR, M_SGPR, N_SGPR_HELD = 1_000_000, 512, 100_000
+N_SVGP, M_SVGP, B_SVGP, SVGP_STEPS = 1_000_000, 1024, 1024, 50
+N_MT, T_MT, RANK_MT, N_MT_HELD = 10_000, 4, 2, 2000
+N_DKL, D_DKL, HIDDEN_DKL = 100_000, 8, (1000, 1000, 500, 50, 2)
+M_QUERY, ADAM_STEPS = 1024, 3
+# the f32-against-f64 holds of 18a-18c.  f32's Cholesky of K_mm (m = 512) or
+# K_zz (m = 1024) in a dense cloud takes psd_safe_cholesky's jitter where
+# f64's does not, as in the JAX package; SGPR's trace term is a difference of
+# sums of 1e5 entries, and SVGP's z and lengthscale gradients come through
+# that factor.  SGPR: the loss in nats a point and the gradient as a share of
+# its norm.  SVGP and its siblings, at the trained parameters (at the prior q
+# the predictive does not depend on z or the lengthscale), both dtypes at
+# SVGP_HELD_JITTER, fixed here, where f32's factor needs no more (checked), so
+# that both factor one matrix: the loss relative and the gradient as a share
+# of its norm, about 4x the largest gaps of the four models on an H100
+# (1.3e-4 and 9.7e-4); with TF32 products the gradient moves by 0.1-0.3, so
+# the same f32 model with TF32 allowed must fail them.  Against f64 at the
+# model's own jitter (another matrix) the gap is reported
+SGPR_LOSS_ATOL, SGPR_GRAD_RTOL = 5e-3, 5e-2
+SVGP_HELD_JITTER, SVGP_LOSS_RTOL, SVGP_GRAD_RTOL = 1e-4, 5e-4, 5e-3
+# 18e: the noises at which the first layer's weight gradient of the MLL's
+# inverse quadratic term is compared (the model's own first), with CG to
+# DKL_HELD_CG_TOL (at most DKL_HELD_CG_MAX iterations).  At the model's
+# noise K's condition is ~1e5 and the fused path's gradient lies ~1e-2 from
+# f64 and from itself, the plain path's ~2e-4 (the kernels' three bf16
+# products and K3's atomic sums, amplified by the condition); the gap falls
+# with the noise to ~2e-5 at DKL_HELD_NOISE, where it and the whole loss's
+# gradient are held, fused against plain, to DKL_GRAD_RTOL of its norm
+DKL_NOISES, DKL_HELD_NOISE = (0.127, 1.0, 10.0, 100.0), 100.0
+DKL_GRAD_RTOL, DKL_HELD_CG_TOL, DKL_HELD_CG_MAX = 1e-4, 1e-6, 400
 HARNESS_KERNEL_TOLERANCES = {
     "matmul": {"rtol": 1e-4, "atol": 2e-4},
     "grad": {"rtol": 1e-3, "atol": 1e-3},
@@ -1210,12 +1265,15 @@ def phase_ski(c) -> None:
     torch.cuda.empty_cache()
 
 
-def _main_path_data(c, n=N):
-    """Phase 5's data: x (n, D) and y from the same seeded generator."""
+def _main_path_data(c, n=N, d=D):
+    """Phase 5's data: x (n, d) ~ N(0, I) and y = sin(3 x_0) + 0.1 eps from
+    the same seeded generator; the first n of phase 5's N points where n <= N
+    and d = D, the same law drawn at the size asked for otherwise."""
     torch = c.torch
+    rows = max(n, N)
     kg = torch.Generator(device=c.dev).manual_seed(10)
-    x = torch.randn(N, D, device=c.dev, generator=kg)
-    y = torch.sin(3.0 * x[:, 0]) + 0.1 * torch.randn(N, device=c.dev, generator=kg)
+    x = torch.randn(rows, d, device=c.dev, generator=kg)
+    y = torch.sin(3.0 * x[:, 0]) + 0.1 * torch.randn(rows, device=c.dev, generator=kg)
     return x[:n].contiguous(), y[:n].contiguous()
 
 
@@ -1909,7 +1967,555 @@ def _family_registered(c) -> None:
         fail("a covariance registered without CUDA bodies did not raise on CUDA tensors")
 
 
-PHASES = ("woodbury", "kron_toeplitz", "ski", "indexing", "fantasy", "harness", "kernel_family")
+def _timed(torch, fn):
+    """``fn()`` and its seconds on the host clock, the card synchronised
+    before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _spread(seconds) -> str:
+    """Median, min and max of a list of seconds, in ms."""
+    ms = [1e3 * s for s in seconds]
+    return f"median {statistics.median(ms):.3f} ms (min {min(ms):.3f}, max {max(ms):.3f}, of {len(ms)})"
+
+
+def _grad_vector(torch, model):
+    """Every parameter's gradient, flattened in f64 (zeros where the loss
+    does not reach it)."""
+    return torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p)).double().ravel()
+                      for p in model.parameters()])
+
+
+def _f32_against_f64(c, model, make_f64, loss_fn, label):
+    """The loss and every gradient of ``model`` (f32) against an f64 copy of
+    it (``make_f64()``, the state carried across), on the same inputs
+    (``loss_fn(model, dtype)``): the loss's relative gap, the whole
+    gradient's gap relative to its norm, and each parameter's, printed."""
+    torch = c.torch
+    twin = make_f64()
+    twin.load_state_dict(model.state_dict())
+    out = []
+    for m, dtype in ((model, torch.float32), (twin, torch.float64)):
+        m.zero_grad(set_to_none=True)
+        loss = loss_fn(m, dtype)
+        loss.backward()
+        out.append((float(loss.detach()), _grad_vector(torch, m)))
+    (l32, g32), (l64, g64) = out
+    e_loss = abs(l32 - l64) / abs(l64)
+    e_grad = float((g32 - g64).norm() / g64.norm())
+    each = {name: float((p.grad.double() - q.grad).norm() / q.grad.norm())
+            for (name, p), q in zip(model.named_parameters(), twin.parameters()) if q.grad is not None}
+    say(f"  {label}: f32 loss {l32:.8g}, f64 {l64:.8g} (rel {e_loss:.2e}); gradient {e_grad:.2e} of its norm; "
+        f"by parameter: " + ", ".join(f"{k} {v:.2e}" for k, v in each.items()))
+    model.zero_grad(set_to_none=True)
+    del twin
+    return e_loss, e_grad, l32, l64
+
+
+def phase_sgpr(c) -> None:
+    """18a. SGPR (Titsias 2009) at N = 1,000,000, d = 3, m = 512 inducing
+    points: neg_elbo and its backward (gradients to z and the
+    hyperparameters) through the exact Woodbury forms of the
+    LowRankRootAddedDiag operator, three Adam steps, the posterior at 1024
+    query points; no kernel launch, no linear_cg, no Lanczos, no Cholesky
+    but L_mm's and the posterior's m x m ones; each part's time and the peak
+    device memory.  Held: f32 against f64 on the card at n = 100,000 (the
+    first rows), the loss to SGPR_LOSS_ATOL nats a point and the gradient to
+    SGPR_GRAD_RTOL of its norm (f32's K_mm at m = 512 takes
+    psd_safe_cholesky's jitter; the trace term is a difference of large
+    sums)."""
+    torch, lo, settings = c.torch, c.lo, c.settings
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x, y = _main_path_data(c, N_SGPR)
+    gq = torch.Generator(device=c.dev).manual_seed(180)
+    xq = torch.randn(M_QUERY, D, device=c.dev, generator=gq)
+    model = lo.SGPRRegression(x, M_SGPR, device=c.dev)
+    opt = torch.optim.Adam(model.parameters(), lr=0.01)
+    c.reset_counts()
+    c.log.clear()
+    with settings.verbose_linalg(True):
+        loss, fwd_s = _timed(torch, lambda: model.neg_elbo(x, y))
+        _, bwd_s = _timed(torch, loss.backward)
+        first = float(loss.detach())
+        grads = {name: float(p.grad.norm()) for name, p in model.named_parameters()}
+        steps, losses = [], []
+        for _ in range(ADAM_STEPS):
+            def adam_step():
+                opt.zero_grad()
+                step_loss = model.neg_elbo(x, y)
+                step_loss.backward()
+                opt.step()
+                return float(step_loss.detach())
+            value, s = _timed(torch, adam_step)
+            steps.append(s)
+            losses.append(value)
+        with torch.no_grad():
+            (mean, var), post_s = _timed(torch, lambda: model.posterior(x, y, xq))
+    launched, names, iters = c.counts(), list(c.log.names), list(c.log.counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"SGPR (18a) N={N_SGPR} d={D} m={M_SGPR}: neg_elbo {first:.8f}, forward {fwd_s * 1e3:.3f} ms, backward "
+        f"{bwd_s * 1e3:.3f} ms, gradient norms {', '.join(f'{k} {v:.3e}' for k, v in grads.items())}; Adam steps "
+        f"{_spread(steps)}, losses {losses}; posterior at {M_QUERY} points {post_s * 1e3:.3f} ms; launches "
+        f"{launched}; solvers {sorted(set(names))} ({len(names)} calls); peak device memory {peak:.3f} GiB")
+    if any(launched.values()) or iters or "linear_cg" in names or "lanczos_tridiag" in names:
+        fail("the SGPR path launched a kernel or ran CG or Lanczos: it must run the Woodbury closed forms alone")
+    if set(names) - {"psd_safe_cholesky"}:
+        fail(f"the SGPR path ran {sorted(set(names))}: only m x m Cholesky factors are expected")
+    if not (math.isfinite(first) and all(math.isfinite(v) and v > 0 for v in grads.values())
+            and all(math.isfinite(v) for v in losses) and losses[-1] < first):
+        fail("the SGPR step is not finite, leaves a parameter without a gradient, or Adam did not lower the loss")
+    if not (torch.isfinite(mean).all() and torch.isfinite(var).all() and bool((var >= 0).all())):
+        fail("the SGPR posterior is not finite or has a negative variance")
+    del model, opt, loss, x, y
+    torch.cuda.empty_cache()
+    xh, yh = _main_path_data(c, N_SGPR_HELD)
+    held = lo.SGPRRegression(xh, M_SGPR, device=c.dev)
+    e_loss, e_grad, l32, l64 = _f32_against_f64(
+        c, held, lambda: lo.SGPRRegression(xh.double(), M_SGPR, device=c.dev),
+        lambda m, dt: m.neg_elbo(xh.to(dt), yh.to(dt)), f"held at n={N_SGPR_HELD}")
+    if not (abs(l32 - l64) <= SGPR_LOSS_ATOL and e_grad <= SGPR_GRAD_RTOL):
+        fail("SGPR in f32 disagrees with f64 beyond the stated tolerances")
+    del held, xh, yh
+    torch.cuda.empty_cache()
+
+
+def _svgp_train(c, model, x, target, label):
+    """SVGP_STEPS minibatch steps of ``model.neg_elbo(..., num_data=N)`` with
+    Adam, each timed on the host clock; then f32 against f64 on one more
+    minibatch at the trained parameters: reported with the model's jitter,
+    held with both at SVGP_HELD_JITTER (f32's K_zz must take no more), and
+    the held f32 model again with TF32 products allowed, which the hold must
+    see."""
+    from linear_operator_tpu_torch.utils.cholesky import psd_safe_cholesky_ex
+
+    torch = c.torch
+    n = x.shape[0]
+    opt = torch.optim.Adam(model.parameters(), lr=0.01)
+    gb = torch.Generator(device=c.dev).manual_seed(181)
+    steps, losses = [], []
+    for _ in range(SVGP_STEPS):
+        idx = torch.randint(0, n, (B_SVGP,), device=c.dev, generator=gb)
+
+        def step():
+            opt.zero_grad()
+            loss = model.neg_elbo(x[idx], target[idx], num_data=n)
+            loss.backward()
+            opt.step()
+            return float(loss.detach())
+
+        value, s = _timed(torch, step)
+        steps.append(s)
+        losses.append(value)
+    say(f"{label}: {SVGP_STEPS} steps of B={B_SVGP} (num_data={n}): first {steps[0] * 1e3:.3f} ms, then "
+        f"{_spread(steps[1:])}; loss {losses[0]:.6g} -> {losses[-1]:.6g}")
+    if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+        fail(f"{label}: the minibatch steps are not finite or did not lower the loss")
+    idx = torch.randint(0, n, (B_SVGP,), device=c.dev, generator=gb)
+    xb, tb = x[idx], target[idx]
+    m = model.z.shape[0]
+
+    def copy(dtype, jitter):
+        twin = type(model)(xb.to(dtype), m, jitter=jitter, device=c.dev, **_svgp_kwargs(model))
+        twin.load_state_dict(model.state_dict())
+        return twin
+
+    def loss_fn(mdl, dtype):
+        return mdl.neg_elbo(xb.to(dtype), tb.to(dtype), num_data=n)
+
+    where = "one minibatch at the trained parameters"
+    _f32_against_f64(c, model, lambda: copy(torch.float64, model.jitter), loss_fn,
+                     f"{where}, f64 at the model's jitter {model.jitter:g} (reported)")
+    held = copy(torch.float32, SVGP_HELD_JITTER)
+    with torch.no_grad():
+        ls, os_, _ = held._hyp()
+        k_zz = held.covar_func(held.z, held.z, lengthscale=ls, outputscale=os_)
+        took = float(psd_safe_cholesky_ex(k_zz + SVGP_HELD_JITTER * torch.eye(m, device=c.dev)).jitter)
+    e_loss, e_grad, _, _ = _f32_against_f64(c, held, lambda: copy(torch.float64, SVGP_HELD_JITTER), loss_fn,
+                                            f"{where}, both at jitter {SVGP_HELD_JITTER:g} (held; f32's factor took "
+                                            f"{took:g} more)")
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        c_loss, c_grad, _, _ = _f32_against_f64(c, held, lambda: copy(torch.float64, SVGP_HELD_JITTER), loss_fn,
+                                                f"{where}, both at jitter {SVGP_HELD_JITTER:g}, control: f32 with "
+                                                f"TF32 products allowed")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if took:
+        fail(f"{label}: f32's K_zz needs more jitter than {SVGP_HELD_JITTER:g}")
+    if not (e_loss <= SVGP_LOSS_RTOL and e_grad <= SVGP_GRAD_RTOL):
+        fail(f"{label} in f32 disagrees with f64 beyond the stated tolerances")
+    if c_loss <= SVGP_LOSS_RTOL and c_grad <= SVGP_GRAD_RTOL:
+        fail(f"{label}: the hold does not see TF32 products (the control passes it)")
+
+
+def _svgp_kwargs(model):
+    return {"likelihood": model.likelihood} if hasattr(model, "likelihood") else {}
+
+
+def phase_svgp(c) -> None:
+    """18b. SVGP regression (Hensman et al. 2013) with N = 1,000,000 points on
+    the device, m = 1024 inducing points, minibatches of 1024: 50 steps of
+    neg_elbo(..., num_data=N).backward() and Adam, timed a step; one
+    full-data predictive over the N points (no_grad); posterior_distribution
+    at 1024 points and its log_prob of the noiseless target there (by
+    Cholesky: max_cholesky_size(1024)).  No kernel launch.  Held: f32
+    against f64 on one minibatch at the trained parameters, both at
+    SVGP_HELD_JITTER, the loss to SVGP_LOSS_RTOL and the gradient to
+    SVGP_GRAD_RTOL of its norm, and the same f32 model with TF32 products
+    allowed must exceed one of them; against f64 at the model's own jitter,
+    reported."""
+    torch, lo = c.torch, c.lo
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x, y = _main_path_data(c, N_SVGP)
+    model = lo.SVGPRegression(x, M_SVGP, device=c.dev)
+    c.reset_counts()
+    _svgp_train(c, model, x, y, f"SVGP regression (18b) N={N_SVGP} m={M_SVGP}")
+    with torch.no_grad():
+        (mean, var), pred_s = _timed(torch, lambda: model.predictive(x))
+        rmse = float(torch.sqrt(torch.mean((mean - y) ** 2)))
+        xq = torch.randn(M_QUERY, D, device=c.dev, generator=torch.Generator(device=c.dev).manual_seed(182))
+        mvn, dist_s = _timed(torch, lambda: model.posterior_distribution(xq))
+        # the 1024 x 1024 posterior covariance is nearly singular (K_ss less
+        # its explained part, plus the jitter): Cholesky, not CG, at this size
+        with c.settings.max_cholesky_size(M_QUERY):
+            lp, lp_s = _timed(torch, lambda: mvn.log_prob(torch.sin(3.0 * xq[:, 0])))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    say(f"  predictive over the N={N_SVGP} points {pred_s * 1e3:.3f} ms (RMSE against y {rmse:.4f}); "
+        f"posterior_distribution at {M_QUERY} points {dist_s * 1e3:.3f} ms, its log_prob {float(lp):.4f} in "
+        f"{lp_s * 1e3:.3f} ms; launches {c.counts()}; peak device memory {peak:.3f} GiB")
+    if any(c.counts().values()):
+        fail("SVGP launched a kernel: it runs PyTorch's dense products alone")
+    if not (torch.isfinite(mean).all() and bool((var > 0).all()) and math.isfinite(float(lp))):
+        fail("the SVGP predictive or the posterior distribution's log_prob is not finite")
+    del model, x, y, mean, var, mvn
+    torch.cuda.empty_cache()
+
+
+def phase_classification(c) -> None:
+    """18c. SVGPClassification (probit and logit, Q = 20 Gauss-Hermite
+    points) and SVGPPoissonRegression at 18b's sizes: labels y > 0, counts
+    drawn from a seeded Poisson of rate exp(sin(3 x_0)); each trained as 18b
+    (steps timed, f32 against f64 on one minibatch at the trained
+    parameters, the same tolerances), then predict_proba or predict_rate
+    over the N points.  No kernel launch."""
+    torch, lo = c.torch, c.lo
+    torch.cuda.empty_cache()
+    x, y = _main_path_data(c, N_SVGP)
+    labels = (y > 0).to(x.dtype)
+    rate = torch.exp(torch.sin(3.0 * x[:, 0]))
+    counts = torch.poisson(rate, generator=torch.Generator(device=c.dev).manual_seed(183))
+    c.reset_counts()
+    for label, model, target in [
+        ("probit", lo.SVGPClassification(x, M_SVGP, likelihood="probit", device=c.dev), labels),
+        ("logit", lo.SVGPClassification(x, M_SVGP, likelihood="logit", device=c.dev), labels),
+        ("poisson", lo.SVGPPoissonRegression(x, M_SVGP, device=c.dev), counts),
+    ]:
+        _svgp_train(c, model, x, target, f"SVGP {label} (18c) N={N_SVGP} m={M_SVGP}")
+        with torch.no_grad():
+            if label == "poisson":
+                out, s = _timed(torch, lambda: model.predict_rate(x))
+                quality = f"mean |rate - true rate| / true rate {float(torch.mean((out - rate).abs() / rate)):.4f}"
+                ok = bool((out > 0).all())
+            else:
+                out, s = _timed(torch, lambda: model.predict_proba(x))
+                quality = f"accuracy {float(((out >= 0.5).to(x.dtype) == labels).to(torch.float64).mean()):.4f}"
+                ok = bool(((out >= 0) & (out <= 1)).all())
+        say(f"  {'predict_rate' if label == 'poisson' else 'predict_proba'} over the N={N_SVGP} points "
+            f"{s * 1e3:.3f} ms, {quality}")
+        if not (ok and torch.isfinite(out).all()):
+            fail(f"SVGP {label}: the predictions are not finite or out of range")
+        del model, out
+        torch.cuda.empty_cache()
+    if any(c.counts().values()):
+        fail("the classification and Poisson models launched a kernel")
+    del x, y, labels, rate, counts
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _eigh_timer(torch):
+    """torch.linalg.eigh, inside the block, timed call by call with CUDA
+    events; yields the list of (shape, ms), filled when the block ends."""
+    real, events, seen = torch.linalg.eigh, [], []
+
+    def timed(a, *args, **kwargs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real(a, *args, **kwargs)
+        end.record()
+        events.append((tuple(a.shape), start, end))
+        return out
+
+    torch.linalg.eigh = timed
+    try:
+        yield seen
+    finally:
+        torch.linalg.eigh = real
+        torch.cuda.synchronize()
+        seen.extend((shape, start.elapsed_time(end)) for shape, start, end in events)
+
+
+def phase_multitask(c) -> None:
+    """18d. The multitask GP (Bonilla et al. 2008) at n = 10,000, T = 4 tasks,
+    rank 2, d = 3 (nT = 40,000 rows): neg_mll(...).backward() through the
+    Kronecker closed forms (the factors' eigendecompositions), cold and
+    warm, with the share of the step spent in eigh; posterior_mean and the
+    LOVE posterior at 1024 query points.  No kernel launch, no CG.  Held
+    against f64 at n = 2000: the loss to 1e-4 and the posteriors to 1e-3 of
+    their largest entry; the f32 gradient reported (its eigenvector
+    derivatives meet gaps of f32 rounding: ROADMAP.md queue 3)."""
+    torch, lo, settings = c.torch, c.lo, c.settings
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x, _ = _main_path_data(c, N_MT)
+    gm = torch.Generator(device=c.dev).manual_seed(184)
+    ys = torch.stack([torch.sin(3.0 * x[:, 0] + i) for i in range(T_MT)], dim=-1)
+    ys = ys + 0.1 * torch.randn(N_MT, T_MT, device=c.dev, generator=gm)
+    xq = torch.randn(M_QUERY, D, device=c.dev, generator=gm)
+    model = lo.MultitaskGPRegression(T_MT, RANK_MT, device=c.dev)
+    c.reset_counts()
+    c.log.clear()
+    runs = []
+    with settings.verbose_linalg(True):
+        for _ in range(2):
+            model.zero_grad(set_to_none=True)
+            with _eigh_timer(torch) as eighs:
+                loss, fwd_s = _timed(torch, lambda: model.neg_mll(x, ys))
+                _, bwd_s = _timed(torch, loss.backward)
+            runs.append((float(loss.detach()), fwd_s, bwd_s, list(eighs)))
+        with torch.no_grad():
+            pm, pm_s = _timed(torch, lambda: model.posterior_mean(x, ys, xq))
+            (mean, var), post_s = _timed(torch, lambda: model.posterior(x, ys, xq))
+    for label, (value, fwd_s, bwd_s, eighs) in zip(("cold", "warm"), runs):
+        eigh_ms = sum(ms for _, ms in eighs)
+        say(f"multitask (18d, {label}) n={N_MT} T={T_MT} rank={RANK_MT} (nT={N_MT * T_MT}): neg_mll {value:.8f}, "
+            f"forward {fwd_s * 1e3:.3f} ms, backward {bwd_s * 1e3:.3f} ms; eigh {len(eighs)} calls "
+            f"({', '.join(f'{s} {ms:.3f} ms' for s, ms in eighs)}), {eigh_ms:.3f} ms, "
+            f"{100 * eigh_ms / (1e3 * (fwd_s + bwd_s)):.1f}% of the step")
+    _, fwd_s, bwd_s, eighs = runs[1]
+    say(f"  posterior_mean at {M_QUERY} points {pm_s * 1e3:.3f} ms, LOVE posterior {post_s * 1e3:.3f} ms; "
+        f"launches {c.counts()}; solvers {sorted(set(c.log.names))}; CG {c.log.counts}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if any(c.counts().values()) or c.log.counts or "lanczos_tridiag" in c.log.names:
+        fail("the multitask model launched a kernel or ran CG or Lanczos: it must run the Kronecker closed forms")
+    if not (all(math.isfinite(r[0]) for r in runs) and all(torch.isfinite(p.grad).all() for p in model.parameters())
+            and torch.isfinite(pm).all() and torch.isfinite(mean).all() and bool((var >= 0).all())):
+        fail("the multitask step or posterior is not finite")
+    if tuple(mean.shape) != (M_QUERY, T_MT) or float((pm - mean).abs().max()) > 1e-3 * float(pm.abs().max()):
+        fail("the multitask LOVE posterior's mean is not posterior_mean's")
+    del model, x, ys, loss
+    torch.cuda.empty_cache()
+    # held against f64 at n = N_MT_HELD
+    xh = _main_path_data(c, N_MT_HELD)[0]
+    yh = torch.stack([torch.sin(3.0 * xh[:, 0] + i) for i in range(T_MT)], dim=-1)
+    out = []
+    for dtype in (torch.float32, torch.float64):
+        m = lo.MultitaskGPRegression(T_MT, RANK_MT, dtype=dtype, device=c.dev)
+        xd, yd, xqd = xh.to(dtype), yh.to(dtype), xq.to(dtype)
+        loss = m.neg_mll(xd, yd)
+        loss.backward()
+        with torch.no_grad():
+            out.append((float(loss.detach()), _grad_vector(torch, m), m.posterior_mean(xd, yd, xqd).double(),
+                        *(t.double() for t in m.posterior(xd, yd, xqd))))
+    (l32, g32, *p32), (l64, g64, *p64) = out
+    e_loss = abs(l32 - l64) / abs(l64)
+    e_post = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(p32, p64))
+    say(f"  held at n={N_MT_HELD}: f32 loss {l32:.8f}, f64 {l64:.8f} (rel {e_loss:.2e}); posterior_mean, mean and "
+        f"variance {e_post:.2e} of their largest entries; the f32 gradient {float((g32 - g64).norm() / g64.norm()):.2e} "
+        f"of its norm (reported: f32 eigenvector derivatives), f32 {g32.tolist()[:2]}, f64 {g64.tolist()[:2]} "
+        f"(lengthscale, outputscale)")
+    if not (e_loss <= 1e-4 and e_post <= 1e-3):
+        fail("the multitask model in f32 disagrees with f64")
+    del out, xh, yh
+    torch.cuda.empty_cache()
+
+
+def phase_dkl(c) -> None:
+    """18e. Deep kernel learning (Wilson et al. 2016) at N = 100,000, d_in =
+    8, hidden (1000, 1000, 500, 50, 2), the fused kernels on the 2-d
+    features.  A training step neg_mll(...).backward() under the bench's
+    settings: K3 once per CG iteration in the forward; the backward's
+    gradient reaches the MLP through the kernel operator's data leaves: two
+    K2 launches and one K3 (the bilinear form's own mat-vec), a nonzero
+    gradient on the first layer's weights.  Held against the plain path on
+    the same probes: the loss to PATH_RTOL (its first-layer gradient
+    reported); at each noise of DKL_NOISES the first layer's weight gradient
+    of the inverse quadratic term y^T K^-1 y / 2n, with CG to
+    DKL_HELD_CG_TOL, against the plain path, itself and f64, reported; at
+    DKL_HELD_NOISE it and the whole loss's, to DKL_GRAD_RTOL of its norm.
+    Then three Adam steps; the
+    posterior at m = 64 (K1); posterior_cache under the LOVE settings (K3
+    at t = 1, once per CG iteration and per Lanczos step) and
+    posterior_from_cache at 1024 queries (two K1 launches)."""
+    torch, lo, settings = c.torch, c.lo, c.settings
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    x, y = _main_path_data(c, N_DKL, D_DKL)
+    gq = torch.Generator(device=c.dev).manual_seed(185)
+    x64, xq = (torch.randn(m, D_DKL, device=c.dev, generator=gq) for m in (M_STAR, M_QUERY))
+
+    def make(fused):
+        return lo.DeepKernelGPRegression(D_DKL, HIDDEN_DKL, generator=torch.Generator().manual_seed(186),
+                                         device=c.dev, block_rows=8192, use_fused_kernels=fused)
+
+    fused = make(True)
+    mlp_s = _timed(torch, lambda: fused.features(x))[1]
+
+    def train_step(model, seed, *overrides, inv_quad=False):
+        """One step on ``model`` (its own dtype) under the bench's settings
+        and ``overrides``: the negative MLL with probes from ``seed``, or with
+        ``inv_quad`` its inverse quadratic term alone, y^T K^-1 y / 2n by one
+        preconditioned CG solve, which draws nothing; the loss, the first
+        layer's weight gradient, the launches and the CG iterations."""
+        dt = model.mlp[0].weight.dtype
+        xx, yy = x.to(dt), y.to(dt)
+
+        def loss_fn():
+            if inv_quad:
+                return 0.5 * lo.inv_quad(model.train_operator(xx), yy[:, None]) / yy.shape[0]
+            return model.neg_mll(xx, yy, generator=torch.Generator().manual_seed(seed))
+
+        model.zero_grad(set_to_none=True)
+        c.reset_counts()
+        c.log.clear()
+        with bench_context(settings), settings.verbose_linalg(True), contextlib.ExitStack() as more:
+            for o in overrides:
+                more.enter_context(o)
+            loss, fwd_s = _timed(torch, loss_fn)
+            fwd, iters = c.counts(), list(c.log.counts)
+            _, bwd_s = _timed(torch, loss.backward)
+        bwd = {k: v - fwd[k] for k, v in c.counts().items()}
+        w1 = model.mlp[0].weight.grad.double().clone()
+        return dict(loss=float(loss.detach()), fwd_s=fwd_s, bwd_s=bwd_s, fwd=fwd, bwd=bwd, iters=iters,
+                    bwd_iters=list(c.log.counts)[len(iters):], w1=w1)
+
+    steps = {label: train_step(fused, 1) for label in ("cold", "warm")}
+    for label, st in steps.items():
+        say(f"DKL training step (18e, {label}) N={N_DKL} d_in={D_DKL} hidden={HIDDEN_DKL}: loss {st['loss']:.8f}, "
+            f"forward {st['fwd_s'] * 1e3:.3f} ms (CG iterations {st['iters']}, launches {st['fwd']}), backward "
+            f"{st['bwd_s'] * 1e3:.3f} ms (launches {st['bwd']}), |grad W1| {float(st['w1'].norm()):.4e}")
+        if st["fwd"] != dict(K1=0, K3=sum(st["iters"]), K2=0, K4=0, K5=0) or st["fwd"]["K3"] == 0:
+            fail("the DKL step's forward did not make one K3 launch per CG iteration and nothing else")
+        if st["bwd"] != dict(K1=0, K3=1, K2=2, K4=0, K5=0):
+            fail("the DKL step's backward did not make two K2 launches and one K3 launch")
+        if not (math.isfinite(st["loss"]) and torch.isfinite(st["w1"]).all() and float(st["w1"].abs().max()) > 0):
+            fail("the DKL step's loss or the first layer's gradient is not finite and nonzero")
+    c.launches["K3"] += steps["cold"]["fwd"]["K3"] + steps["cold"]["bwd"]["K3"]
+    c.launches["K2"] += steps["cold"]["bwd"]["K2"]
+    plain = make(False)
+    plain.load_state_dict(fused.state_dict())
+    twin = lo.DeepKernelGPRegression(D_DKL, HIDDEN_DKL, dtype=torch.float64, device=c.dev, block_rows=8192,
+                                     use_fused_kernels=False)
+    twin.load_state_dict(fused.state_dict())
+
+    def gap(a, b):
+        return abs(a["loss"] - b["loss"]) / abs(b["loss"]), float((a["w1"] - b["w1"]).norm() / b["w1"].norm())
+
+    # the hold: fused against plain on the same probes.  At the model's noise
+    # the loss is held; the first layer's weight gradient is reported (see
+    # DKL_NOISES: at that noise the fused path's lies ~1e-2 from f64 however
+    # far CG runs).  The inverse quadratic term's gradient (CG to DKL_HELD_CG_TOL, nothing
+    # drawn) at each noise of DKL_NOISES: fused against plain, against
+    # itself and against f64, and plain f32 against f64; at DKL_HELD_NOISE,
+    # where f32 is accurate, it and the whole loss's gradient are held
+    ref = train_step(plain, 1)
+    (e_loss, e_w1), (s_loss, s_w1) = gap(steps["warm"], ref), gap(steps["cold"], steps["warm"])
+    say(f"  plain path on the same probes: loss {ref['loss']:.8f}, forward {ref['fwd_s'] * 1e3:.3f} ms, backward "
+        f"{ref['bwd_s'] * 1e3:.3f} ms, launches {ref['fwd']} / {ref['bwd']}; the MLP's forward alone "
+        f"{mlp_s * 1e3:.3f} ms; fused to plain: loss {e_loss:.2e} (held), first layer's weight gradient {e_w1:.2e} "
+        f"of its norm (reported); the fused path against itself (cold to warm): {s_loss:.2e}, {s_w1:.2e}")
+    if e_loss > PATH_RTOL:
+        fail("the DKL loss on the fused path disagrees with the plain path")
+    tight = (settings.cg_tolerance(DKL_HELD_CG_TOL), settings.max_cg_iterations(DKL_HELD_CG_MAX))
+    trained = {k: v.clone() for k, v in fused.state_dict().items()}
+    for noise in DKL_NOISES:
+        with torch.no_grad():
+            for mdl in (fused, plain, twin):
+                mdl.gp.raw_noise.fill_(math.log(math.expm1(noise - 1e-6)))
+        runs = {k: train_step(mdl, 1, *tight, inv_quad=True)
+                for k, mdl in (("fused", fused), ("again", fused), ("plain", plain), ("f64", twin))}
+        gaps = {"fused to plain": gap(runs["fused"], runs["plain"]),
+                "the fused path against itself": gap(runs["again"], runs["fused"]),
+                "fused to plain f64": gap(runs["fused"], runs["f64"]),
+                "plain f32 to plain f64": gap(runs["plain"], runs["f64"])}
+        say(f"  noise {noise:g}, the inverse quadratic term with CG to {DKL_HELD_CG_TOL:g}: CG iterations "
+            + ", ".join(f"{k} {r['iters']}" for k, r in runs.items())
+            + f"; plain {runs['plain']['fwd_s'] + runs['plain']['bwd_s']:.3f} s, f64 "
+            f"{runs['f64']['fwd_s'] + runs['f64']['bwd_s']:.3f} s; loss and first layer's weight gradient: "
+            + ", ".join(f"{k} {a:.2e}, {b:.2e}" for k, (a, b) in gaps.items()))
+        if max(r["iters"][0] for r in runs.values()) >= DKL_HELD_CG_MAX:
+            fail(f"DKL's CG did not reach {DKL_HELD_CG_TOL:g} in {DKL_HELD_CG_MAX} iterations")
+        if noise == DKL_HELD_NOISE:
+            whole = gap(train_step(fused, 1, *tight), train_step(plain, 1, *tight))
+            say(f"  noise {noise:g}, the whole loss on the same probes: fused to plain {whole[0]:.2e}, {whole[1]:.2e}")
+            if not (gaps["fused to plain"][1] <= DKL_GRAD_RTOL and whole[1] <= DKL_GRAD_RTOL):
+                fail("the DKL gradient on the fused path disagrees with the plain path")
+    fused.load_state_dict(trained)
+    del plain, twin, ref
+    torch.cuda.empty_cache()
+    # three Adam steps
+    opt = torch.optim.Adam(fused.parameters(), lr=1e-3)
+    adam = []
+    for seed in range(ADAM_STEPS):
+        opt.zero_grad()
+        with bench_context(settings):
+            loss = fused.neg_mll(x, y, generator=torch.Generator().manual_seed(10 + seed))
+        loss.backward()
+        opt.step()
+        adam.append(float(loss.detach()))
+    say(f"  three Adam steps: losses {adam}")
+    if not all(math.isfinite(v) for v in adam):
+        fail("a DKL Adam step gave a non-finite loss")
+    # the posterior (one solve of [y | k_*^T], K1) and LOVE serving
+    with bench_context(settings), settings.verbose_linalg(True), torch.no_grad():
+        c.reset_counts()
+        (mean, var), post_s = _timed(torch, lambda: fused.posterior(x, y, x64))
+        post = c.counts()
+    say(f"  posterior at m={M_STAR}: {post_s * 1e3:.3f} ms, launches {post}")
+    if post["K1"] == 0 or not (torch.isfinite(mean).all() and bool((var >= 0).all())):
+        fail("the DKL posterior did not launch K1 or is not finite")
+    c.launches["K1"] += post["K1"]
+    c.launches["K3"] += post["K3"]
+    widths = []
+    love = [settings.max_cholesky_size(0), settings.max_cg_iterations(100), settings.cg_tolerance(1.0),
+            settings.preconditioner_mode("auto"), settings.max_root_decomposition_size(LOVE_K),
+            settings.verbose_linalg(True), torch.no_grad(),
+            recording(c.rbf, "_launch_matvec_sym", lambda a, w, spec: widths.append(w.shape[-1]))]
+    with contextlib.ExitStack() as stack:
+        for ctx in love:
+            stack.enter_context(ctx)
+        c.reset_counts()
+        c.log.clear()
+        cache, cache_s = _timed(torch, lambda: fused.posterior_cache(x, y, generator=torch.Generator().manual_seed(2)))
+        built, iters = c.counts(), list(c.log.counts)
+        c.reset_counts()
+        (qmean, qvar), query_s = _timed(torch, lambda: fused.posterior_from_cache(x, cache, xq))
+        served = c.counts()
+    say(f"  posterior_cache: {cache_s * 1e3:.3f} ms, CG iterations {iters}, Lanczos steps "
+        f"{cache.root_inv.shape[-1]}, launches {built}, K3 widths {sorted(set(widths))}; posterior_from_cache at "
+        f"{M_QUERY} queries {query_s * 1e3:.3f} ms, launches {served}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    if built != dict(K1=0, K3=sum(iters) + cache.root_inv.shape[-1], K2=0, K4=0, K5=0) or set(widths) != {1}:
+        fail("the DKL cache did not make one K3 launch at t = 1 per CG iteration and per Lanczos step")
+    if served != dict(K1=2, K3=0, K2=0, K4=0, K5=0):
+        fail("a DKL query from the cache did not make two K1 launches and nothing else")
+    if not (torch.isfinite(qmean).all() and bool((qvar >= 0).all())):
+        fail("the DKL queries are not finite")
+    c.launches["K3"] += built["K3"]
+    c.launches["K1"] += served["K1"]
+    del fused, opt, cache, x, y
+    torch.cuda.empty_cache()
+
+
+PHASES = ("woodbury", "kron_toeplitz", "ski", "indexing", "fantasy", "harness", "kernel_family", "sgpr", "svgp",
+          "classification", "multitask", "dkl")
 
 
 def main() -> None:
@@ -3217,6 +3823,10 @@ def main() -> None:
     # 17. the rest of the kernel operator: Matern and RQ on K1-K3 at N = 1e5,
     # the blocked engine's covariances and layouts, a registered covariance
     phase_kernel_family(ctx)
+    # 18. the inducing-point, classification, multitask and deep-kernel
+    # models at full width
+    for phase in (phase_sgpr, phase_svgp, phase_classification, phase_multitask, phase_dkl):
+        phase(ctx)
     for key in ("K1", "K2", "K3"):
         stats[key]["ms_by_covar"] = {name: ms[key] for name, ms in ctx.family_ms.items()}
     stats["K3"]["ms_t1_by_covar"] = {name: ms["K3_t1"] for name, ms in ctx.family_ms.items()}

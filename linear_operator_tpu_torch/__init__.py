@@ -18,7 +18,11 @@ structured operators with the KISS-GP model on them: Kronecker products
 (closed-form solves and log-determinants through the factors'
 eigendecompositions), Toeplitz factors (dense or FFT mat-vecs),
 interpolated operators (gather and scatter-add) and
-``SKIGPRegression``, and the kernel operator's covariances: RBF, Matern and
+``SKIGPRegression``, the inducing-point, classification, multitask and
+deep-kernel models (``SGPRRegression``, ``SVGPRegression``,
+``SVGPClassification``, ``SVGPPoissonRegression``,
+``MultitaskGPRegression``, ``DeepKernelGPRegression``), and the kernel
+operator's covariances: RBF, Matern and
 the rational quadratic on the fused kernels, periodic and spectral mixture
 on the blocked engine, multi-output and parameter-batched layouts, and
 covariances registered at run time (``ops.register_tile_covar``).
@@ -42,11 +46,17 @@ from .functions import (
     sqrt_inv_matmul,
 )
 from .models import (
+    DeepKernelGPRegression,
     ExactGPRegression,
     GridSpec,
+    MultitaskGPRegression,
     PosteriorCache,
+    SGPRRegression,
     SKIGPRegression,
     SKIParams,
+    SVGPClassification,
+    SVGPPoissonRegression,
+    SVGPRegression,
     load_jax_cache,
     load_jax_grid,
     load_jax_params,
@@ -113,6 +123,7 @@ __all__ = [
     "CholLinearOperator",
     "ConstantDiagLinearOperator",
     "ConstantMulLinearOperator",
+    "DeepKernelGPRegression",
     "DenseLinearOperator",
     "DiagLinearOperator",
     "ExactGPRegression",
@@ -133,13 +144,18 @@ __all__ = [
     "MaskedLinearOperator",
     "MatmulLinearOperator",
     "MulLinearOperator",
+    "MultitaskGPRegression",
     "MultivariateNormal",
     "PermutationLinearOperator",
     "PosteriorCache",
     "PsdSumLinearOperator",
     "RootLinearOperator",
+    "SGPRRegression",
     "SKIGPRegression",
     "SKIParams",
+    "SVGPClassification",
+    "SVGPPoissonRegression",
+    "SVGPRegression",
     "SumBatchLinearOperator",
     "SumKroneckerLinearOperator",
     "SumLinearOperator",

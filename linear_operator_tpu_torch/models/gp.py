@@ -34,6 +34,15 @@ from ..operators.kernel import KernelLinearOperator, rbf_covar, rbf_fused_matvec
 from ..utils.cholesky import highest_matmul_precision
 
 
+class GPParams(NamedTuple):
+    """The JAX package's parameter tuple; ``load_jax_params`` takes one (of
+    numpy or JAX arrays) into a model's parameters."""
+
+    raw_lengthscale: object
+    raw_outputscale: object
+    raw_noise: object
+
+
 class PosteriorCache(NamedTuple):
     """The training-time prediction caches of ``posterior_cache``."""
 
@@ -44,6 +53,18 @@ class PosteriorCache(NamedTuple):
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     # jax.nn.softplus(x) + 1e-6; torch's softplus turns linear above 20
     return torch.logaddexp(x, torch.zeros_like(x)) + 1e-6
+
+
+def model_device(device: str | torch.device, model: str) -> torch.device:
+    """``device`` as a torch.device; a CUDA device where none is available
+    raises, naming ``model``: the models run on the card unless the caller
+    asks for the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{model} runs on a CUDA device by default and none is available; pass device='cpu' to run on the CPU"
+        )
+    return device
 
 
 def love_posterior(K, k_star, y, k_ss_diag, *, generator: torch.Generator | None = None):
@@ -78,12 +99,7 @@ class ExactGPRegression(nn.Module):
         device: str | torch.device = "cuda",
     ):
         super().__init__()
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "ExactGPRegression runs on a CUDA device by default and none is "
-                "available; pass device='cpu' to run on the CPU"
-            )
+        device = model_device(device, "ExactGPRegression")
         self.covar_func = covar_func
         self.block_rows = block_rows
         self.use_fused_kernels = use_fused_kernels and covar_func is rbf_covar
@@ -178,15 +194,33 @@ class ExactGPRegression(nn.Module):
 
 
 def load_jax_params(model, params):
-    """Fill ``model``'s parameters from the JAX package's ``GPParams`` or
-    ``SKIParams`` (of numpy or JAX arrays), or a mapping with the same field
-    names; ``model`` is an ``ExactGPRegression`` or an ``SKIGPRegression``."""
+    """Fill ``model``'s parameters from the JAX package's parameter tuple of
+    the same model (of numpy or JAX arrays), or a mapping with the same field
+    names: ``GPParams``, ``SKIParams``, ``SGPRParams``, ``SVGPParams``,
+    ``MultitaskGPParams`` or ``DKLParams``.  Each field replaces the
+    parameter of its name, whose dtype and device it takes (its shape it takes
+    from the JAX array: a different number of inducing points is carried
+    across).  A ``DKLParams``'s MLP weights are (in, out), ``h @ w + b``;
+    ``nn.Linear`` stores (out, in), so they are transposed."""
     fields = params if isinstance(params, Mapping) else params._asdict()
-    for name in ("raw_lengthscale", "raw_outputscale", "raw_noise"):
-        old = getattr(model, name)
-        value = torch.tensor(np.array(fields[name]), dtype=old.dtype, device=old.device)
-        setattr(model, name, nn.Parameter(value))
+    if "mlp" in fields:
+        mlp = fields["mlp"] if isinstance(fields["mlp"], Mapping) else fields["mlp"]._asdict()
+        layers = [m for m in model.mlp if isinstance(m, nn.Linear)]
+        if len(layers) != len(mlp["weights"]):
+            raise ValueError(f"the MLP has {len(layers)} layers, the parameters {len(mlp['weights'])}")
+        for layer, w, b in zip(layers, mlp["weights"], mlp["biases"]):
+            _load(layer, "weight", np.array(w).T)
+            _load(layer, "bias", b)
+        load_jax_params(model.gp, fields["gp"])
+        return model
+    for name, value in fields.items():
+        _load(model, name, value)
     return model
+
+
+def _load(module: nn.Module, name: str, value) -> None:
+    old = getattr(module, name)
+    setattr(module, name, nn.Parameter(torch.tensor(np.array(value), dtype=old.dtype, device=old.device)))
 
 
 def load_jax_cache(model: ExactGPRegression, cache) -> PosteriorCache:

@@ -22,7 +22,7 @@ from torch import nn
 from ..functions import inv_quad_logdet, solve
 from ..operators import GridInterpolatedLinearOperator, KroneckerProductLinearOperator, ToeplitzLinearOperator
 from ..utils.sparse import flatten_grid_interp
-from .gp import _softplus, love_posterior
+from .gp import _softplus, love_posterior, model_device
 
 
 class GridSpec(NamedTuple):
@@ -140,12 +140,7 @@ class SKIGPRegression(nn.Module):
         super().__init__()
         if interp not in ("linear", "cubic"):
             raise ValueError(f"unknown interp {interp!r}")
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "SKIGPRegression runs on a CUDA device by default and none is "
-                "available; pass device='cpu' to run on the CPU"
-            )
+        device = model_device(device, "SKIGPRegression")
         kw = dict(dtype=dtype, device=device)
         self.grid = GridSpec(
             torch.as_tensor(grid.mins).to(**kw), torch.as_tensor(grid.maxs).to(**kw), tuple(int(s) for s in grid.sizes)

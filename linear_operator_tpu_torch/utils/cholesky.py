@@ -100,11 +100,34 @@ def psd_safe_cholesky_ex(
     return CholeskyResult(torch.where(ok[..., None, None], L, torch.full_like(L, float("nan"))), ok, applied)
 
 
+class _PsdSafeCholesky(torch.autograd.Function):
+    """The JAX package's custom VJP: the retries run outside autograd, and the
+    gradient is that of cholesky(A + jitter I), the jitter finally applied
+    held constant (Murray 2016: L^-H Phi(L^H dL) L^-1, Phi the lower triangle
+    with half its diagonal, made symmetric).  A failed attempt's factor, which
+    holds NaN on the card, never enters it."""
+
+    @staticmethod
+    def forward(ctx, A, jitter, max_tries):
+        L = psd_safe_cholesky_ex(A, jitter, max_tries).factor
+        ctx.save_for_backward(L)
+        return L
+
+    @staticmethod
+    def backward(ctx, gL):
+        (L,) = ctx.saved_tensors
+        gA = (L.mH @ gL).tril()
+        gA = 0.5 * (gA + gA.tril(-1).mH)
+        gA = torch.linalg.solve_triangular(L.mH, gA, upper=True, left=True)
+        return torch.linalg.solve_triangular(L, gA, upper=False, left=False), None, None
+
+
 def psd_safe_cholesky(
     A: torch.Tensor,
     jitter: float | None = None,
     max_tries: int | None = None,
 ) -> torch.Tensor:
     """Lower Cholesky factor of ``A`` (*batch, n, n) with per-batch-element
-    jitter retries; NaN where not factorizable."""
-    return psd_safe_cholesky_ex(A, jitter, max_tries).factor
+    jitter retries; NaN where not factorizable.  Differentiable: the gradient
+    is cholesky(A + jitter I)'s, with the jitter each element took."""
+    return _PsdSafeCholesky.apply(A, jitter, max_tries)

@@ -1022,3 +1022,113 @@ def test_registered_covariance_without_cuda_bodies_raises_on_the_card(cuda):
             call()
     assert [w.launches for w in (rbf.kernel_matvec, rbf.kernel_matvec_sym, rbf.kernel_weighted,
                                  rbf.rbf_build_sym_tiles)] == [0, 0, 0, 0]
+
+
+# ---------------------------------------------------------------------------
+# The inducing-point, classification, multitask and deep-kernel models
+# ---------------------------------------------------------------------------
+
+
+def _model_case(kind, device, dtype, x, y):
+    """A model of ``kind`` on ``device`` and its loss on (x, y)."""
+    from linear_operator_tpu_torch import models
+
+    if kind == "multitask":
+        model = models.MultitaskGPRegression(4, 2, dtype=dtype, device=device)
+        yy = torch.stack([torch.sin(3.0 * x[:, 0] + i) for i in range(4)], dim=-1)
+        return model, lambda: model.neg_mll(x, yy)
+    if kind == "sgpr":
+        model = models.SGPRRegression(x, 32, device=device)
+        return model, lambda: model.neg_elbo(x, y)
+    cls, kw, target = {
+        "svgp": (models.SVGPRegression, {}, y),
+        "probit": (models.SVGPClassification, {"likelihood": "probit"}, (y > 0).to(dtype)),
+        "logit": (models.SVGPClassification, {"likelihood": "logit"}, (y > 0).to(dtype)),
+        "poisson": (models.SVGPPoissonRegression, {}, torch.round(torch.exp(y))),
+    }[kind]
+    model = cls(x, 32, device=device, **kw)
+    return model, lambda: model.neg_elbo(x, target, num_data=10 * x.shape[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sgpr", "svgp", "probit", "logit", "poisson", "multitask"])
+def test_models_on_the_card_match_cpu_f64(cuda, kind):
+    """Each closed-form model's loss and gradients (every parameter) in f32
+    on the card against the same model in f64 on the CPU, the same
+    parameters (q moved off the prior): 1e-3 (f32 Cholesky factors of m = 32 inducing points and
+    eigendecompositions of 1000 x 1000 factors); no kernel launches."""
+    (x,) = _data(cuda, 120, (1000, 3))
+    y = torch.sin(3.0 * x[:, 0])
+    before = {k: getattr(rbf, k).launches for k in ("kernel_matvec", "kernel_matvec_sym", "kernel_weighted")}
+    card, card_loss = _model_case(kind, cuda, torch.float32, x, y)
+    if hasattr(card, "var_mean"):
+        # q off the prior: at the prior the predictive is k_ii whatever the
+        # lengthscale and z, whose gradients are then rounding alone
+        m = card.var_mean.shape[0]
+        mean, root = _data(cuda, 122, (m,), (m, m))
+        with torch.no_grad():
+            card.var_mean.copy_(0.5 * mean)
+            card.var_root_raw.add_(0.1 * root)
+    cpu, cpu_loss = _model_case(kind, "cpu", torch.float64, x.cpu().double(), y.cpu().double())
+    cpu.load_state_dict(card.state_dict())
+    losses = []
+    for model, loss_fn in ((card, card_loss), (cpu, cpu_loss)):
+        loss = loss_fn()
+        loss.backward()
+        losses.append(float(loss.detach()))
+    assert before == {k: getattr(rbf, k).launches for k in before}
+    assert abs(losses[0] - losses[1]) <= 1e-3 * abs(losses[1]), losses
+    for (name, p), q in zip(card.named_parameters(), cpu.parameters()):
+        if q.grad is None:  # the classifier's raw_noise
+            assert p.grad is None, name
+            continue
+        err = float((p.grad.cpu().double() - q.grad).norm())
+        assert err <= 1e-3 * float(q.grad.norm()) + 1e-6, (name, err)
+
+
+@pytest.mark.cuda
+def test_dkl_fused_gradients_match_the_plain_path(cuda):
+    """DKL's training step through the kernels (K3 each CG iteration, two K2
+    launches in the backward carrying the gradient into the MLP) against the
+    plain path on the same probes: the loss and the first layer's weight
+    gradient, with CG run to 1e-4."""
+    from linear_operator_tpu_torch.models import DeepKernelGPRegression
+
+    (x,) = _data(cuda, 121, (4096, 8))
+    y = torch.sin(3.0 * x[:, 0])
+    results = []
+    for fused in (True, False):
+        model = DeepKernelGPRegression(8, (64, 32, 2), generator=torch.Generator().manual_seed(0),
+                                       use_fused_kernels=fused, materialize_threshold=None)
+        rbf.reset_launch_counts()
+        with settings.max_cholesky_size(0), settings.cg_tolerance(1e-4), settings.max_cg_iterations(500), \
+                settings.num_trace_samples(10):
+            loss = model.neg_mll(x, y, generator=torch.Generator().manual_seed(1))
+            fwd = rbf.kernel_matvec_sym.launches
+            loss.backward()
+        launched = (fwd, rbf.kernel_matvec_sym.launches - fwd, rbf.kernel_weighted.launches)
+        assert launched[0] > 0 and launched[1:] == (1, 2) if fused else launched == (0, 0, 0), launched
+        results.append((float(loss.detach()), model.mlp[0].weight.grad.double()))
+    (l_fused, g_fused), (l_plain, g_plain) = results
+    assert torch.isfinite(g_fused).all() and float(g_fused.abs().max()) > 0.0
+    assert abs(l_fused - l_plain) <= 1e-3 * abs(l_plain), (l_fused, l_plain)
+    assert float((g_fused - g_plain).norm()) <= 1e-2 * float(g_plain.norm())
+
+
+@pytest.mark.cuda
+def test_psd_safe_cholesky_gradient_on_the_card(cuda):
+    """A matrix whose first Cholesky fails on the card (its factor there holds
+    NaN): the gradient is cholesky(A + jitter I)'s, finite, and matches the
+    CPU's in f64."""
+    from linear_operator_tpu_torch.utils.cholesky import psd_safe_cholesky, psd_safe_cholesky_ex
+
+    b, w = _data("cpu", 123, (64, 40), (64, 64))
+    A = (b @ b.mT - 1e-4 * torch.eye(64)).double()
+    grads = []
+    for device in (cuda, "cpu"):
+        At = A.to(device).requires_grad_()
+        torch.sum(psd_safe_cholesky(At, jitter=1e-3, max_tries=3) * w.double().to(device)).backward()
+        grads.append(At.grad.cpu())
+    assert float(psd_safe_cholesky_ex(A.to(cuda), jitter=1e-3, max_tries=3).jitter) > 0
+    assert torch.isfinite(grads[0]).all()
+    assert float((grads[0] - grads[1]).norm()) <= 1e-8 * float(grads[1].norm())
