@@ -150,8 +150,18 @@ Phases, each reported on its own line:
     (the loss, and the first layer's gradient at a noise where f32 solves
     are accurate), three Adam steps, the posterior (K1), the LOVE cache (K3 at t = 1) and
     queries (two K1 launches); the launches join the kernels line;
+19. the sharded step (config 5, ``parallel/``) in worlds of 1, 2 and 4 ranks
+    on the one card, each rank a child process of this script
+    (``--sharded-worker``; the kernels built once, here, before): whether
+    NCCL takes two ranks on one card (where it refuses them the worlds of 2
+    and 4 run gloo on the card's tensors); layouts (1, 1), (1, 2) and, at
+    B = 2, (2, 2) and (1, 2, 2) at n = 8192, and (1, 2) at N = 100,000 (K1
+    at 50,000 x 100,000), each held against the unsharded run in the same
+    process (phase_sharded), with its launches and collectives by name and
+    config 5's solves/s; K1 and K2 at the sharded shapes against their plain
+    versions, timed beside their bounds (ms_sharded in the kernels line);
  7. one JSON line listing every ported kernel with its launches (K3's and
-    K1's including phases 12, 13 and 18e), error, times and bound (bound_basis:
+    K1's including phases 12, 13, 18e and 19), error, times and bound (bound_basis:
     the f32 rate for K4, the tensor cores' for K1, K2, K3 and K5; K5's t = 1
     time as ms_t1, the write-only pass beside K4 as write_only_ms; K3 at
     t = 1 as ms_t1, at config 6's shapes as ms_ciq_t16 and ms_ciq_t1, and K1
@@ -167,7 +177,7 @@ Without a CUDA device, or without the package beside it, it fails at once.
 
 runs only the named module-level phases (woodbury, kron_toeplitz, ski,
 indexing, fantasy, harness, kernel_family, sgpr, svgp, classification,
-multitask, dkl) after the build, with the package taken from DIR
+multitask, dkl, sharded) after the build, with the package taken from DIR
 (another commit's checkout) when given: the same phases, one card, two
 commits.
 """
@@ -295,6 +305,31 @@ SVGP_HELD_JITTER, SVGP_LOSS_RTOL, SVGP_GRAD_RTOL = 1e-4, 5e-4, 5e-3
 # gradient are held, fused against plain, to DKL_GRAD_RTOL of its norm
 DKL_NOISES, DKL_HELD_NOISE = (0.127, 1.0, 10.0, 100.0), 100.0
 DKL_GRAD_RTOL, DKL_HELD_CG_TOL, DKL_HELD_CG_MAX = 1e-4, 1e-6, 400
+# 19, the sharded step (config 5, bench.py:341-354): its points and the
+# main path's N; each world's timeout and the NCCL check's.  Each layout is
+# held against the unsharded run on the same data and probes twice.  At the
+# model's initial parameters, in f32 on the fused kernels, to
+# SHARDED_F32_ATOL (nats a point, and the gradients) plus SHARDED_F32_RTOL of
+# each gradient: there dryrun_multichip's holds (__graft_entry__.py:59-64:
+# 1e-4 relative on the loss, 1e-3 and 1e-4 on the gradients) cannot hold,
+# since the unsharded fused run differs from itself by up to 6.5e-4 nats (2e-2
+# of this loss, a difference of near-equal terms) and 5.6e-4 in the
+# gradients (five runs on an H100; the limit is 4.6x that, and a doubled
+# outputscale gradient, ~9e-3, still fails it).  20 Lanczos steps on a K
+# whose top eigenvalues converge first lose orthogonality, and where the
+# ghost copies appear turns on the last bit of every inner product: an f64
+# run with its row sums split in two moves as far (PERF.md §6).  And at
+# SHARDED_RAW_LS (lengthscale 0.127), where K is well conditioned, with
+# dryrun_multichip's holds in f32 on the fused kernels (PATH_RTOL at N), and
+# in f64 on the blocked engine to SHARDED_F64_RTOL (measured: 7.5e-9 of the
+# gradient's norm on an H100; on the CPU the unsharded run with its row sums
+# split in two moves as far): a reduction counted twice or missed moves
+# either by O(1)
+N_SHARDED = 8192
+SHARDED_F32_ATOL, SHARDED_F32_RTOL = 3e-3, 1e-2
+SHARDED_LOSS_RTOL, SHARDED_GRAD_RTOL, SHARDED_GRAD_ATOL, SHARDED_F64_RTOL = 1e-4, 1e-3, 1e-4, 1e-7
+SHARDED_RAW_LS = -2.0
+WORLD_TIMEOUT_S, NCCL_CHECK_TIMEOUT_S = 420, 90
 HARNESS_KERNEL_TOLERANCES = {
     "matmul": {"rtol": 1e-4, "atol": 2e-4},
     "grad": {"rtol": 1e-3, "atol": 1e-3},
@@ -2514,11 +2549,390 @@ def phase_dkl(c) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 19. The sharded step: worlds of ranks on the one card
+# ---------------------------------------------------------------------------
+
+
+def _sharded_settings(settings, kind: str):
+    """"dryrun": dryrun_multichip's settings (__graft_entry__.py:59-64): 4
+    probes, CG to 1e-6, at most 60 iterations; "config5": the JAX bench's
+    config 5 (parallel/scaling.py): 10 probes, CG to 1.0, at most 100;
+    "held": config 5 with CG to 1e-4.  Never Cholesky, no preconditioner."""
+    probes, tol, iters = {"dryrun": (4, 1e-6, 60), "config5": (10, 1.0, 100), "held": (10, 1e-4, 100)}[kind]
+    stack = contextlib.ExitStack()
+    for ctx in [settings.max_cholesky_size(0), settings.num_trace_samples(probes), settings.max_cg_iterations(iters),
+                settings.cg_tolerance(tol), settings.min_preconditioning_size(10**9), settings.verbose_linalg(True)]:
+        stack.enter_context(ctx)
+    return stack
+
+
+def _sharded_worker(argv) -> None:
+    """One rank of phase 19's worlds (``chip_smoke.py --sharded-worker RANK
+    WORLD PORT BACKEND SPEC OUT``): it joins the process group on the card,
+    runs each layout of SPEC (the NCCL check: one all-reduce and one
+    broadcast) and writes its results to OUT.  Every rank draws the same
+    data and probes from the same seeds and keeps its block."""
+    rank, world, port = (int(a) for a in argv[:3])
+    backend, spec, out = argv[3], json.loads(Path(argv[4]).read_text()), Path(argv[5])
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, spec["root"])
+    import linear_operator_tpu_torch as lo
+    from linear_operator_tpu_torch import settings
+    from linear_operator_tpu_torch.ops import rbf
+    from linear_operator_tpu_torch.parallel import _comm, initialize_distributed, make_mesh, mll_throughput
+    from linear_operator_tpu_torch.parallel import shard_gp_batch
+    from linear_operator_tpu_torch.parallel.sharding import split_sizes
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    initialize_distributed(f"127.0.0.1:{port}", world, rank, backend=backend, timeout_s=WORLD_TIMEOUT_S)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    results = {}
+    if spec.get("check"):
+        t = torch.full((4,), float(rank + 1), device=dev)
+        dist.all_reduce(t)
+        dist.broadcast(t, 0)
+        torch.cuda.synchronize()
+        results["sum"] = t.tolist()
+    log = SolverLog()
+    logging.getLogger("linear_operator_tpu_torch").setLevel(logging.DEBUG)
+    logging.getLogger("linear_operator_tpu_torch").addHandler(log)
+    wrappers = dict(K1=rbf.kernel_matvec, K3=rbf.kernel_matvec_sym, K2=rbf.kernel_weighted)
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: w.launches for k, w in wrappers.items()}
+
+    def grads(model):
+        return [float(p.grad) for p in (model.raw_lengthscale, model.raw_outputscale, model.raw_noise)]
+
+    for lay in spec.get("layouts", []):
+        mesh = make_mesh(data=lay["data"], model=lay["model"], probe=lay["probe"])
+        n, B = lay["n"], lay["data"]
+        g = torch.Generator().manual_seed(190)
+        x = torch.randn((B, n, D), generator=g)
+        y = torch.sin(3.0 * x[..., 0]) + 0.1 * torch.randn((B, n), generator=g)
+        xs, ys = shard_gp_batch(mesh, x, y)
+        x, y = x.to(dev), y.to(dev)
+        res = dict(rows=xs.shape[1], batch=xs.shape[0])
+
+        def step(model, xx, yy, kind, sharded):
+            """neg_mll and its backward; the forward's and the backward's
+            launches, collectives and CG iterations."""
+            rbf.reset_launch_counts()
+            _comm.reset_counts()
+            log.clear()
+            probes = torch.Generator(device=dev).manual_seed(191)
+            with _sharded_settings(settings, kind), (mesh if sharded else contextlib.nullcontext()):
+                loss = model.neg_mll(xx, yy, generator=probes)
+            fwd, comm = counts(), dict(_comm.counts)
+            loss.backward()
+            bwd = {k: v - fwd[k] for k, v in counts().items()}
+            comm_bwd = {k: v - comm.get(k, 0) for k, v in _comm.counts.items()}
+            return dict(loss=float(loss), grads=grads(model), iters=list(log.counts), fwd=fwd, bwd=bwd,
+                        comm=comm, comm_bwd=comm_bwd)
+
+        def model(fused, raw_ls):
+            mdl = lo.ExactGPRegression(block_rows=8192 if fused else 2048, materialize_threshold=None,
+                                       use_fused_kernels=fused, dtype=torch.float32 if fused else torch.float64,
+                                       device=dev)
+            if raw_ls is not None:
+                with torch.no_grad():
+                    mdl.raw_lengthscale.fill_(raw_ls)
+            return mdl
+
+        def held(fused, raw_ls=None, again=False):
+            """The unsharded run (again: twice, on the fused kernels, whose
+            atomic sums differ from run to run) and the sharded one, its
+            gradient shares summed over data."""
+            kind = lay["hold"]
+            cast = (lambda t: t) if fused else (lambda t: t.double())
+            out = dict(unsharded=step(model(fused, raw_ls), cast(x), cast(y), kind, sharded=False))
+            if again:
+                out["again"] = step(model(fused, raw_ls), x, y, kind, sharded=False)
+            out["sharded"] = step(model(fused, raw_ls), cast(xs), cast(ys), kind, sharded=True)
+            shares = torch.tensor(out["sharded"]["grads"], dtype=torch.float64, device=dev)
+            out["sharded"]["grads"] = _comm.all_reduce(shares, mesh.group("data")).tolist()
+            return out
+
+        res["init"] = held(True, again=True)
+        res["cond"] = held(True, SHARDED_RAW_LS)
+        if lay["f64"]:
+            res["cond64"] = held(False, SHARDED_RAW_LS)
+        if lay["time"] and mesh.size("model") > 1:
+            # one collective of each kind the CG loop makes, on this layout's
+            # model group: a row sum of (1, 1, 11) and a gathered (1, rows, 11)
+            group, sizes = mesh.group("model"), split_sizes(n, mesh.size("model"))
+            small = torch.ones((1, 1, 11), device=dev)
+            block = torch.ones((1, sizes[mesh.index("model")], 11), device=dev)
+            for label, fn in (("all_reduce", lambda: _comm.all_reduce(small, group)),
+                              ("all_gather", lambda: _comm.all_gather_rows(block, group, sizes))):
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    fn()
+                torch.cuda.synchronize()
+                res[f"{label}_ms"] = 1e3 * (time.perf_counter() - t0) / 20
+        if lay["time"]:
+            res["config5"] = step(model(True, None), xs, ys, "config5", sharded=True)
+            torch.cuda.synchronize()
+            dist.barrier()
+            res["solves_per_s"] = mll_throughput(mesh, n=n)
+        results[lay["name"]] = res
+        del x, y, xs, ys
+        torch.cuda.empty_cache()
+    out.write_text(json.dumps(results))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _spawn_world(world: int, backend: str, spec: dict, timeout_s: float, tmp: Path):
+    """Runs a world of ``world`` ranks of ``_sharded_worker`` on the card
+    and returns (each rank's results or None, each rank's output tail): a
+    rank that fails ends the world at once, and the whole world is killed at
+    ``timeout_s``."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    spec_path = tmp / f"spec-{world}-{backend}-{port}.json"
+    spec_path.write_text(json.dumps(spec))
+    outs = [tmp / f"out-{world}-{backend}-{port}-{r}.json" for r in range(world)]
+    logs = [open(tmp / f"log-{world}-{backend}-{port}-{r}.txt", "w+") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--sharded-worker", str(r), str(world),
+                               str(port), backend, str(spec_path), str(outs[r])], stdout=logs[r],
+                              stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.perf_counter() + timeout_s
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.perf_counter() > deadline or any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    tails = []
+    for f in logs:
+        f.seek(0)
+        tails.append(f.read()[-4000:])
+        f.close()
+    ok = all(p.returncode == 0 and o.is_file() for p, o in zip(procs, outs))
+    return ([json.loads(o.read_text()) for o in outs] if ok else None), tails
+
+
+def phase_sharded(c) -> None:
+    """19. The sharded exact-GP step (config 5) in worlds of ranks on the one
+    card (``parallel/``): (a) a world of 1 on nccl, mesh (1, 1), at n = 8192
+    (B = 1, bench_sharded's layout on one device); (b) a world of 2, mesh
+    (data 1, model 2), at n = 8192 and at N = 100,000 (each rank 50,000 rows,
+    K1 at 50,000 x 100,000); (c) a world of 4, meshes (data 2, model 2) at
+    B = 2 and (data 1, model 2, probe 2), at n = 8192.  NCCL is checked
+    first with two ranks on the card; where it refuses them, the worlds of 2
+    and 4 run gloo on the card's tensors.  Each layout is held against the
+    unsharded fused run of the same model on the same data and probes in the
+    same process (dryrun_multichip's settings at n = 8192, config 5's with CG
+    to 1e-4 at N = 100,000): at the model's initial parameters in f32 on the
+    fused kernels to SHARDED_F32_ATOL and SHARDED_F32_RTOL, beside the
+    unsharded run's distance from itself; at SHARDED_RAW_LS in f32 on the
+    fused kernels to dryrun_multichip's holds (PATH_RTOL at N), and at n =
+    8192 in f64 on the blocked engine to SHARDED_F64_RTOL; each with the same
+    CG iterations, and the launches and collectives the design implies: one K1 a CG iteration on each rank and
+    no K3 where the rows are sharded (K3 where they are not), one "any" a
+    stopping test, one gathered vector an iteration.  Config 5's solves/s
+    (forward and backward, warm, three repetitions) for each layout, under
+    that label: ranks that share one card measure no scaling.  Then K1 and
+    K2 at the sharded shapes (50,000 x 100,000, t = 11), against their plain
+    versions and timed beside their bounds."""
+    import tempfile
+
+    torch, rbf = c.torch, c.rbf
+    torch.cuda.empty_cache()
+    tmp = Path(tempfile.mkdtemp(prefix="sharded-"))
+
+    def world_run(world, backend, layouts, timeout_s=WORLD_TIMEOUT_S, check=False):
+        t0 = time.perf_counter()
+        spec = dict(layouts=layouts, check=check, root=str(Path(c.lo.__file__).resolve().parents[1]))
+        results, tails = _spawn_world(world, backend, spec, timeout_s, tmp)
+        return results, tails, time.perf_counter() - t0
+
+    def layout(name, data, model, probe, n, hold):
+        return dict(name=name, data=data, model=model, probe=probe, n=n, hold=hold, time=True, f64=n < N)
+
+    # NCCL with two ranks on one card
+    results, tails, secs = world_run(2, "nccl", [], NCCL_CHECK_TIMEOUT_S, check=True)
+    nccl_two = results is not None and all(r["sum"] == [3.0] * 4 for r in results)
+    # the error NCCL raised, as the rank printed it: the line naming it and the next
+    lines = [ln.strip() for ln in tails[0].splitlines() if ln.strip()]
+    named = [i for i, ln in enumerate(lines) if "rror" in ln and "Warning" not in ln]
+    reason = "" if nccl_two else (" ".join(lines[named[-1]:named[-1] + 2]) if named else "no error printed")
+    shared = "nccl" if nccl_two else "gloo"
+    say(f"sharded step (phase 19): NCCL with two ranks on one card: {'took them' if nccl_two else 'refused'} "
+        f"({secs:.1f} s){'' if nccl_two else ': ' + reason[:300]}; worlds of 2 and 4 run {shared} on the card's "
+        f"tensors (all_reduce SUM of f32 and f64, broadcast)")
+
+    worlds = [
+        (1, "nccl", [layout("a 1 rank (1, 1) n=8192", 1, 1, None, N_SHARDED, "dryrun")]),
+        (2, shared, [layout("b 2 ranks (1, 2) n=8192", 1, 2, None, N_SHARDED, "dryrun"),
+                     layout(f"b 2 ranks (1, 2) N={N}", 1, 2, None, N, "held")]),
+        (4, shared, [layout("c 4 ranks (2, 2) n=8192", 2, 2, None, N_SHARDED, "dryrun"),
+                     layout("c 4 ranks (1, 2, 2) n=8192", 1, 2, 2, N_SHARDED, "dryrun")]),
+    ]
+    problems = []
+    for world, backend, layouts in worlds:
+        results, tails, secs = world_run(world, backend, layouts)
+        if results is None:
+            for r, tail in enumerate(tails):
+                say(f"  world of {world} ({backend}) rank {r} output:\n{tail}")
+            fail(f"phase 19: a rank of the world of {world} ({backend}) failed or hung ({secs:.1f} s)")
+        say(f"  world of {world} on {backend}: {secs:.1f} s with start-up")
+        for lay in layouts:
+            ranks = [r[lay["name"]] for r in results]
+            problems += _check_sharded(c, lay, ranks)
+    torch.cuda.empty_cache()
+    for path in tmp.iterdir():
+        path.unlink()
+    tmp.rmdir()
+    if problems:
+        fail("phase 19: " + "; ".join(problems))
+
+    # K1 and K2 at the sharded shapes: a rank's 50,000 rows against all
+    # 100,000 points, t = 11 (10 probes and the rhs)
+    say(f"K1 and K2 at the sharded shapes ({N // 2} x {N}, d={D}, t={PROBES + 1}) vs plain:")
+    g = torch.Generator(device=c.dev).manual_seed(192)
+    ls = math.log(2.0) + 1e-6
+    x = torch.randn(N, D, device=c.dev, generator=g) / ls
+    x1 = x[: N // 2].contiguous()
+    v = torch.randn(N, PROBES + 1, device=c.dev, generator=g)
+    gl = torch.randn(N // 2, PROBES + 1, device=c.dev, generator=g)
+    t = PROBES + 1
+    rows = {}
+    for key, label, fn, plain, pairs, prods, nbytes, form in [
+        ("K1", "K1 k(x_R, x) v", lambda: rbf.kernel_matvec(x1, x, v), lambda: rbf.kernel_matvec_plain(x1, x, v),
+         N // 2 * N, 2 * t, 4 * (N // 2 * D + N * D + N * t + N // 2 * t), 3 * D + 1),
+        ("K2", "K2 (x_R, x) dx1", lambda: rbf.kernel_weighted(x1, x, gl, v),
+         lambda: rbf.kernel_weighted_plain(x1, x, gl, v), N // 2 * N, 2 * t,
+         4 * (N // 2 * D + N * D + N // 2 * t + N * t + N // 2 * D + N // 2), 5 * D + 4),
+        ("K2", "K2 (x, x_R) dx2", lambda: rbf.kernel_weighted(x, x1, v, gl),
+         lambda: rbf.kernel_weighted_plain(x, x1, v, gl), N // 2 * N, 2 * t,
+         4 * (N // 2 * D + N * D + N // 2 * t + N * t + N * D + N), 5 * D + 4),
+    ]:
+        got, want = fn(), plain()
+        torch.cuda.synchronize()
+        got, want = (got if isinstance(got, tuple) else (got,)), (want if isinstance(want, tuple) else (want,))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        scale = max(float(b.abs().max()) for b in want)
+        ms, plain_ms = cuda_ms(torch, fn, 5), once_ms(torch, plain)
+        t_form, t_mma = 1e3 * pairs * form / PEAK_F32_FLOPS, 1e3 * 3 * pairs * prods / PEAK_BF16_FLOPS
+        t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+        b_ms = max(t_form, t_mma, t_bytes)
+        b_by = "operations" if max(t_form, t_mma) >= t_bytes else "bytes"
+        ok = math.isfinite(err) and err <= KERNEL_RTOL * scale
+        say(f"  {label}: {ms:.3f} ms (plain {plain_ms:.1f} ms), tensor-core bound {b_ms:.3f} ms by {b_by}, "
+            f"{100 * b_ms / ms:.1f}% of it; max_abs_err {err:.3e} (rel {err / scale:.2e}) {'ok' if ok else 'FAILED'}")
+        if not ok:
+            fail(f"{label} disagrees with its plain version at the sharded shapes")
+        rows.setdefault(key, dict(ms_sharded=ms, plain_ms_sharded=plain_ms, bound_ms_sharded=b_ms,
+                                  max_abs_err_sharded=err))
+    if hasattr(c, "stats"):
+        for key, row in rows.items():
+            c.stats[key].update(row)
+    del x, x1, v, gl
+    torch.cuda.empty_cache()
+
+
+def _check_sharded(c, lay, ranks) -> list:
+    """Phase 19's holds on one layout's ranks; prints its lines and returns
+    what failed."""
+    problems = []
+    name, model_axis = lay["name"], lay["model"]
+    first = ranks[0]
+
+    def hold(tag, label, rtol, grad_rtol, atol):
+        runs = first[tag]
+        ref, got = runs["unsharded"], runs["sharded"]
+        dl = abs(got["loss"] - ref["loss"])
+        dg = [abs(a - b) for a, b in zip(got["grads"], ref["grads"])]
+        ok = dl <= atol + rtol * abs(ref["loss"]) and all(e <= atol + grad_rtol * abs(b)
+                                                          for e, b in zip(dg, ref["grads"]))
+        spread = ""
+        if "again" in runs:
+            again = runs["again"]
+            spread = (f"; the unsharded run against itself: loss {abs(again['loss'] - ref['loss']):.2e}, "
+                      f"gradients {max(abs(a - b) for a, b in zip(again['grads'], ref['grads'])):.2e}")
+        say(f"  {name}, {label} (rows {first['rows']}, batch {first['batch']}; held to {atol} + {rtol} / "
+            f"{grad_rtol} relative): loss {got['loss']:.10f}, unsharded {ref['loss']:.10f}, |diff| {dl:.2e}; "
+            f"gradients {['%.6e' % a for a in got['grads']]}, unsharded {['%.6e' % a for a in ref['grads']]}, "
+            f"largest |diff| {max(dg):.2e}{spread}; CG iterations {got['iters']} (unsharded {ref['iters']})")
+        if not ok:
+            problems.append(f"{name}, {label}: the sharded loss or gradients disagree with the unsharded run")
+        if got["iters"] != ref["iters"] or len(got["iters"]) != 1:
+            problems.append(f"{name}, {label}: CG iterations {got['iters']} against {ref['iters']}")
+        for r, rank in enumerate(ranks):
+            if rank[tag]["sharded"]["loss"] != got["loss"] or rank[tag]["sharded"]["grads"] != got["grads"]:
+                problems.append(f"{name}, {label}: rank {r}'s loss or gradients differ from rank 0's")
+
+    hold("init", "f32 fused, initial parameters", 0.0, SHARDED_F32_RTOL, SHARDED_F32_ATOL)
+    if lay["hold"] == "held":
+        hold("cond", "f32 fused, lengthscale 0.127", PATH_RTOL, PATH_RTOL, 0.0)
+    else:
+        hold("cond", "f32 fused, lengthscale 0.127", SHARDED_LOSS_RTOL, SHARDED_GRAD_RTOL, SHARDED_GRAD_ATOL)
+    if "cond64" in first:
+        hold("cond64", "f64 blocked, lengthscale 0.127", SHARDED_F64_RTOL, SHARDED_F64_RTOL, 0.0)
+    got = first["init"]["sharded"]
+    iters = got["iters"][0] if got["iters"] else -1
+    say(f"    initial parameters: forward launches {got['fwd']}, backward {got['bwd']} (unsharded "
+        f"{first['init']['unsharded']['fwd']}, {first['init']['unsharded']['bwd']}); collectives forward "
+        f"{got['comm']}, backward {got['comm_bwd']}")
+    for r, rank in enumerate(ranks):
+        for tag in ("init", "cond"):
+            run = rank[tag]["sharded"]
+            f, b, comm = run["fwd"], run["bwd"], run["comm"]
+            its = run["iters"][0] if run["iters"] else -1
+            if model_axis > 1:
+                want_f, want_b = dict(K1=its, K3=0, K2=0), dict(K1=1, K3=0, K2=2)
+            else:
+                want_f, want_b = dict(K1=0, K3=its, K2=0), dict(K1=0, K3=1, K2=2)
+            if f != want_f or b != want_b:
+                problems.append(f"{name} {tag} rank {r}: launches {f}, {b}, the design implies {want_f}, {want_b}")
+            # one "any" a stopping test: from the 20th iteration on, and none
+            # where CG stopped at its cap
+            cap = {"dryrun": 60, "held": 100}[lay["hold"]]
+            want_any = its - 20 + (its < cap) if len(ranks) > 1 else 0
+            want_gather = its + 1 if model_axis > 1 else 0
+            if comm.get("any", 0) != want_any or comm.get("all_gather", 0) != want_gather:
+                problems.append(f"{name} {tag} rank {r}: collectives {comm}, the design implies any {want_any}, "
+                                f"all_gather {want_gather}")
+            for key in ("K1", "K2", "K3"):
+                c.launches[key] += f[key] + b[key]
+    if "all_reduce_ms" in first:
+        say(f"    one collective on the model group (CUDA tensors): a row sum {first['all_reduce_ms']:.3f} ms, a "
+            f"gathered vector {first['all_gather_ms']:.3f} ms (rank 0)")
+    if "config5" in first:
+        c5 = first["config5"]
+        say(f"    config 5 (10 probes, CG to 1.0, at most 100): CG iterations {c5['iters']}, launches forward "
+            f"{c5['fwd']}, backward {c5['bwd']}, collectives {c5['comm']}; solves/s (forward and backward, "
+            f"warm, three repetitions; ranks sharing one card, no scaling): "
+            f"{', '.join('%.3f' % r['solves_per_s'] for r in ranks)} (by rank)")
+        for rank in ranks:
+            for key in ("K1", "K2", "K3"):
+                c.launches[key] += rank["config5"]["fwd"][key] + rank["config5"]["bwd"][key]
+    return problems
+
 PHASES = ("woodbury", "kron_toeplitz", "ski", "indexing", "fantasy", "harness", "kernel_family", "sgpr", "svgp",
-          "classification", "multitask", "dkl")
+          "classification", "multitask", "dkl", "sharded")
 
 
 def main() -> None:
+    if sys.argv[1:2] == ["--sharded-worker"]:
+        _sharded_worker(sys.argv[2:])
+        return
     import torch
 
     # optional: --only PHASE[,PHASE...] runs those module-level phases alone
@@ -3827,6 +4241,8 @@ def main() -> None:
     # models at full width
     for phase in (phase_sgpr, phase_svgp, phase_classification, phase_multitask, phase_dkl):
         phase(ctx)
+    # 19. the sharded step (config 5) in worlds of 1, 2 and 4 ranks
+    phase_sharded(ctx)
     for key in ("K1", "K2", "K3"):
         stats[key]["ms_by_covar"] = {name: ms[key] for name, ms in ctx.family_ms.items()}
     stats["K3"]["ms_t1_by_covar"] = {name: ms["K3_t1"] for name, ms in ctx.family_ms.items()}

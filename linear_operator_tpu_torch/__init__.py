@@ -25,7 +25,9 @@ deep-kernel models (``SGPRRegression``, ``SVGPRegression``,
 operator's covariances: RBF, Matern and
 the rational quadratic on the fused kernels, periodic and spectral mixture
 on the blocked engine, multi-output and parameter-batched layouts, and
-covariances registered at run time (``ops.register_tile_covar``).
+covariances registered at run time (``ops.register_tile_covar``), and the
+sharded training step over data, model and probe axes on
+``torch.distributed`` (``parallel``).
 Its entry points run on a CUDA device unless the caller asks for the CPU,
 where the kernels' plain PyTorch versions take their place.
 """
@@ -110,6 +112,8 @@ from .operators import (
     to_linear_operator,
 )
 
+from . import parallel  # noqa: E402  (it imports the models)
+
 __version__ = "0.1.0"
 
 __all__ = [
@@ -178,6 +182,7 @@ __all__ = [
     "make_grid",
     "matern_kernel_operator",
     "operators",
+    "parallel",
     "periodic_kernel_operator",
     "pivoted_cholesky",
     "rbf_kernel_operator",

@@ -22,6 +22,17 @@ through autograd.
 
 Dispatch: structural closed forms first, dense Cholesky below
 ``max_cholesky_size`` or with fast log_prob off, stochastic CG + SLQ above.
+
+Under an ambient mesh (``parallel/``; the JAX package's
+``maybe_shard_probes``) every rank draws the whole probe block, so that the
+draws equal the unsharded ones, and keeps its block: the batch over ``data``,
+the rows over ``model`` where the operator is row-sharded, the probe columns
+over ``probe``; the rhs columns are solved on every probe rank.  CG's
+reductions are global (``parallel.sharding.MeshReduction``), the SLQ sums
+are all-reduced over the probe group and the inverse quadratic over the
+model group; the backward sums the operator's gradient shares over its rows
+and probe columns, each rhs column counted once.  A preconditioned solve
+under a mesh raises: it is not ported (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -59,7 +70,9 @@ def inv_quad_logdet(
     if settings.debug.on():
         if not op.is_square:
             raise RuntimeError("inv_quad_logdet requires a square operator")
-        if rhs is not None and rhs.shape[-2] != op.shape[-1]:
+        # a row-sharded operator takes this rank's rows of the rhs
+        rows = op.rows.shape[-2] if getattr(op, "row_group", None) is not None else op.shape[-1]
+        if rhs is not None and rhs.shape[-2] != rows:
             raise RuntimeError(f"rhs shape {tuple(rhs.shape)} incompatible with operator {op.shape}")
 
     def _out(iq, ld):
@@ -92,26 +105,43 @@ def inv_quad_logdet(
             )
         generator = torch.Generator().manual_seed(0)
 
+    from ..parallel.sharding import SolveLayout, _current_mesh
+
+    mesh = _current_mesh()
+    layout = None if mesh is None else SolveLayout(mesh, op)
     closure = None
     logdet_p = zeros
     if num_probes > 0:
         closure, precond_op, logdet_p = op.detach()._preconditioner()
+        if layout is not None and closure is not None:
+            raise NotImplementedError(
+                "a preconditioned inv_quad_logdet under a mesh is not ported (ROADMAP.md queue 1); "
+                "turn preconditioning off (settings.min_preconditioning_size) or leave the mesh"
+            )
         if precond_op is not None:
             probes = precond_op.zero_mean_mvn_samples(num_probes, generator=generator).movedim(0, -1)
             precond_probes = closure(probes)  # (*b, n, m)
         else:
-            probes = randn((*op.batch_shape, n, num_probes), op.dtype, op.device, generator)
+            batch = op.batch_shape if layout is None else layout.batch
+            probes = randn((*batch, n, num_probes), op.dtype, op.device, generator)
             precond_probes = probes
             logdet_p = zeros
         norms = torch.linalg.norm(probes, dim=-2, keepdim=True)  # (*b, 1, m)
         probes = probes / norms
         precond_probes = precond_probes / norms
+        if layout is not None:
+            if num_probes < mesh.size("probe"):
+                raise ValueError(f"{num_probes} probes do not split over probe={mesh.size('probe')}")
+            probes, precond_probes = layout.block(probes), layout.block(precond_probes)
+            norms = layout.block(norms, rows=False)
     else:
         probes = torch.zeros((*op.batch_shape, n, 0), dtype=op.dtype, device=op.device)
         precond_probes = probes
         norms = torch.zeros((*op.batch_shape, 1, 0), dtype=op.dtype, device=op.device)
 
-    iq, ld_est = _stochastic_iqld(op, rhs, probes, precond_probes, norms, preconditioner=closure)
+    iq, ld_est = _stochastic_iqld(
+        op, rhs, probes, precond_probes, norms, preconditioner=closure, layout=layout, num_probes=num_probes
+    )
     # under skip_logdet_forward the SLQ term is zero but log det P is kept
     ld = ld_est + logdet_p if logdet else zeros
     return _out(iq, ld)
@@ -148,9 +178,9 @@ class _StochasticIQLD(torch.autograd.Function):
     along as inputs, so that the backward hands each its gradient."""
 
     @staticmethod
-    def forward(ctx, op, rhs, probes, precond_probes, norms, preconditioner, *op_leaves):
-        iq, ld, probe_solves, rhs_solves = _stochastic_forward(op, rhs, probes, preconditioner)
-        ctx.op = op
+    def forward(ctx, op, rhs, probes, precond_probes, norms, preconditioner, layout, num_probes, *op_leaves):
+        iq, ld, probe_solves, rhs_solves = _stochastic_forward(op, rhs, probes, preconditioner, layout, num_probes)
+        ctx.op, ctx.layout, ctx.num_probes = op, layout, num_probes
         ctx.rhs_shape = None if rhs is None else rhs.shape
         ctx.save_for_backward(probe_solves, rhs_solves, precond_probes, norms)
         return iq, ld
@@ -163,34 +193,43 @@ class _StochasticIQLD(torch.autograd.Function):
         if m > 0:
             # the solves may carry a joint batch broader than the probes'
             joint = probe_solves.shape[:-2]
-            coef = ld_bar[..., None, None] * norms**2 / m  # (*b, 1, m)
+            coef = ld_bar[..., None, None] * norms**2 / ctx.num_probes  # (*b, 1, m)
             lefts.append(probe_solves * coef)
             rights.append(precond_probes.expand(*joint, *precond_probes.shape[-2:]))
+        layout = ctx.layout
         if rhs_solves is not None and rhs_solves.shape[-1] > 0:
-            lefts.append(-rhs_solves * iq_bar[..., None, :])
+            # on a mesh the rhs columns are on every probe rank: one counts them
+            keep = layout is None or layout.keeps_rhs()
+            lefts.append(-rhs_solves * iq_bar[..., None, :] * (1.0 if keep else 0.0))
             rights.append(rhs_solves)
         if lefts:
             op_grads = ctx.op._bilinear_derivative(torch.cat(lefts, dim=-1), torch.cat(rights, dim=-1))
+            if layout is not None:
+                op_grads = layout.reduce_grads(op_grads)
         else:
             op_grads = (None,) * len(list(ctx.op._leaves()))
         rhs_bar = None
         if ctx.rhs_shape is not None and ctx.needs_input_grad[1]:
             rhs_bar = _unbroadcast(2.0 * rhs_solves * iq_bar[..., None, :], ctx.rhs_shape)
-        return (None, rhs_bar, None, None, None, None, *op_grads)
+        return (None, rhs_bar, None, None, None, None, None, None, *op_grads)
 
 
-def _stochastic_iqld(op, rhs, probes, precond_probes, norms, *, preconditioner=None):
+def _stochastic_iqld(op, rhs, probes, precond_probes, norms, *, preconditioner=None, layout=None, num_probes=None):
     """Stochastic (inv_quad, logdet) on given unit-norm probes (*b, n, m).
     ``preconditioner`` is the closure the probes were drawn with; None
-    rebuilds it from the operator."""
+    rebuilds it from the operator.  On a mesh, ``layout`` (a
+    ``parallel.sharding.SolveLayout``) cuts the work and the probes are this
+    rank's block of ``num_probes`` (default: all of them here)."""
+    num_probes = probes.shape[-1] if num_probes is None else num_probes
     return _StochasticIQLD.apply(
-        op, rhs, probes, precond_probes, norms, preconditioner, *op._leaves()
+        op, rhs, probes, precond_probes, norms, preconditioner, layout, num_probes, *op._leaves()
     )
 
 
-def _stochastic_forward(op, rhs, probes, preconditioner=None):
+def _stochastic_forward(op, rhs, probes, preconditioner=None, layout=None, num_probes=None):
     n = op.shape[-1]
-    m = probes.shape[-1]
+    m = probes.shape[-1]  # this rank's share of the num_probes probes
+    num_probes = m if num_probes is None else num_probes
     if rhs is not None and m > 0:
         joint = torch.broadcast_shapes(op.batch_shape, rhs.shape[:-2], probes.shape[:-2])
         stacked = torch.cat(
@@ -203,13 +242,14 @@ def _stochastic_forward(op, rhs, probes, preconditioner=None):
 
     if preconditioner is None:
         preconditioner, _, _ = op.detach()._preconditioner()
-    result = op._solve_via_cg(stacked, preconditioner=preconditioner, n_tridiag=m)
+    reduction = None if layout is None else layout.reduction(m, num_probes, stacked.shape[-1] - m, stacked)
+    result = op._solve_via_cg(stacked, preconditioner=preconditioner, n_tridiag=m, reduction=reduction)
     solves = result.solution
 
     zeros = torch.zeros(op.batch_shape, dtype=op.dtype, device=op.device)
-    if m > 0 and settings.skip_logdet_forward.on():
+    if num_probes > 0 and settings.skip_logdet_forward.on():
         ld = zeros
-    elif m > 0:
+    elif num_probes > 0:
         # a NaN anywhere in the tridiagonals means the solve failed: return a
         # NaN logdet rather than quadrature garbage
         t_mats = result.t_mats
@@ -218,12 +258,17 @@ def _stochastic_forward(op, rhs, probes, preconditioner=None):
         evals, evecs = lanczos_tridiag_to_diag(torch.where(bad, eye, t_mats))
         (ld,) = slq_quadrature(n, evals, evecs, [torch.log])
         ld = torch.where(bad, torch.nan, ld)
+        if layout is not None and layout.probes is not None:
+            # the quadrature's mean over every rank's probes
+            ld = layout.probe_sum(ld * m) / num_probes
     else:
         ld = zeros
 
     if rhs is not None:
         rhs_solves = solves[..., m:]
         iq = torch.sum(rhs_solves * stacked[..., m:], dim=-2)
+        if layout is not None:
+            iq = layout.row_sum(iq)
     else:
         rhs_solves = None
         iq = torch.zeros_like(zeros)

@@ -110,21 +110,29 @@ class ExactGPRegression(nn.Module):
         self.raw_noise = nn.Parameter(torch.full((), -2.0, **kw))
 
     def covariance(self, x1, x2=None, symmetric: bool | None = None) -> KernelLinearOperator:
+        """k(x1, x2), lazily; under an ambient mesh with a ``model`` axis above
+        1, k(x1, x1) of this rank's rows x1 is row-sharded
+        (``parallel.row_sharded``), and a cross-covariance is not ported."""
         if symmetric is None:
             symmetric = x2 is None
-        return KernelLinearOperator(
-            x1,
-            x1 if x2 is None else x2,
-            {
-                "lengthscale": _softplus(self.raw_lengthscale),
-                "outputscale": _softplus(self.raw_outputscale),
-            },
+        params = {
+            "lengthscale": _softplus(self.raw_lengthscale),
+            "outputscale": _softplus(self.raw_outputscale),
+        }
+        kw = dict(
             covar_func=self.covar_func,
             block_rows=self.block_rows,
-            symmetric=symmetric,
             matvec_impl=rbf_fused_matvec if self.use_fused_kernels else None,
             materialize_threshold=self.materialize_threshold,
         )
+        mesh = _current_mesh()
+        if mesh is not None and mesh.size("model") > 1:
+            from ..parallel.row_sharded import _queued, row_sharded_kernel_operator
+
+            if x2 is not None:
+                raise _queued("a cross-covariance")
+            return row_sharded_kernel_operator(x1, params, mesh, **kw)
+        return KernelLinearOperator(x1, x1 if x2 is None else x2, params, symmetric=symmetric, **kw)
 
     def train_operator(self, x):
         return self.covariance(x).add_diagonal(_softplus(self.raw_noise))
@@ -132,11 +140,21 @@ class ExactGPRegression(nn.Module):
     def neg_mll(self, x, y, *, generator: torch.Generator | None = None) -> torch.Tensor:
         """Negative marginal log-likelihood, averaged over data points.
 
-        x: (*b, n, d); y: (*b, n); batch dims are independent GPs."""
-        n = y.shape[-1]
+        x: (*b, n, d); y: (*b, n); batch dims are independent GPs.  Under an
+        ambient mesh (``parallel/``) x and y are this rank's block
+        (``shard_gp_batch``) and the loss is the whole batch's mean, the same
+        on every rank; its gradient on a rank is the rank's share, which
+        ``sharded_train_step`` sums over the ``data`` axis."""
         K = self.train_operator(x)
+        n = K.shape[-1]
         iq, ld = inv_quad_logdet(K, y[..., None], logdet=True, generator=generator)
-        return 0.5 * torch.mean(iq + ld + n * math.log(2.0 * math.pi)) / n
+        terms = iq + ld + n * math.log(2.0 * math.pi)
+        mesh = _current_mesh()
+        if mesh is None or mesh.size("data") == 1:
+            return 0.5 * torch.mean(terms) / n
+        from ..parallel._comm import sum_shares
+
+        return 0.5 * sum_shares(torch.sum(terms) / (terms.numel() * mesh.size("data")), mesh.group("data")) / n
 
     def posterior(self, x, y, x_star):
         """Predictive mean and variance at x_star, from ONE batched CG over
@@ -191,6 +209,12 @@ class ExactGPRegression(nn.Module):
         v = k_star @ cache.root_inv  # (*b, m, k)
         downdate = ConstantMulLinearOperator(RootLinearOperator(v), -1.0)
         return MultivariateNormal(mean, (self.covariance(x_star) + downdate).add_jitter(1e-6))
+
+
+def _current_mesh():
+    from ..parallel.sharding import _current_mesh as current
+
+    return current()
 
 
 def load_jax_params(model, params):

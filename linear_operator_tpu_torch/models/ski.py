@@ -8,6 +8,9 @@ grid kernel's mat-vec is a Kronecker sweep of Toeplitz products: an
 O(n 2^D + M log M) mat-vec, so CG and SLQ reach hundreds of thousands of
 points.  The model is an ``nn.Module`` whose three raw parameters (and so the
 computation) live on ``device``: "cuda" unless the caller asks for the CPU.
+Under a mesh (``parallel/``) its operator is not row-sharded: every rank of a
+model group holds all the points; a row-sharded interpolation is queued
+(``ROADMAP.md`` queue 1).
 """
 
 from __future__ import annotations

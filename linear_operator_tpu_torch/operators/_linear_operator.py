@@ -376,7 +376,9 @@ class LinearOperator:
         operators with per-solve setup override it."""
         return self._matmul
 
-    def _solve_via_cg(self, rhs, preconditioner=None, n_tridiag: int = 0):
+    def _solve_via_cg(self, rhs, preconditioner=None, n_tridiag: int = 0, reduction=None):
+        """CG on the per-solve closure; ``reduction`` makes its row and column
+        reductions global on a mesh (``solvers/linear_cg.py``)."""
         from ..solvers.linear_cg import linear_cg
 
         return linear_cg(
@@ -384,6 +386,7 @@ class LinearOperator:
             rhs,
             preconditioner=preconditioner,
             n_tridiag=n_tridiag,
+            reduction=reduction,
         )
 
     # ------------------------------------------------------------------

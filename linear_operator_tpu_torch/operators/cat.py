@@ -1,7 +1,8 @@
 """Lazy concatenation of operators along the rows, the columns or a batch dim
 (counterpart of linear_operator_tpu/operators/cat.py).  All blocks live on
-one device, as in the JAX package; a multi-device layout waits for the
-port's ``parallel/``."""
+one device, as in the JAX package.  Under a mesh (``parallel/``) a Cat runs
+replicated: every rank holds and multiplies every block; sharding its blocks
+over the ranks is queued (``ROADMAP.md`` queue 1)."""
 
 from __future__ import annotations
 

@@ -499,10 +499,10 @@ def rbf_fused_closure(x1, x2, params, symmetric: bool):
 
     Returns None (the caller falls back to the dense cache or streaming) when
     the operator is not symmetric or is batched, when n < _RBF_CACHE_MIN_N,
-    when the cache would exceed RBF_TILE_CACHE_BUDGET, or when the kernels
+    when the cache would exceed RBF_TILE_CACHE_BUDGET, when the kernels
     cannot run: x1 is not on a CUDA device (the port's counterpart of the JAX
-    package's ``_use_interpret()``).  The JAX package also declines under a
-    device mesh; that gate waits for the port's ``parallel/``.
+    package's ``_use_interpret()``), or under an ambient mesh
+    (``parallel/``), as in the JAX package: a mesh's solves stream K1 or K3.
 
     x is detached before K4 (the JAX package's ``stop_gradient``), so
     gradients flow through the operator's ``_bilinear_derivative`` (K2 and
@@ -512,6 +512,10 @@ def rbf_fused_closure(x1, x2, params, symmetric: bool):
     if not symmetric or x1.ndim != 2 or n < _RBF_CACHE_MIN_N:
         return None
     if not _tile_cache_device(x1):
+        return None
+    from ..parallel.sharding import _current_mesh
+
+    if _current_mesh() is not None:
         return None
     nblk = -(-n // _RBF_TILE)
     if nblk * (nblk + 1) // 2 * _RBF_TILE * _RBF_TILE * 2 > RBF_TILE_CACHE_BUDGET:

@@ -9,6 +9,14 @@ identity pad (diagonal 1, off-diagonal 0, so SLQ gives it zero weight), at
 least ``min_iter = 10`` iterations, and the same stopping rule.  The stopping
 test reads one flag from the device per iteration, and none while the
 tridiagonal iterations are still running.
+
+Every reduction over the matrix rows and columns goes through a
+``reduction`` (:class:`LocalReduction`, the identity, by default).  On a
+mesh (``parallel/``) it all-reduces the row sums of a row-sharded operator,
+takes the mean residual over the columns of every probe rank and the
+stopping flags' "any" over every rank, so that each rank runs exactly the
+iterations of the unsharded solve; the host read of the flag is then one
+collective.
 """
 
 from __future__ import annotations
@@ -38,6 +46,36 @@ def _safe_div(num: torch.Tensor, den: torch.Tensor, tiny: float = 1e-35) -> torc
     return num / torch.where(den.abs() < tiny, clamped, den)
 
 
+class LocalReduction:
+    """CG's reductions over the rows (dim -2) and the columns of one
+    process's operands; ``parallel.sharding.MeshReduction`` makes them global.
+    ``tridiag`` says whether some rank builds tridiagonal matrices (and so
+    skips the stopping test while they run) where this one has no probe
+    column of its own."""
+
+    tridiag = False
+
+    def norm(self, a: torch.Tensor) -> torch.Tensor:
+        return torch.linalg.norm(a, dim=-2, keepdim=True)
+
+    def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        return torch.sum(a * b, dim=-2, keepdim=True)
+
+    def norm_dot(self, r: torch.Tensor, z: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """(|r|, r . z), the two reductions after a CG update, together."""
+        return self.norm(r), self.dot(r, z)
+
+    def column_mean(self, resid: torch.Tensor) -> torch.Tensor:
+        """The mean residual over the columns, (*b, 1, t) -> (*b)."""
+        return resid.mean(dim=(-2, -1))
+
+    def any(self, flags: torch.Tensor) -> torch.Tensor:
+        return flags
+
+
+_LOCAL = LocalReduction()
+
+
 def linear_cg(
     matmul_closure: Callable[[torch.Tensor], torch.Tensor],
     rhs: torch.Tensor,
@@ -50,10 +88,14 @@ def linear_cg(
     initial_guess: torch.Tensor | None = None,
     preconditioner: Callable[[torch.Tensor], torch.Tensor] | None = None,
     n_tridiag: int = 0,
+    reduction: LocalReduction | None = None,
 ) -> CGResult:
     """Solve ``K x = rhs`` for PSD ``K`` given only a mat-vec closure; all
     ``t`` columns of ``rhs`` (*batch, n, t) are solved in one loop, and the
-    first ``n_tridiag`` columns also give Lanczos tridiagonal matrices."""
+    first ``n_tridiag`` columns also give Lanczos tridiagonal matrices.
+    ``reduction`` makes the row and column reductions global on a mesh
+    (``rhs`` is then this rank's block)."""
+    red = _LOCAL if reduction is None else reduction
     if tolerance is None:
         tolerance = settings.cg_tolerance.value()
     if max_iter is None:
@@ -82,7 +124,7 @@ def linear_cg(
     precond = preconditioner if preconditioner is not None else (lambda v: v)
 
     # normalized columns make the tolerances scale-free
-    rhs_norm = torch.linalg.norm(rhs, dim=-2, keepdim=True)  # (*b, 1, t)
+    rhs_norm = red.norm(rhs)  # (*b, 1, t)
     rhs_is_zero = rhs_norm < eps
     rhs_norm = torch.where(rhs_is_zero, 1.0, rhs_norm)
     rhs = rhs / rhs_norm
@@ -99,10 +141,8 @@ def linear_cg(
 
     z = precond(r)
     p = z
-    rz = torch.sum(r * z, dim=-2, keepdim=True)
-    resid = torch.linalg.norm(r, dim=-2, keepdim=True)
+    resid, rz = red.norm_dot(r, z)
     has_converged = resid < stop_updating_after
-    mean_resid = resid.mean(dim=(-2, -1))
 
     nt = max(n_tridiag, 1)
     tmax = max(n_tridiag_iter, 1)
@@ -114,24 +154,24 @@ def linear_cg(
     k = 0
     while k < max_iter:
         tridiag_active = n_tridiag > 0 and k < n_tridiag_iter
-        if not tridiag_active:
+        if not ((n_tridiag > 0 or red.tridiag) and k < n_tridiag_iter):
             # run while any batch element is unconverged (or below min_iter),
             # unless every column is frozen
-            unconverged = (mean_resid >= tolerance).any() | (k < min_iter)
-            if not bool(unconverged & ~has_converged.all()):
+            flags = torch.stack([(red.column_mean(resid) >= tolerance).any(), ~has_converged.all()])
+            flags = red.any(flags)
+            if not bool((flags[0] | (k < min_iter)) & flags[1]):
                 break
 
         Ap = mm(p)
-        pAp = torch.sum(p * Ap, dim=-2, keepdim=True)
+        pAp = red.dot(p, Ap)
         alpha = torch.where(has_converged, 0.0, _safe_div(rz, pAp))
 
         x = x + alpha * p
         r = r - alpha * Ap
-        resid = torch.linalg.norm(r, dim=-2, keepdim=True)
+        z = precond(r)
+        resid, rz_new = red.norm_dot(r, z)
         has_converged = has_converged | (resid < stop_updating_after)
 
-        z = precond(r)
-        rz_new = torch.sum(r * z, dim=-2, keepdim=True)
         beta = torch.where(has_converged, 0.0, _safe_div(rz_new, rz))
         p = z + beta * p
         rz = rz_new
@@ -153,10 +193,9 @@ def linear_cg(
             prev_alpha = alpha[..., :, :n_tridiag]
             prev_beta = beta[..., :, :n_tridiag]
 
-        mean_resid = resid.mean(dim=(-2, -1))
         k += 1
 
-    max_resid = float(mean_resid.max())
+    max_resid = float(red.column_mean(resid).max())
     if settings.verbose_linalg.on():
         settings.logger.debug(
             "linear_cg finished in %d iterations, mean residual %.3e", k, max_resid
@@ -170,7 +209,7 @@ def linear_cg(
         )
 
     solution = torch.where(rhs_is_zero, 0.0, x * rhs_norm).to(orig_dtype)
-    residual_norm = torch.where(rhs_is_zero, 0.0, torch.linalg.norm(r, dim=-2, keepdim=True))[..., 0, :]
+    residual_norm = torch.where(rhs_is_zero, 0.0, red.norm(r))[..., 0, :]
 
     t_mats = None
     if n_tridiag > 0:

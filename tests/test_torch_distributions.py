@@ -153,7 +153,7 @@ def test_posterior_distribution_from_the_jax_cache(same_draws, monkeypatch):
     by ``load_jax_cache``) equals the JAX one entry for entry."""
     jmodel, params, tmodel, args_j, args_t = _posterior_pair(same_draws)
     with _Both(**LOVE):
-        jcache = jmodel.posterior_cache(params, *args_j[:2], key=jax.random.PRNGKey(0))
+        jcache = jax.jit(lambda p: jmodel.posterior_cache(p, *args_j[:2], key=jax.random.PRNGKey(0)))(params)
         monkeypatch.setattr(jmodel, "posterior_cache", lambda *a, **k: jcache)
         want = jmodel.posterior_distribution(params, *args_j, key=jax.random.PRNGKey(0))
     cache = tlo.load_jax_cache(tmodel, jax.tree_util.tree_map(np.asarray, jcache))
@@ -164,7 +164,7 @@ def test_posterior_distribution_from_the_jax_cache(same_draws, monkeypatch):
     _close(got.covariance_matrix, want.covariance_matrix, RTOL)
     _close(got.variance, want.variance, RTOL)
     value = np.random.default_rng(41).normal(size=(4, 20))
-    _close(got.log_prob(torch.from_numpy(value)), want.log_prob(jnp.asarray(value)), RTOL)
+    _close(got.log_prob(torch.from_numpy(value)), jax.jit(want.log_prob)(jnp.asarray(value)), RTOL)
     _close(got.rsample((6,), generator=torch.Generator()), want.rsample(jax.random.PRNGKey(1), (6,)), 1e-8)
 
 

@@ -192,7 +192,7 @@ def test_stochastic_forward_on_identical_probes():
     top = tkernel.rbf_kernel_operator(torch.from_numpy(x), use_fused_kernels=False, **kw)
     top = top.add_diagonal(torch.tensor(0.1, dtype=torch.float64))
     with _Both(**SLICE):
-        jiq, jld = j_stochastic_iqld(
+        jiq, jld = jax.jit(j_stochastic_iqld)(
             jop, jnp.asarray(y)[:, None], jnp.asarray(probes), jnp.asarray(probes), jnp.asarray(norms)
         )
         targs = [torch.from_numpy(a) for a in (probes, probes, norms)]
@@ -256,7 +256,7 @@ def test_neg_mll_matches_jax(same_probes, fused, dtype, rtol):
     x, y, _ = (a.astype(dtype) for a in _gp_data(9))
     jmodel, params, tmodel = _models(fused, dtype)
     with _Both(**SLICE):
-        want = jmodel.neg_mll(params, jnp.asarray(x), jnp.asarray(y), key=jax.random.PRNGKey(0))
+        want = jax.jit(lambda p: jmodel.neg_mll(p, jnp.asarray(x), jnp.asarray(y), key=jax.random.PRNGKey(0)))(params)
         got = tmodel.neg_mll(torch.from_numpy(x), torch.from_numpy(y), generator=torch.Generator())
     assert np.isfinite(_np(got)).all()
     np.testing.assert_allclose(_np(got), _np(want), rtol=rtol)
@@ -268,7 +268,7 @@ def test_posterior_matches_jax(same_probes, fused, dtype, rtol):
     x, y, x_star = (a.astype(dtype) for a in _gp_data(10))
     jmodel, params, tmodel = _models(fused, dtype)
     with _Both(**SLICE):
-        jmean, jvar = jmodel.posterior(params, jnp.asarray(x), jnp.asarray(y), jnp.asarray(x_star))
+        jmean, jvar = jax.jit(jmodel.posterior)(params, jnp.asarray(x), jnp.asarray(y), jnp.asarray(x_star))
         tmean, tvar = tmodel.posterior(*(torch.from_numpy(a) for a in (x, y, x_star)))
     assert tmean.shape == tvar.shape == (24,)
     _close(tmean, jmean, rtol)
@@ -531,7 +531,7 @@ def test_posterior_under_pivoted_preconditioner():
     x, y, x_star = _gp_data(31, n=2000)
     jmodel, params, tmodel = _models(False, np.float64)
     with _Both(**PIVOTED):
-        jmean, jvar = jmodel.posterior(params, jnp.asarray(x), jnp.asarray(y), jnp.asarray(x_star))
+        jmean, jvar = jax.jit(jmodel.posterior)(params, jnp.asarray(x), jnp.asarray(y), jnp.asarray(x_star))
         tmean, tvar = tmodel.posterior(*(torch.from_numpy(a) for a in (x, y, x_star)))
     _close(tmean, jmean, 1e-7)
     _close(tvar, jvar, 1e-7)

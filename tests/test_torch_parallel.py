@@ -1,0 +1,375 @@
+"""The port's ``parallel/`` against the JAX package's, on the CPU.
+
+The mesh arithmetic (``make_mesh``'s axes, its warning and its ValueError)
+is held against the JAX ``make_mesh`` on the 8 fake devices of
+``conftest.py``, over the argument mixes of the JAX package's own tests.
+
+The sharded exact-GP step runs in two gloo worlds of processes
+(``torch_parallel_worker.py``), one of 2 ranks and one of 4, spawned
+together: the layouts (data 2, model 1) and (data 1, model 2) in the first,
+(data 2, model 2) and (data 1, model 2, probe 2) in the second, each at
+B = 8 and n = 32 and at n = 33 (uneven row blocks), in float64 on the
+blocked path, with the settings of ``tests/test_models_parallel.py`` and
+one probe block for both packages.  Each rank's loss and gradient (its
+shares summed over ``data``, as the training step sums them) are held
+against the JAX package's unsharded ``jax.value_and_grad``; its CG iteration
+count against the unsharded run's; one ``sharded_train_step`` with Adam
+against Adam's first step on the JAX gradient.  The float32 fused route
+(the kernels' plain versions) is held against the unsharded port, and the
+collectives and kernel routes are counted.
+
+Tolerances (measured): the unsharded port lies 7.2e-10 (the loss) and
+7.2e-8 (the gradient, of its norm) from the JAX package at n = 32: 21 CG
+iterations, 20 of them building the SLQ tridiagonals, which lose
+orthogonality on a 32 x 32 system, carry the two packages' summation orders
+that far.  A data-only mesh changes no sum (the sharded port equals the
+unsharded one), and row sharding, which splits every sum over the rows in
+two, lands within that distance (7.1e-10 and 7.5e-9).  So the loss is held
+to 2e-9 and the gradient to 3e-7 of its norm; the float32 fused route to
+1e-6 of the unsharded port (measured 0 and 6e-8).
+"""
+
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+import warnings
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import linear_operator_tpu as jlo
+import linear_operator_tpu.parallel as jpar
+import linear_operator_tpu_torch.parallel as tpar
+from linear_operator_tpu.models import ExactGPRegression as JaxGP
+from linear_operator_tpu_torch.parallel.sharding import Mesh, mesh_axes, shard_gp_batch, split_sizes
+from linear_operator_tpu_torch.test.utils import local_device_mesh
+from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
+
+WORKER = Path(__file__).resolve().parent / "torch_parallel_worker.py"
+WORLDS = {2: [(2, 1, None), (1, 2, None)], 4: [(2, 2, None), (1, 2, 2)]}
+SIZES = (32, 33)
+B, D, PROBES = 8, 2, 4
+PARAMS = (-0.3, 0.1, -1.5)  # raw lengthscale, outputscale, noise
+SETTINGS = dict(max_cholesky_size=0, num_trace_samples=PROBES, max_cg_iterations=30, cg_tolerance=1e-6,
+                min_preconditioning_size=10**9)
+LOSS_RTOL, GRAD_RTOL, FUSED_RTOL = 2e-9, 3e-7, 1e-6
+LR, ADAM_EPS = 0.01, 1e-8
+TIMEOUT_S = 120
+
+
+# ---------------------------------------------------------------------------
+# The mesh arithmetic
+# ---------------------------------------------------------------------------
+
+# (n_devices, data, model, probe): the mixes of tests/test_round5_fixes.py:82-95,
+# tests/test_reference_sweep.py:642-719, tests/test_round3_fixes.py:198-200,
+# test_models_parallel.py and the bench (bench.py:341-354), and the defaults
+MESH_ARGS = [
+    (4, 2, 2, None), (None, 3, None, None), (None, 2, 2, None), (None, None, None, 3), (None, None, 16, None),
+    (8, 2, 2, 2), (8, None, 1, None), (8, None, 2, None), (8, None, 2, 2), (None, None, None, None),
+    (8, None, 2, 4), (2, None, 2, None), (1, None, 1, None), (8, 2, None, None), (6, None, 2, None),
+    (16, None, 2, None), (8, 4, 4, None), (8, None, None, 8),
+]
+
+
+def _outcome(fn):
+    """(shape, warning messages, error message) of one call."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        try:
+            shape = fn()
+        except ValueError as err:
+            return None, [], str(err)
+    return shape, [str(w.message) for w in caught if issubclass(w.category, UserWarning)], None
+
+
+@pytest.mark.parametrize("n_devices, data, model, probe", MESH_ARGS)
+def test_mesh_axes_match_jax(n_devices, data, model, probe):
+    def jax_mesh():
+        mesh = jpar.make_mesh(n_devices, data=data, model=model, probe=probe)
+        assert mesh.devices.shape == tuple(mesh.shape.values())
+        return dict(mesh.shape)
+
+    assert len(jax.devices()) == 8
+    want = _outcome(jax_mesh)
+    got = _outcome(lambda: mesh_axes(8, n_devices, data, model, probe))
+    assert got == want
+
+
+def test_make_mesh_on_one_process():
+    """Without a process group, make_mesh lays one rank (rank 0), the JAX
+    package's single-device mesh; more raises as the arithmetic does."""
+    mesh = tpar.make_mesh(device="cpu")
+    assert mesh.shape == {"data": 1, "model": 1} and mesh.active and mesh.devices.shape == (1, 1)
+    assert tpar.make_mesh(1, probe=1, device="cpu").shape == {"data": 1, "model": 1, "probe": 1}
+    with pytest.raises(ValueError, match="does not fit 1 devices"):
+        tpar.make_mesh(2, device="cpu")
+    with local_device_mesh(device="cpu") as ambient:
+        assert tpar.sharding._current_mesh() is ambient
+    assert tpar.sharding._current_mesh() is None
+
+
+@pytest.mark.parametrize("shape", [{"data": 2, "model": 2}, {"data": 1, "model": 2, "probe": 2},
+                                   {"data": 2, "model": 1, "probe": 2}, {"data": 4, "model": 1}])
+@pytest.mark.parametrize("n", [32, 33])
+def test_blocks_tile_the_global_arrays(shape, n):
+    """Each rank's blocks (shard_gp_batch, maybe_shard_probes) are the
+    tensor_split blocks of its place, ranks row-major: over all ranks the
+    probe blocks tile the global array once, the data blocks once per probe
+    rank.  Outside a mesh maybe_shard_probes returns its argument."""
+    x = torch.arange(8 * n * 3, dtype=torch.float64).reshape(8, n, 3)
+    probes = torch.arange(8 * n * 5, dtype=torch.float64).reshape(8, n, 5)
+    assert tpar.maybe_shard_probes(probes) is probes
+    seen_x, seen_p = torch.zeros_like(x), torch.zeros_like(probes)
+    ranks = np.arange(int(np.prod(list(shape.values())))).reshape(tuple(shape.values()))
+    for rank in ranks.flat:
+        mesh = Mesh(shape, int(rank), torch.device("cpu"))
+        assert tuple(np.argwhere(ranks == rank)[0]) == tuple(mesh.index(a) for a in shape)
+        xs, ys = shard_gp_batch(mesh, x, x[..., 0])
+        assert torch.equal(ys, xs[..., 0])
+        b = torch.tensor_split(torch.arange(8), shape["data"])[mesh.index("data")]
+        r = torch.tensor_split(torch.arange(n), shape["model"])[mesh.index("model")]
+        c = torch.tensor_split(torch.arange(5), shape.get("probe", 1))[mesh.index("probe")]
+        seen_x[b[:, None], r[None, :]] += xs
+        with mesh:
+            seen_p[b[:, None, None], r[None, :, None], c[None, None, :]] += tpar.maybe_shard_probes(probes)
+    assert torch.equal(seen_x, x * shape.get("probe", 1)) and torch.equal(seen_p, probes)
+
+
+def test_parallel_exports_the_jax_names():
+    assert tpar.__all__ == jpar.__all__
+    assert all(callable(getattr(tpar, name)) for name in tpar.__all__)
+
+
+# ---------------------------------------------------------------------------
+# The sharded step in gloo worlds
+# ---------------------------------------------------------------------------
+
+
+def _data(n):
+    rng = np.random.default_rng(n)
+    x = rng.normal(size=(B, n, D))
+    return x, np.sin(3.0 * x[..., 0]), rng.normal(size=(B, n, PROBES))
+
+
+def _runs():
+    runs = {world: [] for world in WORLDS}
+    for world, layouts in WORLDS.items():
+        for layout in layouts:
+            tag = "x".join(str(a) for a in layout if a is not None)
+            for n in SIZES:
+                runs[world].append(dict(name=f"{tag}-n{n}", layout=list(layout), case=f"n{n}", dtype="float64",
+                                        fused=False, raises=layout[1] > 1 and n == SIZES[0]))
+            runs[world].append(dict(name=f"{tag}-fused", layout=list(layout), case=f"n{SIZES[0]}",
+                                    dtype="float32", fused=True))
+    return runs
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _jax_reference(n):
+    """The JAX package's unsharded loss and gradient on the same probes."""
+    x, y, probes = _data(n)
+    model = JaxGP(block_rows=32, materialize_threshold=None)
+    params = model.init_params(D, dtype=jnp.float64)._replace(
+        **{name: jnp.asarray(v, jnp.float64) for name, v in zip(("raw_lengthscale", "raw_outputscale",
+                                                                 "raw_noise"), PARAMS)})
+    normal = jax.random.normal
+
+    def draw(key, shape=(), dtype=jnp.float64):
+        assert tuple(shape) == probes.shape
+        return jnp.asarray(probes, dtype)
+
+    def loss(p):
+        ctxs = [getattr(jlo.settings, k)(v) for k, v in SETTINGS.items()]
+        for c in ctxs:
+            c.__enter__()
+        try:
+            return model.neg_mll(p, jnp.asarray(x), jnp.asarray(y), key=jax.random.PRNGKey(7))
+        finally:
+            for c in reversed(ctxs):
+                c.__exit__(None, None, None)
+
+    jax.random.normal = draw
+    try:
+        value, grads = jax.jit(jax.value_and_grad(loss))(params)
+    finally:
+        jax.random.normal = normal
+    return float(value), np.array([float(grads.raw_lengthscale), float(grads.raw_outputscale),
+                                   float(grads.raw_noise)])
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """Both worlds spawned at once (each rank one process), the JAX
+    references computed while they run; a rank that fails ends its world at
+    once, and each world has its own timeout."""
+    tmp = tmp_path_factory.mktemp("parallel")
+    arrays = {}
+    for n in SIZES:
+        x, y, probes = _data(n)
+        arrays.update({f"n{n}_x": x, f"n{n}_y": y, f"n{n}_probes": probes, f"n{n}_params": np.array(PARAMS)})
+    np.savez(tmp / "arrays.npz", **arrays)
+    env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS",)}
+    env["OMP_NUM_THREADS"] = "1"
+    procs, started = {}, time.perf_counter()
+    for world, runs in _runs().items():
+        out = tmp / f"world{world}"
+        out.mkdir()
+        spec = out / "spec.json"
+        spec.write_text(json.dumps(dict(arrays=str(tmp / "arrays.npz"), runs=runs, scaling=world == 4)))
+        port = _free_port()
+        procs[world] = [
+            subprocess.Popen([sys.executable, str(WORKER), str(r), str(world), str(port), str(spec), str(out)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+            for r in range(world)
+        ]
+    refs = {n: _jax_reference(n) for n in SIZES}
+    results, failures = {}, []
+    for world, ranks in procs.items():
+        deadline = started + TIMEOUT_S
+        while any(p.poll() is None for p in ranks):
+            if time.perf_counter() > deadline or any(p.poll() not in (None, 0) for p in ranks):
+                break
+            time.sleep(0.05)
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+        outs = [p.communicate()[0] for p in ranks]
+        for r, (p, text) in enumerate(zip(ranks, outs)):
+            if p.returncode != 0:
+                failures.append(f"world {world} rank {r} exited {p.returncode}:\n{text[-3000:]}")
+        if not failures:
+            results[world] = [json.loads((tmp / f"world{world}" / f"rank{r}.json").read_text()) for r in range(world)]
+    assert not failures, "\n".join(failures)
+    return results, refs
+
+
+def _cases(kind):
+    for world, runs in _runs().items():
+        for run in runs:
+            if kind == "f64" and run["dtype"] == "float64":
+                yield pytest.param(world, run, id=run["name"])
+            elif kind == "fused" and run["fused"]:
+                yield pytest.param(world, run, id=run["name"])
+            elif kind == "raises" and run.get("raises"):
+                yield pytest.param(world, run, id=run["name"])
+
+
+def _grad_close(got, want, rtol):
+    got, want = np.asarray(got), np.asarray(want)
+    assert np.abs(got - want).max() <= rtol * np.linalg.norm(want), (got, want)
+
+
+@pytest.mark.parametrize("world, run", list(_cases("f64")))
+def test_sharded_loss_and_grads_match_jax(worlds, world, run):
+    """Every rank's loss (the whole batch's mean, the same on all ranks) and
+    gradient against the JAX package's unsharded ones, and its CG iteration
+    count against the unsharded run's."""
+    results, refs = worlds
+    want_loss, want_grads = refs[int(run["case"][1:])]
+    ranks = [r[run["name"]] for r in results[world]]
+    for out in ranks:
+        np.testing.assert_allclose(out["loss"], want_loss, rtol=LOSS_RTOL)
+        _grad_close(out["grads"], want_grads, GRAD_RTOL)
+        np.testing.assert_allclose(out["ref_loss"], want_loss, rtol=LOSS_RTOL)
+        assert out["iters"] == out["ref_iters"] and len(out["iters"]) == 1
+    assert len({out["loss"] for out in ranks}) == 1
+    assert len({tuple(out["grads"]) for out in ranks}) == 1
+
+
+@pytest.mark.parametrize("world, run", list(_cases("f64")))
+def test_sharded_train_step_moves_as_adam(worlds, world, run):
+    """One sharded_train_step: the loss it returns is the sharded loss, its
+    gradients (shares summed over data, once) the JAX gradient, and the
+    parameters move as Adam's first step on that gradient moves them."""
+    results, refs = worlds
+    _, want_grads = refs[int(run["case"][1:])]
+    moved = np.array(PARAMS) - LR * want_grads / (np.abs(want_grads) + ADAM_EPS)
+    for r in results[world]:
+        out = r[run["name"]]
+        assert out["step_loss"] == out["loss"]
+        _grad_close(out["step_grads"], want_grads, GRAD_RTOL)
+        np.testing.assert_allclose(out["step_params"], moved, rtol=0, atol=LR * GRAD_RTOL)
+
+
+@pytest.mark.parametrize("world, run", list(_cases("f64")))
+def test_collectives_follow_the_design(worlds, world, run):
+    """The collectives the layout implies, counted by name: one "any" a
+    stopping test (the 20 tridiagonal iterations take none, and CG at its
+    cap stops without one), one gathered
+    vector a CG iteration plus x's once where rows are sharded, none on a
+    one-rank axis; the backward gathers once and reduces the operator's
+    gradient shares once."""
+    results, _ = worlds
+    data, model, probe = run["layout"]
+    for r in results[world]:
+        out = r[run["name"]]
+        iters = out["iters"][0]
+        counts, back = out["counts"], out["backward_counts"]
+        assert counts.get("any", 0) == iters - 20 + (iters < SETTINGS["max_cg_iterations"])
+        assert counts.get("all_gather", 0) == (iters + 1 if model > 1 else 0)
+        assert back.get("all_gather", 0) == (1 if model > 1 else 0)
+        # backward: the operator's shares over model and probe, then the
+        # worker's sum over data
+        assert back.get("all_reduce", 0) == (model > 1 or bool(probe)) + (data > 1)
+    for rank, r in enumerate(results[world]):
+        place = Mesh({"data": data, "model": model, **({"probe": probe} if probe else {})}, rank, torch.device("cpu"))
+        assert r[run["name"]]["rows"] == split_sizes(int(run["case"][1:]), model)[place.index("model")]
+
+
+@pytest.mark.parametrize("world, run", list(_cases("fused")))
+def test_fused_route_matches_unsharded(worlds, world, run):
+    """float32 on the fused route (the kernels' plain versions here): the
+    row-sharded operator takes K1 only, forward and backward, a mesh with
+    model = 1 K3 only; loss and gradient as the unsharded port's."""
+    results, _ = worlds
+    model = run["layout"][1]
+    for r in results[world]:
+        out = r[run["name"]]
+        assert set(out["routes"]) == {"K1" if model > 1 else "K3"}
+        assert set(out["backward_routes"]) == {"K1" if model > 1 else "K3"}
+        assert out["routes"].count(out["routes"][0]) == out["iters"][0]
+        np.testing.assert_allclose(out["loss"], out["ref_loss"], rtol=FUSED_RTOL)
+        _grad_close(out["grads"], out["ref_grads"], FUSED_RTOL)
+        assert out["iters"] == out["ref_iters"]
+
+
+@pytest.mark.parametrize("world, run", list(_cases("raises")))
+def test_what_the_row_sharded_operator_does_not_cover_raises(worlds, world, run):
+    """A preconditioner, the Cholesky path, a solve and the posterior on a
+    model-sharded mesh raise NotImplementedError naming ROADMAP.md: nothing
+    falls back to a replicated or unpreconditioned solve."""
+    results, _ = worlds
+    for r in results[world]:
+        raised = r[run["name"]]["raised"]
+        assert set(raised) == {"preconditioner", "cholesky", "solve", "posterior"}
+        assert all("ROADMAP.md" in msg for msg in raised.values()), raised
+
+
+def test_scaling_report_on_meshes_of_two_and_four_ranks(worlds):
+    """scaling_report([2, 4], model_axis=2) in the world of 4: the ranks of
+    the 2-rank mesh measure it and the 4-rank one, the two idle ranks only
+    the latter; each entry has its mesh, solves/s and the efficiency against
+    the first."""
+    results, _ = worlds
+    for rank, r in enumerate(results[4]):
+        report = r["scaling"]
+        assert set(report) == ({"2", "4"} if rank < 2 else {"4"})
+        assert report["4"]["mesh"] == {"data": 2, "model": 2}
+        assert all(np.isfinite(e["solves_per_s"]) and e["solves_per_s"] > 0 for e in report.values())
+        if rank < 2:
+            assert report["2"]["mesh"] == {"data": 1, "model": 2} and report["2"]["efficiency"] == 1.0

@@ -97,9 +97,9 @@ def test_elbo_and_gradients_match_jax(kind, num_data):
     # the classifier's likelihood leaves raw_noise out: a zero gradient in both
     _grad_close(_grads(tmodel), _jax_grads(jg), F64)
     with torch.no_grad():
-        _close(tmodel.kl(), jmodel.kl(params), F64)
+        _close(tmodel.kl(), _jit(jmodel.kl)(params), F64)
         _close(tmodel.expected_log_lik(torch.from_numpy(x), torch.from_numpy(y)),
-               jmodel.expected_log_lik(params, jnp.asarray(x), jnp.asarray(y)), F64)
+               _jit(lambda p: jmodel.expected_log_lik(p, jnp.asarray(x), jnp.asarray(y)))(params), F64)
 
 
 @pytest.mark.parametrize("kind", list(KINDS))
@@ -130,14 +130,19 @@ def test_predictions_and_their_gradients_match_jax(kind):
 def test_posterior_distribution_matches_jax():
     x, _, xs = _data(2, "regression")
     jmodel, params, tmodel = _models("regression", x, 12, seed=2)
-    jmvn = jmodel.posterior_distribution(params, jnp.asarray(xs))
+    draws = np.random.default_rng(3).normal(size=(4, xs.shape[0]))
+
+    def jax_parts(p):
+        jmvn = jmodel.posterior_distribution(p, jnp.asarray(xs))
+        return jmvn.mean, jmvn.lazy_covariance_matrix.to_dense(), jmvn.log_prob(jnp.asarray(draws))
+
+    jmean, jcov, jlog_prob = _jit(jax_parts)(params)
     with torch.no_grad():
         tmvn = tmodel.posterior_distribution(torch.from_numpy(xs))
         mean, var = tmodel.posterior(torch.from_numpy(xs))
-        draws = np.random.default_rng(3).normal(size=(4, xs.shape[0]))
-        _close(tmvn.mean, jmvn.mean, F64)
-        _close(tmvn.lazy_covariance_matrix.to_dense(), jmvn.lazy_covariance_matrix.to_dense(), F64)
-        _close(tmvn.log_prob(torch.from_numpy(draws)), jmvn.log_prob(jnp.asarray(draws)), F64)
+        _close(tmvn.mean, jmean, F64)
+        _close(tmvn.lazy_covariance_matrix.to_dense(), jcov, F64)
+        _close(tmvn.log_prob(torch.from_numpy(draws)), jlog_prob, F64)
         # the marginal variances: the joint's diagonal, less the jitter
         _close(mean, tmvn.mean, F64)
         np.testing.assert_allclose(_np(tmvn.variance), _np(var), rtol=1e-5, atol=1e-5)
