@@ -27,12 +27,16 @@ Under an ambient mesh (``parallel/``; the JAX package's
 ``maybe_shard_probes``) every rank draws the whole probe block, so that the
 draws equal the unsharded ones, and keeps its block: the batch over ``data``,
 the rows over ``model`` where the operator is row-sharded, the probe columns
-over ``probe``; the rhs columns are solved on every probe rank.  CG's
-reductions are global (``parallel.sharding.MeshReduction``), the SLQ sums
-are all-reduced over the probe group and the inverse quadratic over the
-model group; the backward sums the operator's gradient shares over its rows
-and probe columns, each rhs column counted once.  A preconditioned solve
-under a mesh raises: it is not ported (``ROADMAP.md``).
+over ``probe``; the rhs columns are solved on every probe rank.  A preconditioner's draws
+are the rank's batch and rows of the unsharded ones (the generator consumed
+in the unsharded order, ``zero_mean_mvn_samples(..., layout=)``); probe
+ranks share one preconditioner, data ranks build their own batches'.  CG's
+reductions are global (``parallel.sharding.MeshReduction``), the
+preconditioner's closure sums over the model group, the SLQ sums are
+all-reduced over the probe group and the inverse quadratic over the model
+group; the backward sums the operator's gradient shares over its rows and
+probe columns, each rhs column counted once.  On the Cholesky route a
+row-sharded operator's factor is whole on every rank, and so is the rhs.
 """
 
 from __future__ import annotations
@@ -89,6 +93,9 @@ def inv_quad_logdet(
     zeros = torch.zeros(op.batch_shape, dtype=op.dtype, device=op.device)
     if settings.use_cholesky_for_log_prob(n):
         chol = op._cholesky_impl(upper=False)
+        if rhs is not None and getattr(op, "row_group", None) is not None:
+            # the factor is whole on every rank (the route's own n x n)
+            rhs = op.gather_rhs(rhs)
         return _out(*chol_iqld(chol, rhs, logdet, zeros))
 
     # ---- stochastic CG + SLQ path ----------------------------------------
@@ -112,28 +119,31 @@ def inv_quad_logdet(
     closure = None
     logdet_p = zeros
     if num_probes > 0:
+        if layout is not None and num_probes < mesh.size("probe"):
+            raise ValueError(f"{num_probes} probes do not split over probe={mesh.size('probe')}")
         closure, precond_op, logdet_p = op.detach()._preconditioner()
-        if layout is not None and closure is not None:
-            raise NotImplementedError(
-                "a preconditioned inv_quad_logdet under a mesh is not ported (ROADMAP.md queue 1); "
-                "turn preconditioning off (settings.min_preconditioning_size) or leave the mesh"
-            )
-        if precond_op is not None:
+        if precond_op is not None and layout is not None:
+            # the rank's batch and rows of the unsharded draws, then its
+            # probe columns; the closure sums over the model group
+            probes = precond_op.zero_mean_mvn_samples(num_probes, generator=generator, layout=layout)
+            probes = layout.block(probes.movedim(0, -1), rows=False, batch=False)
+            precond_probes = closure(probes)
+            norms = layout.norm(probes)
+        elif precond_op is not None:
             probes = precond_op.zero_mean_mvn_samples(num_probes, generator=generator).movedim(0, -1)
             precond_probes = closure(probes)  # (*b, n, m)
+            norms = torch.linalg.norm(probes, dim=-2, keepdim=True)  # (*b, 1, m)
         else:
             batch = op.batch_shape if layout is None else layout.batch
             probes = randn((*batch, n, num_probes), op.dtype, op.device, generator)
             precond_probes = probes
             logdet_p = zeros
-        norms = torch.linalg.norm(probes, dim=-2, keepdim=True)  # (*b, 1, m)
+            norms = torch.linalg.norm(probes, dim=-2, keepdim=True)
+            if layout is not None:
+                probes, norms = layout.block(probes), layout.block(norms, rows=False)
+                precond_probes = probes
         probes = probes / norms
         precond_probes = precond_probes / norms
-        if layout is not None:
-            if num_probes < mesh.size("probe"):
-                raise ValueError(f"{num_probes} probes do not split over probe={mesh.size('probe')}")
-            probes, precond_probes = layout.block(probes), layout.block(precond_probes)
-            norms = layout.block(norms, rows=False)
     else:
         probes = torch.zeros((*op.batch_shape, n, 0), dtype=op.dtype, device=op.device)
         precond_probes = probes

@@ -20,6 +20,14 @@ derivative raises, as for ``solve``.
 The random start vector comes from ``generator`` (a CPU generator seeded 0
 when None: successive calls share it), drawn on the generator's device and
 moved to the operator's.
+
+On a mesh (``parallel/``; ``sharding.solve_layout``) the start vector is
+drawn for the whole batch and n and cut to the rank's block.  On a
+row-sharded operator Lanczos sums its inner products over the model
+group, so that every rank builds the unsharded T and its k x k
+eigendecomposition, and the inverse root is the rank's rows of the
+unsharded one (on the Cholesky route, the rows of the whole L^{-T}).  Its
+gradient is not ported (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -33,15 +41,39 @@ from ..utils.random import randn
 
 
 def _random_start(op, generator: torch.Generator | None) -> torch.Tensor:
-    """N(0, I) Lanczos start vectors (*b, n) in the operator's dtype."""
-    return randn((*op.batch_shape, op.shape[-1]), op.dtype, op.device, generator)
+    """N(0, I) Lanczos start vectors (*b, n) in the operator's dtype (on a
+    mesh: the rank's block of the whole draw)."""
+    from ..parallel.sharding import solve_layout
+
+    layout = solve_layout(op)
+    if layout is None:
+        return randn((*op.batch_shape, op.shape[-1]), op.dtype, op.device, generator)
+    whole = randn((*layout.batch, layout.n), op.dtype, op.device, generator)
+    return layout.draw_block(whole[None], rows=True)[0]
+
+
+def _row_sum(op):
+    """The sum over a row-sharded operator's model group, else None."""
+    group = getattr(op, "row_group", None)
+    if group is None:
+        return None
+    from ..parallel import _comm
+
+    return lambda t: _comm.all_reduce(t, group, name="lanczos")
+
+
+def _not_sharded(op, what: str) -> None:
+    if getattr(op, "row_group", None) is not None:
+        from ..parallel.row_sharded import _queued
+
+        raise _queued(what)
 
 
 def _lanczos_root_impl(op, init: torch.Tensor, k: int, want_inverse: bool = True):
     """(root, inverse root or None) from k Lanczos steps started at ``init``
     ((*b, n), or (p, *b, n) for p probes, which broadcast through
     ``op._matmul``)."""
-    Q, T = lanczos_tridiag(op._matmul, k, init_vecs=init)
+    Q, T = lanczos_tridiag(op._matmul, k, init_vecs=init, row_sum=_row_sum(op), n=op.shape[-1])
     eye = torch.eye(T.shape[-1], dtype=T.dtype, device=T.device)
     # in T's own dtype, as the JAX package does
     evals, evecs = torch.linalg.eigh(T + settings.tridiagonal_jitter.value() * eye)
@@ -68,6 +100,7 @@ class _LanczosRoot(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, root_bar):
+        _not_sharded(ctx.op, "the root's gradient")
         (inv_root,) = ctx.saved_tensors
         left = torch.cat([0.25 * root_bar, 0.25 * inv_root], dim=-1)
         right = torch.cat([inv_root, root_bar], dim=-1)
@@ -86,6 +119,7 @@ class _LanczosRootInv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, root_bar, inv_bar):
+        _not_sharded(ctx.op, "the inverse root's gradient")
         (inv_root,) = ctx.saved_tensors
         # K_bar = 1/4 (R_bar S^T + S R_bar^T) - 1/4 (P S_bar^T + S_bar P^T)
         # with P = S S^T S
@@ -184,14 +218,19 @@ def root_inv_decomposition(
     if method is None:
         method = op._choose_root_method()
     if method == "cholesky":
-        return RootLinearOperator(op._cholesky_impl(upper=False).inverse()._transpose())  # L^{-T}
+        root = op._cholesky_impl(upper=False).inverse()._transpose()  # L^{-T}
+        if getattr(op, "row_group", None) is not None:
+            root = DenseLinearOperator(root.to_dense()[..., op.row_slice(), :])  # the rank's rows
+        return RootLinearOperator(root)
     if method in ("symeig", "diagonalization"):
+        _not_sharded(op, "a symeig inverse root")
         evals, evecs = torch.linalg.eigh(op.to_dense())
         inv_sqrt = torch.where(evals > 1e-12, torch.rsqrt(torch.clamp_min(evals, 1e-12)), 0.0)
         return RootLinearOperator(DenseLinearOperator(evecs * inv_sqrt[..., None, :]))
     if method == "lanczos":
         init = None
         if initial_vectors is not None:
+            _not_sharded(op, "root_inv_decomposition's initial_vectors")
             init = torch.movedim(initial_vectors, -1, 0)  # (p, *b, n)
             if init.shape[0] == 1:
                 init = init[0]

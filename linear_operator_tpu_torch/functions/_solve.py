@@ -7,6 +7,16 @@ Backward (the JAX package's ``_solve_bwd``): with x = K^{-1} rhs and
 cotangent g, w = K^{-T} g is one more solve, rhs gets w, and the operator's
 tensors get the gradient of ``sum(-w * (K @ x))`` through one
 ``_bilinear_derivative``.
+
+On a mesh (``parallel/``; ``sharding.solve_layout``) CG runs under
+``SolveLayout``'s reduction for a solve, whose stopping test is global, so
+that every rank runs the unsharded iterations.  On a row-sharded operator
+rhs, x, g and w are the rank's rows, and w solves with ``op.mT``, the
+operator itself, under the same preconditioner; the operator's gradient is
+this rank's share, summed once over the model group
+(``SolveLayout.reduce_grads``), and the rhs's gradient stays the rank's
+rows.  A data rank's gradient is its batch's, which the caller sums over
+the data axis as ``sharded_train_step`` does.
 """
 
 from __future__ import annotations
@@ -17,13 +27,17 @@ from .. import settings
 
 
 def _dispatch_solve(op, rhs: torch.Tensor) -> torch.Tensor:
+    from ..parallel.sharding import solve_layout
+
     s = op._solve_structure(rhs)
     if s is not None:
         return s
     if settings.use_cholesky_for_solves(op.shape[-1]):
         return op._cholesky_impl(upper=False)._cholesky_solve(rhs)
     closure, _, _ = op._preconditioner()
-    return op._solve_via_cg(rhs, preconditioner=closure).solution
+    layout = solve_layout(op)
+    reduction = None if layout is None else layout.reduction(0, 0, rhs.shape[-1], rhs)
+    return op._solve_via_cg(rhs, preconditioner=closure, reduction=reduction).solution
 
 
 def _unbroadcast(g: torch.Tensor, shape) -> torch.Tensor:
@@ -53,10 +67,15 @@ class _Solve(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        from ..parallel.sharding import solve_layout
+
         (x,) = ctx.saved_tensors
         w = _dispatch_solve(ctx.op.mT, g)
         # K_bar = -w x^T, exact for any leaf parameterization
         op_grads = ctx.op._bilinear_derivative(-w, x)
+        layout = solve_layout(ctx.op)
+        if layout is not None:
+            op_grads = layout.reduce_grads(op_grads)
         rhs_bar = _unbroadcast(w, ctx.rhs_shape) if ctx.needs_input_grad[1] else None
         return (None, rhs_bar, *op_grads)
 
@@ -80,7 +99,9 @@ def solve(op, rhs: torch.Tensor, lhs: torch.Tensor | None = None, *, factored=No
     if settings.debug.on():
         if not op.is_square:
             raise RuntimeError("solve requires a square operator")
-        if rhs.shape[-2] != op.shape[-1]:
+        # a row-sharded operator takes this rank's rows of the rhs
+        rows = op.rows.shape[-2] if getattr(op, "row_group", None) is not None else op.shape[-1]
+        if rhs.shape[-2] != rows:
             raise RuntimeError(f"rhs shape {tuple(rhs.shape)} incompatible with operator {op.shape}")
     x = solve_base(op, rhs)
     if squeeze:

@@ -109,12 +109,7 @@ class ExactGPRegression(nn.Module):
         self.raw_outputscale = nn.Parameter(torch.zeros((), **kw))
         self.raw_noise = nn.Parameter(torch.full((), -2.0, **kw))
 
-    def covariance(self, x1, x2=None, symmetric: bool | None = None) -> KernelLinearOperator:
-        """k(x1, x2), lazily; under an ambient mesh with a ``model`` axis above
-        1, k(x1, x1) of this rank's rows x1 is row-sharded
-        (``parallel.row_sharded``), and a cross-covariance is not ported."""
-        if symmetric is None:
-            symmetric = x2 is None
+    def _kernel_args(self):
         params = {
             "lengthscale": _softplus(self.raw_lengthscale),
             "outputscale": _softplus(self.raw_outputscale),
@@ -125,14 +120,33 @@ class ExactGPRegression(nn.Module):
             matvec_impl=rbf_fused_matvec if self.use_fused_kernels else None,
             materialize_threshold=self.materialize_threshold,
         )
+        return params, kw
+
+    def covariance(self, x1, x2=None, symmetric: bool | None = None) -> KernelLinearOperator:
+        """k(x1, x2), lazily.  Under an ambient mesh with a ``model`` axis
+        above 1 the training points are the rank's rows: k(x1, x1) of this
+        rank's rows x1 is row-sharded (``parallel.row_sharded``), and a
+        cross-covariance k(x1, x2) with x2 the rank's rows is the rank's
+        columns, whose parameters' gradients are summed over the model group
+        (each rank computes its share of a product with it:
+        ``parallel._comm.sum_grads``)."""
+        if symmetric is None:
+            symmetric = x2 is None
+        params, kw = self._kernel_args()
         mesh = _current_mesh()
         if mesh is not None and mesh.size("model") > 1:
-            from ..parallel.row_sharded import _queued, row_sharded_kernel_operator
+            from ..parallel import _comm
+            from ..parallel.row_sharded import row_sharded_kernel_operator
 
-            if x2 is not None:
-                raise _queued("a cross-covariance")
-            return row_sharded_kernel_operator(x1, params, mesh, **kw)
+            if x2 is None:
+                return row_sharded_kernel_operator(x1, params, mesh, **kw)
+            params = dict(zip(params, _comm.sum_grads(tuple(params.values()), mesh.group("model"))))
         return KernelLinearOperator(x1, x1 if x2 is None else x2, params, symmetric=symmetric, **kw)
+
+    def _prior_diagonal(self, x_star) -> torch.Tensor:
+        """k(x_star, x_star)'s diagonal, whole on every rank of a mesh."""
+        params, kw = self._kernel_args()
+        return KernelLinearOperator(x_star, x_star, params, symmetric=True, **kw).diagonal()
 
     def train_operator(self, x):
         return self.covariance(x).add_diagonal(_softplus(self.raw_noise))
@@ -159,7 +173,13 @@ class ExactGPRegression(nn.Module):
     def posterior(self, x, y, x_star):
         """Predictive mean and variance at x_star, from ONE batched CG over
         [y | k_*^T]: the mean and variance solves share every kernel
-        mat-vec, and the (m, n) cross block is formed once."""
+        mat-vec, and the (m, n) cross block is formed once.
+
+        Under an ambient mesh with a ``model`` axis above 1, x and y are the
+        rank's rows (``shard_gp_batch``) and x_star is whole on every rank:
+        the cross block is the rank's rows, the solve runs on them, and the
+        mean and the variance's downdate are summed over the model group in
+        one all-reduce, so that both are the same on every rank."""
         K = self.train_operator(x).with_preconditioner()
         ks_t = self.covariance(x_star, x).mT.to_dense()  # (*b, n, m)
         y_col = y[..., None]  # (*by, n, 1)
@@ -170,15 +190,17 @@ class ExactGPRegression(nn.Module):
         alpha, v = sol[..., :1], sol[..., 1:]
         with highest_matmul_precision():
             mean = torch.einsum("...nm,...no->...m", ks_t, alpha)
-            k_ss_diag = self.covariance(x_star).diagonal()
-            var = k_ss_diag - torch.einsum("...nm,...nm->...m", ks_t, v)
+            downdate = torch.einsum("...nm,...nm->...m", ks_t, v)
+            mean, downdate = _sum_rows(torch.stack([mean, downdate], dim=-1), "posterior").unbind(-1)
+            var = self._prior_diagonal(x_star) - downdate
         return mean, torch.clamp_min(var, 0.0)
 
     def posterior_cache(self, x, y, *, generator: torch.Generator | None = None) -> PosteriorCache:
         """The training-dependent part of prediction, computed once: alpha =
         K^{-1} y by CG and an inverse root R (R R^T ~= K^{-1}) by Lanczos,
         sharing one preconditioner factor.  ``generator`` draws the Lanczos
-        start vector (a fixed one when None)."""
+        start vector (a fixed one when None).  Under an ambient mesh with a
+        ``model`` axis above 1, alpha and R are the rank's rows."""
         K = self.train_operator(x).with_preconditioner()
         alpha = solve(K, y[..., None])
         root_inv = K.root_inv_decomposition(generator=generator).root.to_dense()
@@ -186,11 +208,16 @@ class ExactGPRegression(nn.Module):
 
     def posterior_from_cache(self, x, cache: PosteriorCache, x_star):
         """Predictive mean and variance at ``x_star`` from the cache: two
-        products with the lazy cross-covariance k(x_star, x), no solve."""
+        products with the lazy cross-covariance k(x_star, x), no solve.
+        Under an ambient mesh with a ``model`` axis above 1 (x and the cache
+        the rank's rows, x_star whole), the two products are the rank's
+        shares, summed over the model group in one all-reduce of (m, k + 1)."""
         k_star = self.covariance(x_star, x)  # (*b, m, n)
         mean = (k_star @ cache.alpha)[..., 0]
         v = k_star @ cache.root_inv  # (*b, m, k)
-        var = self.covariance(x_star).diagonal() - torch.sum(v * v, dim=-1)
+        both = _sum_rows(torch.cat([mean[..., None], v], dim=-1), "posterior_from_cache")
+        mean, v = both[..., 0], both[..., 1:]
+        var = self._prior_diagonal(x_star) - torch.sum(v * v, dim=-1)
         return mean, torch.clamp_min(var, 0.0)
 
     def posterior_distribution(self, x, y, x_star, *, generator: torch.Generator | None = None):
@@ -203,6 +230,11 @@ class ExactGPRegression(nn.Module):
         from ..distributions import MultivariateNormal
         from ..operators import ConstantMulLinearOperator, RootLinearOperator
 
+        mesh = _current_mesh()
+        if mesh is not None and mesh.size("model") > 1:
+            from ..parallel.row_sharded import _queued
+
+            raise _queued("posterior_distribution")
         cache = self.posterior_cache(x, y, generator=generator)
         k_star = self.covariance(x_star, x)  # (*b, m, n)
         mean = (k_star @ cache.alpha)[..., 0]
@@ -215,6 +247,18 @@ def _current_mesh():
     from ..parallel.sharding import _current_mesh as current
 
     return current()
+
+
+def _sum_rows(t: torch.Tensor, name: str) -> torch.Tensor:
+    """Under an ambient mesh with a ``model`` axis above 1, the sum of the
+    ranks' shares ``t`` over the model group (``_comm.sum_shares``);
+    otherwise ``t``."""
+    mesh = _current_mesh()
+    if mesh is None or mesh.size("model") == 1:
+        return t
+    from ..parallel._comm import sum_shares
+
+    return sum_shares(t, mesh.group("model"), name=name)
 
 
 def load_jax_params(model, params):

@@ -351,13 +351,16 @@ class MeshReduction(LocalReduction):
 
 
 class SolveLayout:
-    """How ``inv_quad_logdet`` cuts its work on the ambient mesh for the
-    operator ``op``: the global batch of the probe draws (dim 0 times the
-    data axis), which of their rows (all of them unless ``op`` is
-    row-sharded) and columns this rank keeps, CG's reductions, and the
-    groups the SLQ sum and the operator's gradients reduce over."""
+    """How ``inv_quad_logdet`` (``probes``) or ``solve`` cuts its work on the
+    mesh for the operator ``op``: the global batch of the draws (dim 0 times
+    the data axis) and the whole n, which of their rows (all of them unless
+    ``op`` is row-sharded) and columns this rank keeps, CG's reductions, and
+    the groups the SLQ sum and the operator's gradients reduce over.  A
+    solve has no probe axis: its rhs's columns are whole on every probe
+    rank, each rank solves them all, and the gradient shares sum over the
+    model group only."""
 
-    def __init__(self, mesh: Mesh, op):
+    def __init__(self, mesh: Mesh, op, probes: bool = True):
         self.mesh = mesh
         self.row_sharded = getattr(op, "row_group", None) is not None
         batch = tuple(op.batch_shape)
@@ -366,20 +369,37 @@ class SolveLayout:
                 raise ValueError("a mesh with a data axis above 1 takes batched operators (B, n, n)")
             batch = (batch[0] * mesh.size("data"), *batch[1:])
         self.batch = batch
+        self.n = op.shape[-1]
         self.rows = op.row_group if self.row_sharded else None
-        self.probes = mesh.group("probe")
+        self.probes = mesh.group("probe") if probes else None
         # the operator's gradient shares: its rows, its probe columns
-        self.grads = mesh.group("model", "probe") if self.row_sharded else self.probes
+        if probes:
+            self.grads = mesh.group("model", "probe") if self.row_sharded else self.probes
+        else:
+            self.grads = self.rows
         self.everyone = mesh.group(*mesh.axis_names)
 
-    def block(self, arr: torch.Tensor, rows: bool = True) -> torch.Tensor:
-        """The rank's block of a global (*batch, n, m) probe array."""
-        return self.mesh.block(arr, batch=bool(self.batch), rows=rows and self.row_sharded, cols=True)
+    def block(self, arr: torch.Tensor, rows: bool = True, batch: bool = True) -> torch.Tensor:
+        """The rank's block of a global (*batch, n, m) probe array (with
+        ``batch`` and ``rows`` False, of one already cut to the rank's
+        batch and rows: its probe columns)."""
+        return self.mesh.block(arr, batch=batch and bool(self.batch), rows=rows and self.row_sharded,
+                               cols=self.probes is not None)
+
+    def draw_block(self, arr: torch.Tensor, rows: bool) -> torch.Tensor:
+        """The rank's block of a whole (s, *batch, k) draw: the batch and,
+        with ``rows``, the last dim as the operator's rows."""
+        return self.mesh.block(arr.movedim(0, -1), batch=bool(self.batch), rows=rows and self.row_sharded,
+                               cols=False).movedim(-1, 0)
+
+    def norm(self, arr: torch.Tensor) -> torch.Tensor:
+        """The columns' norms (*b, 1, m) of a (*b, |R|, m) block of rows."""
+        return torch.sqrt(self.row_sum(torch.sum(arr * arr, dim=-2, keepdim=True)))
 
     def keeps_rhs(self) -> bool:
         """Whether this rank's share of a replicated rhs column counts: on one
-        rank of the probe group only."""
-        return self.mesh.index("probe") == 0
+        rank of the probe group only (on every rank of a solve)."""
+        return self.probes is None or self.mesh.index("probe") == 0
 
     def reduction(self, m_local: int, m: int, n_rhs: int, ref: torch.Tensor) -> MeshReduction:
         weights = torch.ones(m_local + n_rhs, device=ref.device)
@@ -394,8 +414,8 @@ class SolveLayout:
         return _comm.all_reduce(t, self.rows)
 
     def reduce_grads(self, grads: tuple) -> tuple:
-        """The operator's gradient shares summed over its rows and probe
-        columns, in one collective."""
+        """The operator's gradient shares summed over its rows (and probe
+        columns), in one collective."""
         if self.grads is None:
             return grads
         have = [g for g in grads if g is not None]
@@ -404,3 +424,16 @@ class SolveLayout:
         total = _comm.all_reduce(torch.cat([g.reshape(-1) for g in have]), self.grads)
         parts = iter(torch.split(total, [g.numel() for g in have]))
         return tuple(None if g is None else next(parts).view_as(g) for g in grads)
+
+
+def solve_layout(op) -> SolveLayout | None:
+    """The layout of a ``solve`` (and of a Lanczos start) with ``op``: a
+    row-sharded operator's, on the mesh it was built on; a batched
+    operator's under an ambient mesh whose data axis splits its batch; else
+    None, and the solve runs as it does unsharded."""
+    if getattr(op, "row_group", None) is not None:
+        return SolveLayout(op.mesh, op, probes=False)
+    mesh = _current_mesh()
+    if mesh is None or mesh.size("data") == 1 or not op.batch_shape:
+        return None
+    return SolveLayout(mesh, op, probes=False)

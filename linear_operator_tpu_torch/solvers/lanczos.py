@@ -37,21 +37,35 @@ def lanczos_tridiag(
     *,
     init_vecs: torch.Tensor,
     tol: float = 1e-6,
+    row_sum: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    n: int | None = None,
 ) -> LanczosResult:
     """``num_iter`` Lanczos steps of the operator behind ``matmul_closure``
     ((*b, n, 1) -> (*b, n, 1)) from one start vector per batch element,
     ``init_vecs`` (*b, n).  Returns Q (*b, n, k) and T (*b, k, k), k =
-    min(num_iter, n), with K ~= Q T Q^T."""
+    min(num_iter, n), with K ~= Q T Q^T.
+
+    Row-sharded: ``init_vecs``, the closure's vectors and Q are a rank's
+    rows of the whole n (``n``), and ``row_sum`` sums over the ranks' rows:
+    each step's alpha, its two Gram-Schmidt passes and its beta are one sum
+    each, so that every rank builds the unsharded T."""
     settings.record_linalg("lanczos_tridiag", init_vecs.shape)
-    n = init_vecs.shape[-1]
-    k = min(num_iter, n)
+    k = min(num_iter, init_vecs.shape[-1] if n is None else n)
     dtype = torch.promote_types(init_vecs.dtype, torch.float32)
     v = init_vecs.to(dtype)
 
     def mm(q):
         return matmul_closure(q[..., None])[..., 0].to(dtype)
 
-    qs = [v / torch.linalg.norm(v, dim=-1, keepdim=True)]
+    def norm(a):
+        if row_sum is None:
+            return torch.linalg.norm(a, dim=-1)
+        return torch.sqrt(row_sum(torch.sum(a * a, dim=-1)))
+
+    def total(t):
+        return t if row_sum is None else row_sum(t)
+
+    qs = [v / norm(v)[..., None]]
     alphas, betas = [], []
     batch = v.shape[:-1]
     alive = torch.ones(batch, dtype=torch.bool, device=v.device)
@@ -60,15 +74,15 @@ def lanczos_tridiag(
     for i in range(k):
         qi = qs[i]
         w = mm(qi)
-        alpha = torch.sum(qi * w, dim=-1)
+        alpha = total(torch.sum(qi * w, dim=-1))
         w = w - alpha[..., None] * qi
         # two classical Gram-Schmidt passes against q_0 .. q_i
         Q = torch.stack(qs, dim=-1)
         with highest_matmul_precision():
             for _ in range(2):
-                coeffs = (Q.mT @ w[..., None])[..., 0]
+                coeffs = total((Q.mT @ w[..., None])[..., 0])
                 w = w - (Q @ coeffs[..., None])[..., 0]
-        beta = torch.linalg.norm(w, dim=-1)
+        beta = norm(w)
         pad_alpha = torch.where(alive, alpha, pad_alpha)
         alphas.append(pad_alpha)
         scale = torch.maximum(scale, torch.maximum(torch.abs(alpha), beta))

@@ -63,17 +63,28 @@ def _forward_only(op, build):
     return _ForwardOnly.apply(build, *op._leaves())
 
 
-def pivoted_cholesky_with_pivots(op, rank: int, error_tol: float | None = None):
+def pivoted_cholesky_with_pivots(op, rank: int, error_tol: float | None = None, *, diag=None, group=None,
+                                 offset: int = 0):
     """(L (*b, n, rank), pivots (*b, rank)); pivot -1 marks a step taken
-    after the element converged."""
+    after the element converged.
+
+    Row-sharded (a model group ``group``): ``op`` is the rank's block of
+    rows of K (*b, |R|, n) starting at global row ``offset``, ``diag`` K's
+    diagonal on those rows, and the result is those rows of the unsharded
+    factor.  Each step takes the residual diagonal's global argmax (ties to
+    the lowest global index, as ``torch.argmax`` on the whole diagonal),
+    with the residual trace, in one collective, and the pivot's row of L
+    from its owner in another."""
+    from ..parallel import _comm
+
     if error_tol is None:
         error_tol = settings.preconditioner_tolerance.value()
     settings.record_linalg("pivoted_cholesky", op.shape)
 
-    d = op._diagonal()  # (*b, n)
+    d = op._diagonal() if diag is None else diag  # (*b, |R|)
     batch = d.shape[:-1]
     n = d.shape[-1]
-    rank = min(rank, n)
+    rank = min(rank, op.shape[-1])
     dtype = torch.promote_types(d.dtype, torch.float32)
     d = d.to(dtype)
     device = d.device
@@ -86,17 +97,23 @@ def pivoted_cholesky_with_pivots(op, rank: int, error_tol: float | None = None):
         shape[i] = b
         batch_idx.append(torch.arange(b, device=device).reshape(shape).expand(*batch, n))
 
-    tol_total = error_tol * torch.sum(d, dim=-1)  # (*b,)
+    global_row = torch.arange(n, device=device) + offset
+    tol_total = None
     rows, pivots = [], []
     for _ in range(rank):
-        pivot = torch.argmax(d.detach(), dim=-1)  # (*b,)
-        dp = torch.take_along_dim(d, pivot[..., None], dim=-1)[..., 0]
-        active = (torch.sum(torch.clamp_min(d, 0.0), dim=-1) > tol_total) & (dp > 1e-12)
+        # the residual trace rides with the argmax: sum(clamp(d, 0)) each
+        # step, sum(d) (the first step's, for the tolerance) beside it
+        sums = torch.stack([torch.sum(torch.clamp_min(d.detach(), 0.0), dim=-1), torch.sum(d.detach(), dim=-1)], -1)
+        pivot, top, sums = _comm.argmax(d.detach(), group, offset, sums)
+        dp = torch.take_along_dim(d, pivot[..., None], dim=-1)[..., 0] if group is None else top
+        if tol_total is None:
+            tol_total = error_tol * sums[..., 1]  # (*b,)
+        active = (sums[..., 0] > tol_total) & (dp > 1e-12)
 
         col = op._get_indices(row, pivot[..., None].expand(*batch, n), *batch_idx).to(dtype)
         if rows:
-            L = torch.stack(rows, dim=-2)  # (*b, i, n)
-            Lp = torch.take_along_dim(L, pivot[..., None, None], dim=-1)[..., 0]  # (*b, i)
+            L = torch.stack(rows, dim=-2)  # (*b, i, |R|)
+            Lp = _comm.owner_row(L.mT, pivot, group, offset)  # (*b, i)
             # full precision: the downdate accumulates over rank steps
             with highest_matmul_precision():
                 col = col - torch.einsum("...kn,...k->...n", L, Lp)
@@ -105,7 +122,7 @@ def pivoted_cholesky_with_pivots(op, rank: int, error_tol: float | None = None):
 
         d = d - li * li
         # bury the chosen pivot so that it is never selected again
-        d = torch.where(torch.arange(n, device=device) == pivot[..., None], -torch.inf, d)
+        d = torch.where(global_row == pivot[..., None], -torch.inf, d)
         rows.append(li)
         pivots.append(torch.where(active, pivot, -1))
 

@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import threadpoolctl
 import torch
 
 
@@ -22,14 +23,17 @@ TOL = 1e-10
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
-    """One torch thread while a module of these runs.  The tests make
-    thousands of tiny operations; under pytest-xdist each worker's torch
-    would start a thread for every core, and the workers' spinning threads
-    slow each other tenfold (two workers: 330 s instead of 30 s).  Imported
-    into each module that uses it."""
+    """One torch thread, and one thread in numpy's BLAS and LAPACK, while a
+    module of these runs.  The tests make thousands of tiny operations;
+    under pytest-xdist each worker's torch (and numpy's OpenBLAS, which the
+    reference computations call) would start a thread for every core, and
+    the workers' spinning threads slow each other tenfold (two workers: 330
+    s instead of 30 s; a batched 300 x 300 slogdet beside five busy workers
+    8.2 s instead of 1.7 s).  Imported into each module that uses it."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
-    yield
+    with threadpoolctl.threadpool_limits(limits=1, user_api="blas"):
+        yield
     torch.set_num_threads(threads)
 
 

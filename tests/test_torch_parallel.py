@@ -18,6 +18,17 @@ against Adam's first step on the JAX gradient.  The float32 fused route
 (the kernels' plain versions) is held against the unsharded port, and the
 collectives and kernel routes are counted.
 
+The serving runs (``SERVE`` in the worker) take every layout at n = 32 and
+33 with B = 2: neg_mll and its gradient under the pivoted (rank 5), Nystrom
+(rank 8) and auto preconditioners (from n = 16) and on the Cholesky route,
+solve and its gradients, the posterior (and its gradient against the
+unsharded port's), and the LOVE cache's predictions, each against the JAX
+package's unsharded function in one jitted call a size; on the row-sharded
+layouts the collectives by name.  They lie 2.8e-11 (losses), 5.3e-9
+(gradients, the pivoted case), 5.7e-11 (the posterior) and 6.3e-11 (the
+cache's mean) from the JAX package, and are held to the step's 2e-9 and
+3e-7.
+
 Tolerances (measured): the unsharded port lies 7.2e-10 (the loss) and
 7.2e-8 (the gradient, of its norm) from the JAX package at n = 32: 21 CG
 iterations, 20 of them building the SLQ tridiagonals, which lose
@@ -53,13 +64,17 @@ from linear_operator_tpu_torch.test.utils import local_device_mesh
 from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 WORKER = Path(__file__).resolve().parent / "torch_parallel_worker.py"
+sys.path.insert(0, str(WORKER.parent))
+from torch_parallel_worker import SERVE  # noqa: E402 (the serving cases' settings)
+
 WORLDS = {2: [(2, 1, None), (1, 2, None)], 4: [(2, 2, None), (1, 2, 2)]}
 SIZES = (32, 33)
 B, D, PROBES = 8, 2, 4
+SERVE_B, SERVE_M = 2, 5
 PARAMS = (-0.3, 0.1, -1.5)  # raw lengthscale, outputscale, noise
 SETTINGS = dict(max_cholesky_size=0, num_trace_samples=PROBES, max_cg_iterations=30, cg_tolerance=1e-6,
                 min_preconditioning_size=10**9)
-LOSS_RTOL, GRAD_RTOL, FUSED_RTOL = 2e-9, 3e-7, 1e-6
+LOSS_RTOL, GRAD_RTOL, FUSED_RTOL, SERVE_RTOL = 2e-9, 3e-7, 1e-6, 2e-9
 LR, ADAM_EPS = 0.01, 1e-8
 TIMEOUT_S = 120
 
@@ -159,6 +174,19 @@ def _data(n):
     return x, np.sin(3.0 * x[..., 0]), rng.normal(size=(B, n, PROBES))
 
 
+def _serve_data(n):
+    """A serving data set of SERVE_B systems: x, y, the query points, a
+    solve's rhs and its weights, and the draws of both packages by shape
+    (the preconditioners' eps1 at each rank and eps2, the Lanczos start)."""
+    rng = np.random.default_rng(100 + n)
+    x = rng.normal(size=(SERVE_B, n, D))
+    arrays = dict(x=x, y=np.sin(3.0 * x[..., 0]), x_star=rng.normal(size=(SERVE_B, SERVE_M, D)),
+                  rhs=rng.normal(size=(SERVE_B, n, 3)), w=rng.normal(size=(SERVE_B, n, 3)))
+    for shape in {(PROBES, SERVE_B, 5), (PROBES, SERVE_B, 8), (PROBES, SERVE_B, n), (SERVE_B, n)}:
+        arrays["draw" + "x".join(map(str, shape))] = rng.normal(size=shape)
+    return arrays
+
+
 def _runs():
     runs = {world: [] for world in WORLDS}
     for world, layouts in WORLDS.items():
@@ -169,6 +197,9 @@ def _runs():
                                         fused=False, raises=layout[1] > 1 and n == SIZES[0]))
             runs[world].append(dict(name=f"{tag}-fused", layout=list(layout), case=f"n{SIZES[0]}",
                                     dtype="float32", fused=True))
+            for n in SIZES:
+                runs[world].append(dict(name=f"{tag}-serve-n{n}", layout=list(layout), case=f"s{n}",
+                                        dtype="float64", fused=False, serve=True))
     return runs
 
 
@@ -212,6 +243,75 @@ def _jax_reference(n):
                                    float(grads.raw_noise)])
 
 
+def _jax_serving(n):
+    """The JAX package's unsharded results of the serving cases (SERVE) on
+    the same data and draws, in one jitted function: each neg_mll and its
+    gradient, the solve's loss sum(solve(K, rhs) * w) and its gradients in
+    the parameters and the rhs, the posterior, and the LOVE cache's
+    predictions."""
+    arrays = _serve_data(n)
+    x, y, x_star, rhs, w = (jnp.asarray(arrays[k]) for k in ("x", "y", "x_star", "rhs", "w"))
+    draws = {v.shape: v for k, v in arrays.items() if k.startswith("draw")}
+    model = JaxGP(block_rows=32, materialize_threshold=None)
+    # the lengthscale and outputscale as one (1, 1) copy a system: the JAX
+    # package's pivoted Cholesky takes no batched kernel operator with 0-d
+    # hyperparameters (its _index_param, which the port repaired); the
+    # gradients are the copies' sums
+    per_system = (SERVE_B, 1, 1)
+    params = model.init_params(D, dtype=jnp.float64)._replace(
+        raw_lengthscale=jnp.full(per_system, PARAMS[0], jnp.float64),
+        raw_outputscale=jnp.full(per_system, PARAMS[1], jnp.float64),
+        raw_noise=jnp.asarray(PARAMS[2], jnp.float64))
+    normal = jax.random.normal
+
+    def draw(key, shape=(), dtype=jnp.float64):
+        return jnp.asarray(draws[tuple(shape)], dtype)
+
+    def under(case, fn):
+        over = {**SETTINGS, **SERVE[case]}
+        ctxs = [getattr(jlo.settings, k)(v) for k, v in over.items()]
+        for c in ctxs:
+            c.__enter__()
+        try:
+            return fn()
+        finally:
+            for c in reversed(ctxs):
+                c.__exit__(None, None, None)
+
+    key = jax.random.PRNGKey(7)
+
+    def everything(p, rhs):
+        out = {}
+        for case in ("pivoted", "nystrom", "auto", "cholesky"):
+            out[case] = jax.value_and_grad(lambda q, case=case: under(case, lambda: model.neg_mll(q, x, y, key=key)))(p)
+
+        def solve_loss(q, r):
+            return under("solve", lambda: jnp.sum(model.train_operator(q, x).solve(r) * w))
+
+        out["solve"] = jax.value_and_grad(solve_loss, argnums=(0, 1))(p, rhs)
+        out["posterior"] = under("posterior", lambda: model.posterior(p, x, y, x_star))
+        out["cache"] = under("cache", lambda: model.posterior_from_cache(
+            p, x, model.posterior_cache(p, x, y, key=key), x_star))
+        return out
+
+    jax.random.normal = draw
+    try:
+        res = jax.jit(everything)(params, rhs)
+    finally:
+        jax.random.normal = normal
+
+    def grads(g):
+        return np.array([float(jnp.sum(g.raw_lengthscale)), float(jnp.sum(g.raw_outputscale)), float(g.raw_noise)])
+
+    out = {case: dict(loss=float(res[case][0]), grads=grads(res[case][1]))
+           for case in ("pivoted", "nystrom", "auto", "cholesky")}
+    (value, (g, rhs_grad)) = res["solve"]
+    out["solve"] = dict(loss=float(value), grads=grads(g), rhs_grad=np.asarray(rhs_grad))
+    for case in ("posterior", "cache"):
+        out[case] = dict(mean=np.asarray(res[case][0]), var=np.asarray(res[case][1]))
+    return out
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """Both worlds spawned at once (each rank one process), the JAX
@@ -222,6 +322,8 @@ def worlds(tmp_path_factory):
     for n in SIZES:
         x, y, probes = _data(n)
         arrays.update({f"n{n}_x": x, f"n{n}_y": y, f"n{n}_probes": probes, f"n{n}_params": np.array(PARAMS)})
+        arrays.update({f"s{n}_{k}": v for k, v in _serve_data(n).items()})
+        arrays[f"s{n}_params"] = np.array(PARAMS)
     np.savez(tmp / "arrays.npz", **arrays)
     env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS",)}
     env["OMP_NUM_THREADS"] = "1"
@@ -238,6 +340,7 @@ def worlds(tmp_path_factory):
             for r in range(world)
         ]
     refs = {n: _jax_reference(n) for n in SIZES}
+    refs.update({f"s{n}": _jax_serving(n) for n in SIZES})
     results, failures = {}, []
     for world, ranks in procs.items():
         deadline = started + TIMEOUT_S
@@ -261,6 +364,8 @@ def worlds(tmp_path_factory):
 def _cases(kind):
     for world, runs in _runs().items():
         for run in runs:
+            if run.get("serve"):
+                continue
             if kind == "f64" and run["dtype"] == "float64":
                 yield pytest.param(world, run, id=run["name"])
             elif kind == "fused" and run["fused"]:
@@ -350,14 +455,113 @@ def test_fused_route_matches_unsharded(worlds, world, run):
 
 @pytest.mark.parametrize("world, run", list(_cases("raises")))
 def test_what_the_row_sharded_operator_does_not_cover_raises(worlds, world, run):
-    """A preconditioner, the Cholesky path, a solve and the posterior on a
-    model-sharded mesh raise NotImplementedError naming ROADMAP.md: nothing
-    falls back to a replicated or unpreconditioned solve."""
+    """x's gradient, indexing, cat_rows, a sum with anything but a diagonal
+    and the blocked pivoted Cholesky sweep on a model-sharded mesh raise
+    NotImplementedError naming ROADMAP.md: nothing falls back to a
+    replicated or unpreconditioned solve."""
     results, _ = worlds
     for r in results[world]:
         raised = r[run["name"]]["raised"]
-        assert set(raised) == {"preconditioner", "cholesky", "solve", "posterior"}
+        assert set(raised) == {"x gradient", "indexing", "cat_rows", "sum", "blocked pivoted sweep"}
         assert all("ROADMAP.md" in msg for msg in raised.values()), raised
+
+
+def _serve_cases(row_sharded=False):
+    for world, runs in _runs().items():
+        for run in runs:
+            if run.get("serve") and (run["layout"][1] > 1 or not row_sharded):
+                for case in SERVE:
+                    yield pytest.param(world, run, case, id=f"{run['name']}-{case}")
+
+
+def _place(run, rank):
+    data, model, probe = run["layout"]
+    mesh = Mesh({"data": data, "model": model, **({"probe": probe} if probe else {})}, rank, torch.device("cpu"))
+    n = int(run["case"][1:])
+    batch = torch.tensor_split(torch.arange(SERVE_B), data)[mesh.index("data")]
+    rows = torch.tensor_split(torch.arange(n), model)[mesh.index("model")]
+    return mesh, batch.numpy(), rows.numpy()
+
+
+@pytest.mark.parametrize("world, run, case", list(_serve_cases()))
+def test_sharded_serving_matches_jax(worlds, world, run, case):
+    """On each mesh (the data-only one too), on the same data and draws as
+    the JAX package's unsharded functions: neg_mll and its gradient under the
+    pivoted (rank 5), Nystrom (rank 8) and auto preconditioners and on the
+    Cholesky route; solve, with its gradients in the parameters and (the
+    rank's rows) in the rhs; the posterior, and its gradient against the
+    unsharded port's; the LOVE cache's predictions (a root is defined only
+    up to rotation).  Every rank's outputs are its
+    batch's, the same on every model rank."""
+    results, refs = worlds
+    want = refs[run["case"]][case]
+    for rank, r in enumerate(results[world]):
+        got = r[run["name"]][case]
+        _, batch, rows = _place(run, rank)
+        if "loss" in want:
+            np.testing.assert_allclose(got["loss"], want["loss"], rtol=LOSS_RTOL)
+            _grad_close(got["grads"], want["grads"], GRAD_RTOL)
+        if "rhs_grad" in want:
+            np.testing.assert_allclose(got["rhs_grad"], want["rhs_grad"][batch][:, rows], rtol=0,
+                                       atol=GRAD_RTOL * np.abs(want["rhs_grad"]).max())
+        for key in ("mean", "var"):
+            if key in want:
+                np.testing.assert_allclose(got[key], want[key][batch], rtol=0,
+                                           atol=SERVE_RTOL * np.abs(want[key]).max())
+        if case == "posterior":
+            # the gradient of sum(mean + var): the solve's shares and the
+            # cross-covariance's summed over the model group, the data
+            # ranks' over data, against the unsharded port's
+            _grad_close(got["grads"], got["ref_grads"], GRAD_RTOL)
+
+
+@pytest.mark.parametrize("world, run, case", list(_serve_cases(row_sharded=True)))
+def test_sharded_serving_collectives_follow_the_design(worlds, world, run, case):
+    """The collectives by name each case implies, from the forward's counts:
+    one gathered vector a CG iteration and a Lanczos step (x's once), one
+    Woodbury sum a preconditioner application, two row sums a CG iteration,
+    one "any" a stopping test, the pivoted factor's argmax and owner's row
+    a step, one sum of the posterior's or a query's shares; every gathered
+    block is the rank's rows of one block of vectors (the Cholesky route
+    gathers its own n x n rows once)."""
+    results, _ = worlds
+    data, model, probe = run["layout"]
+    n = int(run["case"][1:])
+    for rank, r in enumerate(results[world]):
+        got = r[run["name"]][case]
+        counts, its, gathered = got["counts"], got["iters"], got["gathered"]
+        _, _, rows = _place(run, rank)
+        want = {}
+        pivoted = case != "cholesky" and SERVE[case].get("preconditioner_mode", "pivoted") == "pivoted"
+        if pivoted:
+            want.update(argmax=5, owner_row=4)
+        if case == "cholesky":
+            assert its == []
+            want.update(all_reduce=1 + (data > 1), all_gather=3)
+            widths = [D, n, 1]
+        elif case in ("pivoted", "nystrom", "auto"):
+            (it,) = its
+            tests = it - 20 + (it < SETTINGS["max_cg_iterations"])
+            want.update(all_gather=it + 1, woodbury=it + 2, woodbury_cap=1, nan_check=1, any=tests,
+                        all_reduce=2 * it + 6 + (data > 1) + (probe is not None) * (2 + tests))
+            widths = [D] + [PROBES // (probe or 1) + 1] * it
+        else:
+            it = its[0]
+            tests = it + 1 - (it == SERVE[case]["max_cg_iterations"])
+            want.update(all_gather=it + 1, woodbury=it + 1, woodbury_cap=1, nan_check=1, any=tests,
+                        all_reduce=2 * it + 4)
+            width = {"solve": 3, "posterior": 1 + SERVE_M, "cache": 1}[case]
+            widths = [D] + [width] * it
+            if case == "posterior":
+                want["posterior"] = 1
+            if case == "cache":
+                k = min(n, 100)
+                want.update(all_gather=it + 1 + k, lanczos=4 * k + 1)
+                widths += [1] * k
+                assert got["query_counts"] == {"posterior_from_cache": 1}
+                assert got["root_rows"] == len(rows)
+        assert counts == want, (counts, want)
+        assert gathered == [[len(rows), w] for w in widths]
 
 
 def test_scaling_report_on_meshes_of_two_and_four_ranks(worlds):

@@ -11,7 +11,13 @@ model on the whole data in this process, and one ``sharded_train_step`` with
 Adam; it counts CG's iterations, the collectives by name and the kernel
 routes (K1, K3).  Runs marked so check that what the mesh does not cover
 raises; with "scaling" in SPEC, ``scaling_report`` runs on meshes of 2 and 4
-ranks.  The rank writes ``OUT_DIR/rank<RANK>.json``.  Imports no JAX.
+ranks.  A "serve" run takes its data set's x, y, x_star, rhs and w and, on
+its mesh, runs the sharded neg_mll and its gradient under each
+preconditioner mode and on the Cholesky route, ``solve`` and its gradient,
+``posterior`` and its gradient (beside the unsharded port's), and
+``posterior_cache`` with ``posterior_from_cache`` (its SERVE settings),
+counting the collectives and the rows of every gathered block.  The rank
+writes ``OUT_DIR/rank<RANK>.json``.  Imports no JAX.
 """
 
 import json
@@ -35,6 +41,22 @@ from linear_operator_tpu_torch.parallel.sharding import initialize_distributed  
 SETTINGS = dict(max_cholesky_size=0, num_trace_samples=4, max_cg_iterations=30, cg_tolerance=1e-6,
                 min_preconditioning_size=10**9)
 LR = 0.01
+# the serving cases: the settings each runs under (on top of SETTINGS'
+# probes and CG cap), shared with the JAX references of the test
+SERVE = {
+    "pivoted": dict(max_cholesky_size=0, min_preconditioning_size=16, max_preconditioner_size=5,
+                    preconditioner_mode="pivoted"),
+    "nystrom": dict(max_cholesky_size=0, min_preconditioning_size=16, max_preconditioner_size=8,
+                    preconditioner_mode="nystrom"),
+    "auto": dict(max_cholesky_size=0, min_preconditioning_size=16, preconditioner_mode="auto"),
+    "cholesky": dict(max_cholesky_size=800, min_preconditioning_size=16),
+    "solve": dict(max_cholesky_size=0, min_preconditioning_size=16, max_preconditioner_size=5,
+                  cg_tolerance=1e-11, max_cg_iterations=200),
+    "posterior": dict(max_cholesky_size=0, min_preconditioning_size=16, max_preconditioner_size=5,
+                      cg_tolerance=1e-11, max_cg_iterations=200),
+    "cache": dict(max_cholesky_size=0, min_preconditioning_size=16, max_preconditioner_size=5,
+                  cg_tolerance=1e-11, max_cg_iterations=200),
+}
 
 
 class _Iterations(logging.Handler):
@@ -75,6 +97,67 @@ def _grads(model):
     return [float(p.grad) for p in (model.raw_lengthscale, model.raw_outputscale, model.raw_noise)]
 
 
+def _serve(run, arrays, mesh, log, gathered):
+    """The serving cases on the rank's block: results (the rank's batch;
+    the rhs gradient its rows) and, per case, the collectives, the CG
+    iterations and the (rows, columns) of every gathered block."""
+    x, y, x_star, rhs, w = (torch.from_numpy(arrays[k]) for k in ("x", "y", "x_star", "rhs", "w"))
+    xs, ys = shard_gp_batch(mesh, x, y)
+    x_star = mesh.block(x_star, batch=True, rows=False, cols=False)
+    rhs_r = mesh.block(rhs, batch=True, rows=True, cols=False).clone().requires_grad_(True)
+    w_r = mesh.block(w, batch=True, rows=True, cols=False)
+    model_group, data_group = mesh.group("model"), mesh.group("data")
+    out = {}
+    for case, over in SERVE.items():
+        model = _model(run, arrays, torch.float64)
+        log.iters.clear()
+        gathered.clear()
+        _comm.reset_counts()
+        res = {}
+        with _settings(**over), mesh:
+            if case in ("pivoted", "nystrom", "auto", "cholesky"):
+                loss = model.neg_mll(xs, ys, generator=torch.Generator())
+                res["counts"], res["gathered"] = dict(_comm.counts), list(gathered)
+                loss.backward()
+                res["loss"] = float(loss)
+            elif case == "solve":
+                sol = model.train_operator(xs).solve(rhs_r)
+                res["counts"], res["gathered"] = dict(_comm.counts), list(gathered)
+                loss = _comm.sum_shares(torch.sum(sol * w_r), model_group)
+                loss.backward()
+                res["loss"] = float(_comm.all_reduce(loss.detach(), data_group))
+                res["rhs_grad"] = rhs_r.grad.tolist()
+            elif case == "posterior":
+                mean, var = model.posterior(xs, ys, x_star)
+                res["counts"], res["gathered"] = dict(_comm.counts), list(gathered)
+                res["mean"], res["var"] = mean.tolist(), var.tolist()
+                torch.sum(mean + var).backward()
+                shares = torch.tensor(_grads(model), dtype=torch.float64)
+                res["grads"] = _comm.all_reduce(shares, data_group).tolist()
+            else:
+                cache = model.posterior_cache(xs, ys, generator=torch.Generator())
+                built = dict(_comm.counts)
+                res["gathered"] = list(gathered)
+                res["mean"], res["var"] = (t.tolist() for t in model.posterior_from_cache(xs, cache, x_star))
+                res["counts"] = built
+                res["query_counts"] = {k: v - built.get(k, 0) for k, v in _comm.counts.items()
+                                       if v > built.get(k, 0)}
+                res["root_rows"] = cache.root_inv.shape[-2]
+        if "loss" in res:
+            shares = torch.tensor(_grads(model), dtype=torch.float64)
+            res["grads"] = _comm.all_reduce(shares, data_group).tolist()
+        res["iters"] = list(log.iters)
+        if case == "posterior":
+            # the unsharded port's gradient of the same sum on the whole data
+            ref = _model(run, arrays, torch.float64)
+            with _settings(**over):
+                mean, var = ref.posterior(x, y, torch.from_numpy(arrays["x_star"]))
+            torch.sum(mean + var).backward()
+            res["ref_grads"] = _grads(ref)
+        out[case] = res
+    return out
+
+
 def main():
     rank, world, port = (int(a) for a in sys.argv[1:4])
     spec = json.loads(Path(sys.argv[4]).read_text())
@@ -101,12 +184,31 @@ def main():
         return kernel_matvec_plain(x1, x2, v, covar)
 
     tkernel.kernel_matvec_sym, tkernel.kernel_matvec = sym, rect
+    gathered = []
+    gather_rows = _comm.all_gather_rows
+
+    def recorded_gather(t, group, sizes):
+        if group is not None:
+            gathered.append(list(t.shape[-2:]))
+        return gather_rows(t, group, sizes)
+
+    _comm.all_gather_rows = recorded_gather
     log = _Iterations()
     logging.getLogger("linear_operator_tpu_torch").setLevel(logging.DEBUG)
     logging.getLogger("linear_operator_tpu_torch").addHandler(log)
 
     results = {}
     for run in spec["runs"]:
+        if run.get("serve"):
+            arrays = {k: data[f"{run['case']}_{k}"] for k in ("x", "y", "x_star", "rhs", "w", "params")}
+            probes_by_shape.clear()
+            for key in data.files:
+                if key.startswith(f"{run['case']}_draw"):
+                    probes_by_shape[data[key].shape] = data[key]
+            layout = run["layout"]
+            mesh = make_mesh(None, data=layout[0], model=layout[1], probe=layout[2], device="cpu")
+            results[run["name"]] = _serve(run, arrays, mesh, log, gathered)
+            continue
         arrays = {k: data[f"{run['case']}_{k}"] for k in ("x", "y", "probes", "params")}
         dtype = torch.float64 if run["dtype"] == "float64" else torch.float32
         x, y = (torch.from_numpy(arrays[k]).to(dtype) for k in ("x", "y"))
@@ -152,11 +254,14 @@ def main():
 
         if run.get("raises"):
             raised = {}
+            other = lo.DenseLinearOperator(torch.eye(x.shape[1], dtype=dtype).expand(xs.shape[0], -1, -1))
             for label, over, call in [
-                ("preconditioner", dict(min_preconditioning_size=0), lambda m: m.neg_mll(xs, ys)),
-                ("cholesky", dict(max_cholesky_size=10**6), lambda m: m.neg_mll(xs, ys)),
-                ("solve", {}, lambda m: m.train_operator(xs).solve(ys[..., None])),
-                ("posterior", {}, lambda m: m.posterior(xs, ys, xs[:, :3])),
+                ("x gradient", {}, lambda m: m.neg_mll(xs.clone().requires_grad_(True), ys)),
+                ("indexing", {}, lambda m: m.train_operator(xs)[..., :3, :3]),
+                ("cat_rows", {}, lambda m: m.train_operator(xs).cat_rows(xs[..., :3, :1], ys[..., :1, None])),
+                ("sum", {}, lambda m: m.train_operator(xs) + other),
+                ("blocked pivoted sweep", dict(min_preconditioning_size=0, max_preconditioner_size=5,
+                                               pivoted_cholesky_block_size=2), lambda m: m.neg_mll(xs, ys)),
             ]:
                 try:
                     with _settings(**over), mesh:
