@@ -158,7 +158,14 @@ Phases, each reported on its own line:
     B = 2, (2, 2) and (1, 2, 2) at n = 8192, and (1, 2) at N = 100,000 (K1
     at 50,000 x 100,000), each held against the unsharded run in the same
     process (phase_sharded), with its launches and collectives by name and
-    config 5's solves/s; K1 and K2 at the sharded shapes against their plain
+    config 5's solves/s; the preconditioners, the posterior and LOVE on the
+    row-sharded operator (19d-19g); SKI at config 4b row-sharded over the
+    points, linear on (1, 2) and (1, 2) under the default settings, cubic
+    on (1, 4), and its LOVE posterior (19h: one interpolation sum an
+    iteration, no gathered vector, no kernel); DKL at 18e's width on (1, 2)
+    through ``sharded_train_step`` (19i: K1 a CG iteration, K1 and two K2 a
+    backward, the features' gradient back to their ranks), and its LOVE
+    cache; K1 and K2 at the sharded shapes against their plain
     versions, timed beside their bounds (ms_sharded in the kernels line);
  7. one JSON line listing every ported kernel with its launches (K3's and
     K1's including phases 12, 13, 18e and 19), error, times and bound (bound_basis:
@@ -342,6 +349,30 @@ SHARDED_F32_ATOL, SHARDED_F32_RTOL = 3e-3, 1e-2
 SHARDED_LOSS_RTOL, SHARDED_GRAD_RTOL, SHARDED_GRAD_ATOL, SHARDED_F64_RTOL = 1e-4, 1e-3, 1e-4, 1e-7
 SHARDED_RAW_LS = -2.0
 WORLD_TIMEOUT_S, NCCL_CHECK_TIMEOUT_S = 420, 90
+# 19h, sharded SKI at config 4b (N_SKI points, a G_SKI x G_SKI grid, the
+# bench's settings) against the unsharded run in the same process, with the
+# same CG iterations: at the model's initial parameters in f32 to
+# SHARDED_F32_ATOL and SHARDED_F32_RTOL beside the unsharded run's distance
+# from itself (20 unconverged CG iterations and Lanczos steps carry a
+# reordered sum, or `index_add`'s atomic order, far);
+# at SKI_HELD_RAW to TestShardedSKI's tolerances (test_models_parallel.py:
+# 1e-4 relative plus 1e-5 on the loss, 1e-3 relative plus 1e-4 on the
+# gradients) in f32 and to SHARDED_F64_RTOL in f64 (the gradients of their
+# largest); its LOVE posterior at M_LOVE queries to SERVE_RTOL, also at
+# SKI_HELD_RAW.  19i, sharded DKL at 18e's width, held at
+# DKL_HELD_NOISE with CG to DKL_HELD_CG_TOL: the loss to SHARDED_LOSS_RTOL
+# and each MLP layer's and the GP head's gradient to DKL_GRAD_RTOL of its
+# norm, at the model's noise reported; its LOVE cache at DKL_HELD_NOISE to
+# SERVE_RTOL.  SKI's LOVE solve (CG to
+# SERVE_CG_TOL in f32) may stop SKI_SERVE_ITERS iterations from the
+# unsharded one (its reordered sums move where CG crosses the tolerance)
+SKI_LOSS_RTOL, SKI_LOSS_ATOL, SKI_GRAD_RTOL, SKI_GRAD_ATOL, SKI_SERVE_ITERS = 1e-4, 1e-5, 1e-3, 1e-4, 3
+# the held point: lengthscale 0.05 and noise 1.0 (raw values), where on an
+# H100 the unsharded f32 run repeats itself to 2.2e-8 and the sharded one
+# lies 6e-8 (loss) and 3e-8 (gradients) from it, f64 6e-17 (PERF.md, §6);
+# at lengthscale 0.127 and the model's noise CG's unconverged iterations put
+# the f64 runs further apart than SHARDED_F64_RTOL
+SKI_HELD_RAW = (math.log(math.expm1(0.05)), math.log(math.expm1(1.0)))
 HARNESS_KERNEL_TOLERANCES = {
     "matmul": {"rtol": 1e-4, "atol": 2e-4},
     "grad": {"rtol": 1e-3, "atol": 1e-3},
@@ -2575,13 +2606,16 @@ def _sharded_settings(settings, kind: str):
     preconditioner (pivoted Cholesky, rank 15, from n = 2000); "bench":
     config 3's (bench.py:100-129, ``bench_context``: "auto", so Nystrom rank
     400 at N = 1e5, 20 Lanczos steps); "serve": the bench's with CG to
-    SERVE_CG_TOL (at most SERVE_CG_MAX iterations) and LOVE's k."""
+    SERVE_CG_TOL (at most SERVE_CG_MAX iterations) and LOVE's k; "ski":
+    config 4b's (bench.py:278-298: config 5's with 20 Lanczos steps)."""
     probes, tol, iters = {"dryrun": (4, 1e-6, 60), "config5": (10, 1.0, 100), "held": (10, 1e-4, 100),
-                          "default": (10, 1.0, 100), "bench": (PROBES, 1.0, 100),
+                          "default": (10, 1.0, 100), "bench": (PROBES, 1.0, 100), "ski": (10, 1.0, 100),
                           "serve": (PROBES, SERVE_CG_TOL, SERVE_CG_MAX)}[kind]
     stack = contextlib.ExitStack()
     ctxs = [settings.max_cholesky_size(0), settings.num_trace_samples(probes), settings.max_cg_iterations(iters),
             settings.cg_tolerance(tol), settings.verbose_linalg(True)]
+    if kind == "ski":
+        ctxs.append(settings.max_lanczos_quadrature_iterations(20))
     if kind in ("bench", "serve"):
         ctxs += [settings.preconditioner_mode("auto"), settings.max_lanczos_quadrature_iterations(20),
                  settings.max_root_decomposition_size(LOVE_K)]
@@ -2636,6 +2670,19 @@ def _sharded_worker(argv) -> None:
     for lay in spec.get("layouts", []):
         started = time.perf_counter()
         mesh = make_mesh(data=lay["data"], model=lay["model"], probe=lay["probe"])
+        if lay.get("ski") or lay.get("dkl"):
+            def reset():
+                rbf.reset_launch_counts()
+                _comm.reset_counts()
+                log.clear()
+
+            w = types.SimpleNamespace(torch=torch, lo=lo, settings=settings, _comm=_comm, dev=dev, dist=dist,
+                                      mesh=mesh, log=log, counts=counts, reset=reset)
+            res = (_ski_layout if lay.get("ski") else _dkl_layout)(w, lay)
+            res["seconds"] = time.perf_counter() - started
+            results[lay["name"]] = res
+            torch.cuda.empty_cache()
+            continue
         n, B = lay["n"], lay["data"]
         g = torch.Generator().manual_seed(190)
         x = torch.randn((B, n, D), generator=g)
@@ -2793,6 +2840,187 @@ def _sharded_worker(argv) -> None:
     dist.destroy_process_group()
 
 
+def _timed_call(w, fn, reps: int) -> float:
+    """Seconds a call of ``fn`` (warm: one call first), every rank starting
+    together."""
+    fn()
+    w.torch.cuda.synchronize()
+    w.dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    w.torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def _ski_layout(w, lay) -> dict:
+    """19h on one layout: config 4b's data (phase 15's draw) with the rank's
+    rows from ``shard_gp_batch``; neg_mll and its backward, unsharded and
+    sharded, on the same probes (f32 at the model's initial parameters, the
+    unsharded run twice; f32 and f64 at SKI_HELD_RAW), or with lay["serve"]
+    the LOVE posterior at M_LOVE queries at SKI_HELD_RAW; launches,
+    collectives by name and CG iterations; the sharded step's seconds, warm,
+    and one interpolation sum's."""
+    torch, lo, settings, _comm, dev = w.torch, w.lo, w.settings, w._comm, w.dev
+    from linear_operator_tpu_torch.parallel import shard_gp_batch
+
+    g = torch.Generator(device=dev).manual_seed(80)
+    x = torch.rand(lay["n"], 2, device=dev, generator=g)
+    y = torch.sin(6.0 * x[:, 0]) * torch.cos(4.0 * x[:, 1])
+    xs, ys = shard_gp_batch(w.mesh, x, y)
+    grid = lo.make_grid(x, (G_SKI, G_SKI))
+    out = dict(rows=xs.shape[0])
+
+    def model(dtype, held=False):
+        mdl = lo.SKIGPRegression(grid, lay["interp"], dtype=dtype, device=dev)
+        if held:
+            with torch.no_grad():
+                mdl.raw_lengthscale.fill_(lay.get("raw_ls", SKI_HELD_RAW[0]))
+                mdl.raw_noise.fill_(lay.get("raw_noise", SKI_HELD_RAW[1]))
+        return mdl
+
+    def run(dtype, sharded, held=False):
+        mdl = model(dtype, held)
+        xx, yy = (xs, ys) if sharded else (x, y)
+        w.reset()
+        with _sharded_settings(settings, lay["hold"]), (w.mesh if sharded else contextlib.nullcontext()):
+            loss = mdl.neg_mll(xx.to(dtype), yy.to(dtype), generator=torch.Generator(device=dev).manual_seed(81))
+        fwd, comm = w.counts(), dict(_comm.counts)
+        loss.backward()
+        return dict(loss=float(loss), iters=list(w.log.counts), fwd=fwd, comm=comm,
+                    bwd={k: v - fwd[k] for k, v in w.counts().items()},
+                    comm_bwd={k: v - comm.get(k, 0) for k, v in _comm.counts.items() if v > comm.get(k, 0)},
+                    grads=[*mdl.raw_lengthscale.grad.tolist(), float(mdl.raw_outputscale.grad),
+                           float(mdl.raw_noise.grad)])
+
+    if lay.get("serve"):
+        xq = torch.rand(M_LOVE, 2, device=dev, generator=g)
+        for label, xx, yy in (("unsharded", x, y), ("sharded", xs, ys)):
+            mdl = model(torch.float32, held=True)
+            scope = w.mesh if label == "sharded" else contextlib.nullcontext()
+
+            def call():
+                with _sharded_settings(settings, "serve"), scope, torch.no_grad():
+                    return mdl.posterior(xx, yy, xq, generator=torch.Generator(device=dev).manual_seed(82))
+
+            w.reset()
+            mean, var = call()
+            out[label] = dict(mean=mean.double().cpu(), var=var.double().cpu(), iters=list(w.log.counts),
+                              comm=dict(_comm.counts), fwd=w.counts())
+            if label == "sharded":
+                out[label]["s"] = _timed_call(w, call, 1)
+        ref, got = out["unsharded"], out["sharded"]
+        scale = {k: float(ref[k].abs().max()) for k in ("mean", "var")}
+        got["err"] = {k: float((got[k] - ref[k]).abs().max()) / scale[k] for k in ("mean", "var")}
+        got["finite"] = bool(torch.isfinite(got["mean"]).all() and torch.isfinite(got["var"]).all())
+        got["digest"] = [float(got[k].sum()) for k in ("mean", "var")]
+        for r in (got, ref):
+            del r["mean"], r["var"]
+        return out
+    out["init"] = dict(unsharded=run(torch.float32, False), again=run(torch.float32, False),
+                       sharded=run(torch.float32, True))
+    out["cond"] = dict(unsharded=run(torch.float32, False, True), again=run(torch.float32, False, True),
+                       sharded=run(torch.float32, True, True))
+    out["cond64"] = dict(unsharded=run(torch.float64, False, True), sharded=run(torch.float64, True, True))
+    out["step_s"] = _timed_call(w, lambda: run(torch.float32, True), SHARDED_STEP_REPS)
+    u = torch.ones((G_SKI * G_SKI, PROBES + 1), device=dev)
+    out["interp_ms"] = 1e3 * _timed_call(w, lambda: _comm.all_reduce(u, w.mesh.group("model"), name="timing"), 20)
+    return out
+
+
+def _dkl_layout(w, lay) -> dict:
+    """19i: DKL at 18e's width, the rank's rows from ``shard_gp_batch``:
+    one ``sharded_train_step`` (Adam) against one unsharded step on the same
+    draws, at the model's noise (reported) and at DKL_HELD_NOISE with CG to
+    DKL_HELD_CG_TOL (held); the launches and collectives of a sharded
+    neg_mll and its backward; then ``posterior_cache`` and
+    ``posterior_from_cache`` at M_LOVE queries at DKL_HELD_NOISE, unsharded
+    and sharded."""
+    torch, lo, settings, _comm, dev = w.torch, w.lo, w.settings, w._comm, w.dev
+    from linear_operator_tpu_torch.parallel import shard_gp_batch, sharded_train_step
+
+    g = torch.Generator().manual_seed(184)
+    x = torch.randn(lay["n"], D_DKL, generator=g)
+    y = torch.sin(3.0 * x[:, 0]) + 0.1 * torch.randn(lay["n"], generator=g)
+    xs, ys = shard_gp_batch(w.mesh, x, y)
+    x, y = x.to(dev), y.to(dev)
+    xq = torch.randn(M_LOVE, D_DKL, generator=g).to(dev)
+    out = dict(rows=xs.shape[0])
+
+    def make(noise=None):
+        mdl = lo.DeepKernelGPRegression(D_DKL, HIDDEN_DKL, generator=torch.Generator().manual_seed(186),
+                                        device=dev, block_rows=8192, use_fused_kernels=True)
+        if noise is not None:
+            with torch.no_grad():
+                mdl.gp.raw_noise.fill_(math.log(math.expm1(noise)))
+        return mdl
+
+    def held(noise):
+        stack = contextlib.ExitStack()
+        stack.enter_context(_sharded_settings(settings, "bench"))
+        if noise is not None:
+            stack.enter_context(settings.cg_tolerance(DKL_HELD_CG_TOL))
+            stack.enter_context(settings.max_cg_iterations(DKL_HELD_CG_MAX))
+        return stack
+
+    def grads(mdl):
+        """Each MLP layer's gradient (its weights' and biases') and the GP
+        head's, in order.  (The last layer's bias alone has none: the RBF
+        kernel does not move with a shift of the features.)"""
+        groups = [list(m.parameters()) for m in mdl.mlp if isinstance(m, torch.nn.Linear)] + [
+            list(mdl.gp.parameters())]
+        return [torch.cat([p.grad.double().cpu().reshape(-1) for p in ps]) for ps in groups]
+
+    def step(sharded, noise):
+        mdl = make(noise)
+        opt = torch.optim.Adam(mdl.parameters(), lr=1e-3)
+        probes = torch.Generator(device=dev).manual_seed(187)
+        with held(noise):
+            if sharded:
+                loss = sharded_train_step(mdl, opt, w.mesh)(xs, ys, generator=probes)
+            else:
+                opt.zero_grad()
+                loss = mdl.neg_mll(x, y, generator=probes)
+                loss.backward()
+                opt.step()
+        return float(loss), grads(mdl), list(w.log.counts)
+
+    for tag, noise in (("init", None), ("held", DKL_HELD_NOISE)):
+        runs = {}
+        for label in ("unsharded", "sharded"):
+            w.reset()
+            runs[label] = step(label == "sharded", noise)
+        (l0, g0, i0), (l1, g1, i1) = runs["unsharded"], runs["sharded"]
+        out[tag] = dict(loss=l1, ref_loss=l0, iters=i1, ref_iters=i0,
+                        layer_err=[float((a - b).norm() / b.norm()) for a, b in zip(g1, g0)])
+    # the sharded neg_mll and its backward: launches and collectives
+    mdl = make()
+    w.reset()
+    with held(None), w.mesh:
+        loss = mdl.neg_mll(xs, ys, generator=torch.Generator(device=dev).manual_seed(187))
+    fwd, comm, iters = w.counts(), dict(_comm.counts), list(w.log.counts)
+    loss.backward()
+    out["counts"] = dict(fwd=fwd, comm=comm, iters=iters, bwd={k: v - fwd[k] for k, v in w.counts().items()},
+                         comm_bwd={k: v - comm.get(k, 0) for k, v in _comm.counts.items() if v > comm.get(k, 0)})
+    out["step_s"] = _timed_call(w, lambda: step(True, None), 1)
+    # the LOVE cache and a query on the features
+    served = {}
+    for label, xx, yy in (("unsharded", x, y), ("sharded", xs, ys)):
+        mdl = make(DKL_HELD_NOISE)
+        scope = w.mesh if label == "sharded" else contextlib.nullcontext()
+        w.reset()
+        with _sharded_settings(settings, "serve"), scope, torch.no_grad():
+            cache = mdl.posterior_cache(xx, yy, generator=torch.Generator(device=dev).manual_seed(188))
+            mean, var = mdl.posterior_from_cache(xx, cache, xq)
+        served[label] = dict(mean=mean.double().cpu(), var=var.double().cpu(), iters=list(w.log.counts),
+                             comm=dict(_comm.counts), fwd=w.counts())
+    ref, got = served["unsharded"], served["sharded"]
+    out["serve_err"] = {k: float((got[k] - ref[k]).abs().max() / ref[k].abs().max()) for k in ("mean", "var")}
+    out["serve_finite"] = bool(torch.isfinite(got["mean"]).all() and torch.isfinite(got["var"]).all())
+    out["serve"] = {label: {k: v for k, v in r.items() if k not in ("mean", "var")} for label, r in served.items()}
+    return out
+
+
 def _spawn_world(world: int, backend: str, spec: dict, timeout_s: float, tmp: Path):
     """Runs a world of ``world`` ranks of ``_sharded_worker`` on the card
     and returns (each rank's results or None, each rank's output tail): a
@@ -2867,7 +3095,15 @@ def phase_sharded(c) -> None:
     K2 at the sharded shapes (a rank's 50,000 rows against 100,000 points at
     t = 11, 65 and 1, the 400 landmarks, a query's 1024 points against
     50,000 at t = 1 and LOVE_K), against their plain versions and timed
-    beside their bounds."""
+    beside their bounds.  (h) SKI at config 4b (n = 200,000, grid 256 x 256)
+    row-sharded: linear on (1, 2), under the bench's and the default
+    settings, cubic on (1, 4), each held against the unsharded run (at the
+    model's initial parameters in f32 beside its distance from itself; at
+    SKI_HELD_RAW in f32 to TestShardedSKI's tolerances and in f64), and its
+    LOVE posterior at m = 1024 on (1, 2) at SKI_HELD_RAW; (i) DKL at 18e's
+    width on (1, 2): one sharded_train_step against one unsharded step, at
+    the model's noise (reported) and at DKL_HELD_NOISE (held), its launches
+    and collectives, and the LOVE cache and a query at DKL_HELD_NOISE."""
     import tempfile
 
     torch, rbf = c.torch, c.rbf
@@ -2888,6 +3124,10 @@ def phase_sharded(c) -> None:
         return dict(name=name, data=1, model=2, probe=None, n=N, hold="serve", time=True, f64=False, serve=kind,
                     m=m)
 
+    def ski(name, model, interp, hold="ski", serve=False):
+        return dict(name=name, data=1, model=model, probe=None, n=N_SKI, hold=hold, interp=interp, ski=True,
+                    serve=serve)
+
     # NCCL with two ranks on one card
     results, tails, secs = world_run(2, "nccl", [], NCCL_CHECK_TIMEOUT_S, check=True)
     nccl_two = results is not None and all(r["sum"] == [3.0] * 4 for r in results)
@@ -2907,11 +3147,17 @@ def phase_sharded(c) -> None:
                      layout(f"d 2 ranks (1, 2) N={N} config 3", 1, 2, None, N, "bench"),
                      layout("e 2 ranks (1, 2) n=8192 default settings", 1, 2, None, N_SHARDED, "default", False),
                      serving(f"f 2 ranks (1, 2) N={N} posterior m={M_STAR}", "posterior", M_STAR),
-                     serving(f"g 2 ranks (1, 2) N={N} LOVE k={LOVE_K} m={M_LOVE}", "love", M_LOVE)]),
+                     serving(f"g 2 ranks (1, 2) N={N} LOVE k={LOVE_K} m={M_LOVE}", "love", M_LOVE),
+                     ski(f"h 2 ranks (1, 2) SKI linear n={N_SKI}", 2, "linear"),
+                     ski(f"h 2 ranks (1, 2) SKI linear n={N_SKI} default settings", 2, "linear", "default"),
+                     ski(f"h 2 ranks (1, 2) SKI linear n={N_SKI} LOVE m={M_LOVE}", 2, "linear", serve=True),
+                     dict(name=f"i 2 ranks (1, 2) DKL N={N_DKL} hidden {HIDDEN_DKL}", data=1, model=2, probe=None,
+                          n=N_DKL, dkl=True)]),
         (4, shared, [layout("c 4 ranks (2, 2) n=8192", 2, 2, None, N_SHARDED, "dryrun"),
                      layout("c 4 ranks (1, 2, 2) n=8192", 1, 2, 2, N_SHARDED, "dryrun"),
                      layout("e 4 ranks (2, 2) n=8192 default settings", 2, 2, None, N_SHARDED, "default", False),
-                     layout("e 4 ranks (1, 2, 2) n=8192 default settings", 1, 2, 2, N_SHARDED, "default", False)]),
+                     layout("e 4 ranks (1, 2, 2) n=8192 default settings", 1, 2, 2, N_SHARDED, "default", False),
+                     ski(f"h 4 ranks (1, 4) SKI cubic n={N_SKI}", 4, "cubic")]),
     ]
     problems = []
     for world, backend, layouts in worlds:
@@ -2923,7 +3169,9 @@ def phase_sharded(c) -> None:
         say(f"  world of {world} on {backend}: {secs:.1f} s with start-up")
         for lay in layouts:
             ranks = [r[lay["name"]] for r in results]
-            problems += (_check_served if lay.get("serve") else _check_sharded)(c, lay, ranks)
+            check = (_check_ski if lay.get("ski") else _check_dkl if lay.get("dkl")
+                     else _check_served if lay.get("serve") else _check_sharded)
+            problems += check(c, lay, ranks)
     torch.cuda.empty_cache()
     for path in tmp.iterdir():
         path.unlink()
@@ -3090,6 +3338,118 @@ def _check_sharded(c, lay, ranks) -> list:
             for key in ("K1", "K2", "K3"):
                 c.launches[key] += rank["config5"]["fwd"][key] + rank["config5"]["bwd"][key]
     return problems
+
+def _check_ski(c, lay, ranks) -> list:
+    """19h's holds on one layout's ranks: the sharded loss and gradients
+    against the unsharded run's (f32 to TestShardedSKI's tolerances, beside
+    the unsharded run's distance from itself; f64 to SHARDED_F64_RTOL), the
+    same CG iterations, the same on every rank, no kernel launch, and the
+    collectives the design implies: one interpolation sum a CG iteration and
+    one in the backward, no gathered vector.  With lay["serve"], the LOVE
+    posterior to SERVE_RTOL."""
+    problems, name, first = [], lay["name"], ranks[0]
+    if lay.get("serve"):
+        ref, got = first["unsharded"], first["sharded"]
+        its = got["iters"][0] if got["iters"] else -1
+        say(f"  {name} (CG to {SERVE_CG_TOL}, held to {SERVE_RTOL}): mean {got['err']['mean']:.3e}, variance "
+            f"{got['err']['var']:.3e} from the unsharded run; CG iterations {got['iters']} (unsharded {ref['iters']}); "
+            f"collectives {got['comm']}; {got['s']:.3f} s warm on rank 0 (ranks share one card: no scaling)")
+        if not (got["finite"] and max(got["err"].values()) <= SERVE_RTOL):
+            problems.append(f"{name}: the sharded posterior lies {got['err']} from the unsharded run")
+        if len(got["iters"]) != 1 or abs(its - ref["iters"][0]) > SKI_SERVE_ITERS:
+            problems.append(f"{name}: CG iterations {got['iters']} against {ref['iters']}")
+        for r, rank in enumerate(ranks):
+            run = rank["sharded"]
+            if run["digest"] != got["digest"]:
+                problems.append(f"{name}: rank {r}'s outputs differ from rank 0's")
+            if run["comm"].get("interp", 0) < its or run["comm"].get("all_gather", 0) or any(run["fwd"].values()):
+                problems.append(f"{name} rank {r}: collectives {run['comm']}, launches {run['fwd']}")
+        return problems
+    for tag, label, rtol, grad_rtol, atol in (
+            ("init", "f32, initial parameters", 0.0, SHARDED_F32_RTOL, SHARDED_F32_ATOL),
+            ("cond", "f32, the held point", SKI_LOSS_RTOL, SKI_GRAD_RTOL, SKI_GRAD_ATOL),
+            ("cond64", "f64, the held point", SHARDED_F64_RTOL, 0.0, None)):
+        ref, got = first[tag]["unsharded"], first[tag]["sharded"]
+        dl = abs(got["loss"] - ref["loss"])
+        dg = [abs(a - b) for a, b in zip(got["grads"], ref["grads"])]
+        if atol is None:  # f64: the loss relative to itself, the gradients to their largest
+            atol = rtol * max(abs(b) for b in ref["grads"])
+            label += " (gradients of their largest)"
+        spread = ""
+        if "again" in first[tag]:
+            again = first[tag]["again"]
+            spread = (f"; the unsharded run against itself: loss {abs(again['loss'] - ref['loss']):.2e}, gradients "
+                      f"{max(abs(a - b) for a, b in zip(again['grads'], ref['grads'])):.2e}")
+        say(f"  {name}, {label} (rows {first['rows']}; held to {rtol} / {grad_rtol} + {atol}): loss "
+            f"{got['loss']:.10f}, unsharded {ref['loss']:.10f}, |diff| {dl:.2e}; gradients "
+            f"{['%.6e' % a for a in got['grads']]}, |diff| {['%.2e' % e for e in dg]}{spread}; CG iterations "
+            f"{got['iters']} (unsharded {ref['iters']})")
+        loss_atol = SKI_LOSS_ATOL if tag == "cond" else atol if tag == "init" else 0.0
+        if not (dl <= loss_atol + rtol * abs(ref["loss"])
+                and all(e <= atol + grad_rtol * abs(b) for e, b in zip(dg, ref["grads"]))):
+            problems.append(f"{name}, {label}: the sharded loss or gradients disagree with the unsharded run")
+        if got["iters"] != ref["iters"] or len(got["iters"]) != 1:
+            problems.append(f"{name}, {label}: CG iterations {got['iters']} against {ref['iters']}")
+        for r, rank in enumerate(ranks):
+            run = rank[tag]["sharded"]
+            if run["loss"] != got["loss"] or run["grads"] != got["grads"]:
+                problems.append(f"{name}, {label}: rank {r}'s loss or gradients differ from rank 0's")
+            its = run["iters"][0] if run["iters"] else -1
+            if (run["comm"].get("interp", 0) != its or run["comm_bwd"].get("interp", 0) != 1
+                    or run["comm"].get("all_gather", 0) or run["comm_bwd"].get("all_gather", 0)
+                    or any(run["fwd"].values()) or any(run["bwd"].values())):
+                problems.append(f"{name}, {label} rank {r}: collectives {run['comm']} / {run['comm_bwd']}, "
+                                f"launches {run['fwd']} / {run['bwd']}: the design implies one interp sum an "
+                                "iteration and one backward, no gather, no kernel")
+    got = first["init"]["sharded"]
+    say(f"    collectives a step: forward {got['comm']}, backward {got['comm_bwd']}; solves/s a rank (forward and "
+        f"backward, warm, {SHARDED_STEP_REPS} repetitions; ranks share one card: no scaling): "
+        f"{', '.join('%.3f' % (1.0 / r['step_s']) for r in ranks)} (by rank); one interpolation sum of "
+        f"({G_SKI * G_SKI}, {PROBES + 1}) {first['interp_ms']:.3f} ms; the layout took {first['seconds']:.1f} s")
+    return problems
+
+
+def _check_dkl(c, lay, ranks) -> list:
+    """19i's holds on one layout's ranks: the sharded training step against
+    the unsharded one at DKL_HELD_NOISE (the loss to SHARDED_LOSS_RTOL, each
+    layer's gradient and the GP head's to DKL_GRAD_RTOL of its norm, CG iterations within
+    SERVE_ITERS), at the model's noise reported; one K1 a CG iteration and
+    no K3, one K1 and two K2 a backward on each rank; the LOVE cache's
+    predictions to SERVE_RTOL."""
+    problems, name, first = [], lay["name"], ranks[0]
+    for tag, label in (("init", "the model's noise (reported)"), ("held", f"noise {DKL_HELD_NOISE:g}, CG to "
+                                                                         f"{DKL_HELD_CG_TOL:g}")):
+        r = first[tag]
+        dl = abs(r["loss"] - r["ref_loss"]) / abs(r["ref_loss"])
+        say(f"  {name}, {label}: loss {r['loss']:.10f}, unsharded {r['ref_loss']:.10f}, rel {dl:.2e}; each "
+            f"layer's gradient and the GP head's from the unsharded step's (of its norm) "
+            f"{['%.1e' % e for e in r['layer_err']]}; "
+            f"CG iterations {r['iters']} (unsharded {r['ref_iters']})")
+        if tag == "held" and not (dl <= SHARDED_LOSS_RTOL and max(r["layer_err"]) <= DKL_GRAD_RTOL
+                                  and abs(r["iters"][0] - r["ref_iters"][0]) <= SERVE_ITERS):
+            problems.append(f"{name}, {label}: the sharded step disagrees with the unsharded one")
+    for i, rank in enumerate(ranks):
+        cnt = rank["counts"]
+        its = cnt["iters"][0] if cnt["iters"] else -1
+        if cnt["fwd"] != dict(K1=its, K3=0, K2=0) or cnt["bwd"] != dict(K1=1, K3=0, K2=2):
+            problems.append(f"{name} rank {i}: launches {cnt['fwd']} / {cnt['bwd']}, the design implies "
+                            f"K1 {its} / K1 1 and K2 2")
+        c.launches["K1"] += cnt["fwd"]["K1"] + cnt["bwd"]["K1"]
+        c.launches["K2"] += cnt["bwd"]["K2"]
+        if rank["held"]["loss"] != first["held"]["loss"]:
+            problems.append(f"{name} rank {i}: its loss differs from rank 0's")
+    cnt, srv = first["counts"], first["serve"]["sharded"]
+    say(f"    a sharded neg_mll: launches {cnt['fwd']}, backward {cnt['bwd']}; collectives {cnt['comm']}, backward "
+        f"(the replicated gradients' sum, the gathered features' dx2 among them) {cnt['comm_bwd']}; a step "
+        f"{first['step_s']:.3f} s warm on rank 0 (ranks share one card: no scaling)")
+    say(f"    LOVE cache and a query of {M_LOVE}: mean {first['serve_err']['mean']:.3e}, variance "
+        f"{first['serve_err']['var']:.3e} from the unsharded run; CG iterations {srv['iters']} (unsharded "
+        f"{first['serve']['unsharded']['iters']}); launches {srv['fwd']}; collectives {srv['comm']}; the layout "
+        f"took {first['seconds']:.1f} s")
+    if not (first["serve_finite"] and max(first["serve_err"].values()) <= SERVE_RTOL):
+        problems.append(f"{name}: the sharded LOVE predictions lie {first['serve_err']} from the unsharded run")
+    return problems
+
 
 def _check_served(c, lay, ranks) -> list:
     """19f and 19g's holds on one layout's ranks: the sharded outputs within

@@ -8,6 +8,13 @@ phi(x)): on the fused path the backward of ``inv_quad_logdet`` runs
 through the kernels' own backward, K3's x-gradient by two K2 launches, into
 the MLP's weights.  The GP head is the port's ``ExactGPRegression``,
 unchanged.
+
+Under an ambient mesh with a ``model`` axis above 1 (``parallel/``), x and y
+are the rank's rows (``shard_gp_batch``) and x_star is whole: the features of
+the rank's rows feed the row-sharded kernel operator, whose backward hands
+them their whole gradient (the rank's own rows' share and its rows of the
+gathered features' summed one), so the MLP's gradient on a rank is its
+share, which ``sharded_train_step`` sums over the model group.
 """
 
 from __future__ import annotations
@@ -98,6 +105,13 @@ class DeepKernelGPRegression(nn.Module):
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         return mlp_features(self.mlp, x)
+
+    def row_share_parameters(self):
+        """The MLP's parameters: under a model mesh they act on the rank's
+        rows only, so their gradient on a rank is its share, which
+        ``sharded_train_step`` sums over the model group (the GP head's
+        leave the backward whole)."""
+        return self.mlp.parameters()
 
     def train_operator(self, x: torch.Tensor):
         return self.gp.train_operator(self.features(x))

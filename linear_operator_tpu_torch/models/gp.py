@@ -71,10 +71,20 @@ def love_posterior(K, k_star, y, k_ss_diag, *, generator: torch.Generator | None
     """Predictive mean and variance from a train operator ``K``, a lazy
     cross-covariance ``k_star`` (*b, m, n), targets ``y`` and the prior
     diagonal at the query points, the LOVE way: var = k_ss_diag -
-    row_norms(k_star R)^2 with R an inverse root of K."""
+    row_norms(k_star R)^2 with R an inverse root of K.  Where ``K`` is
+    row-sharded (``parallel.row_sharded``), ``y`` and R are the rank's rows
+    and ``k_star`` the rank's columns: the two products are the rank's
+    shares, summed over the model group in one all-reduce of (m, k + 1), so
+    that mean and variance are whole on every rank."""
     alpha = solve(K, y[..., None])
     mean = (k_star @ alpha)[..., 0]
     v = k_star @ K.root_inv_decomposition(generator=generator).root.to_dense()  # (*b, m, k)
+    group = getattr(K, "row_group", None)
+    if group is not None:
+        from ..parallel._comm import sum_shares
+
+        both = sum_shares(torch.cat([mean[..., None], v], dim=-1), group, name="posterior")
+        mean, v = both[..., 0], both[..., 1:]
     var = k_ss_diag - torch.sum(v * v, dim=-1)
     return mean, torch.clamp_min(var, 0.0)
 
@@ -159,16 +169,7 @@ class ExactGPRegression(nn.Module):
         (``shard_gp_batch``) and the loss is the whole batch's mean, the same
         on every rank; its gradient on a rank is the rank's share, which
         ``sharded_train_step`` sums over the ``data`` axis."""
-        K = self.train_operator(x)
-        n = K.shape[-1]
-        iq, ld = inv_quad_logdet(K, y[..., None], logdet=True, generator=generator)
-        terms = iq + ld + n * math.log(2.0 * math.pi)
-        mesh = _current_mesh()
-        if mesh is None or mesh.size("data") == 1:
-            return 0.5 * torch.mean(terms) / n
-        from ..parallel._comm import sum_shares
-
-        return 0.5 * sum_shares(torch.sum(terms) / (terms.numel() * mesh.size("data")), mesh.group("data")) / n
+        return mll_loss(self.train_operator(x), y, generator)
 
     def posterior(self, x, y, x_star):
         """Predictive mean and variance at x_star, from ONE batched CG over
@@ -241,6 +242,23 @@ class ExactGPRegression(nn.Module):
         v = k_star @ cache.root_inv  # (*b, m, k)
         downdate = ConstantMulLinearOperator(RootLinearOperator(v), -1.0)
         return MultivariateNormal(mean, (self.covariance(x_star) + downdate).add_jitter(1e-6))
+
+
+def mll_loss(K, y, generator: torch.Generator | None = None) -> torch.Tensor:
+    """The negative MLL a point of the train operator ``K`` at targets ``y``,
+    averaged over the batch.  Under an ambient mesh (``parallel/``) ``K`` may
+    be row-sharded and ``y`` the rank's block: n is K's whole n, and the
+    loss is the whole batch's mean, the same on every rank (the data ranks'
+    shares summed by ``_comm.sum_shares``)."""
+    n = K.shape[-1]
+    iq, ld = inv_quad_logdet(K, y[..., None], logdet=True, generator=generator)
+    terms = iq + ld + n * math.log(2.0 * math.pi)
+    mesh = _current_mesh()
+    if mesh is None or mesh.size("data") == 1:
+        return 0.5 * torch.mean(terms) / n
+    from ..parallel._comm import sum_shares
+
+    return 0.5 * sum_shares(torch.sum(terms) / (terms.numel() * mesh.size("data")), mesh.group("data")) / n
 
 
 def _current_mesh():

@@ -8,24 +8,30 @@ grid kernel's mat-vec is a Kronecker sweep of Toeplitz products: an
 O(n 2^D + M log M) mat-vec, so CG and SLQ reach hundreds of thousands of
 points.  The model is an ``nn.Module`` whose three raw parameters (and so the
 computation) live on ``device``: "cuda" unless the caller asks for the CPU.
-Under a mesh (``parallel/``) its operator is not row-sharded: every rank of a
-model group holds all the points; a row-sharded interpolation is queued
-(``ROADMAP.md`` queue 1).
+
+Under an ambient mesh with a ``model`` axis above 1 (``parallel/``; the
+JAX package's ``_maybe_shard_blocks``), x and y are the rank's rows
+(``shard_gp_batch`` of one data set) and x_star is whole on every rank.
+The train operator is row-sharded over the points
+(``parallel.row_sharded.InterpolatedRows``): the grid operator is built on
+every rank from the replicated parameters, a mat-vec sums W_R^T v_R over
+the model group once and applies W_R locally.  ``neg_mll`` is the whole data
+set's loss, the same on every rank; ``posterior_mean`` and ``posterior``
+sum the rank's share of the cross-covariance's products once.
 """
 
 from __future__ import annotations
 
-import math
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..functions import inv_quad_logdet, solve
+from ..functions import solve
 from ..operators import GridInterpolatedLinearOperator, KroneckerProductLinearOperator, ToeplitzLinearOperator
 from ..utils.sparse import flatten_grid_interp
-from .gp import _softplus, love_posterior, model_device
+from .gp import _current_mesh, _softplus, _sum_rows, love_posterior, mll_loss, model_device
 
 
 class GridSpec(NamedTuple):
@@ -171,28 +177,49 @@ class SKIGPRegression(nn.Module):
             factors.append(ToeplitzLinearOperator(col))
         return factors[0] if len(factors) == 1 else KroneckerProductLinearOperator(tuple(factors))
 
+    def _stencils(self, x, dtype):
+        idx, val = self._interp_weights_per_dim(x)
+        return idx, tuple(v.to(dtype) for v in val)
+
     def covariance(self, x1, x2=None):
-        """W_1 K_grid W_2^T, the stencils flattened once for the call."""
+        """W_1 K_grid W_2^T, the stencils flattened once for the call.  Under
+        an ambient mesh with a ``model`` axis above 1, the training points
+        are the rank's rows: W K_grid W^T of this rank's rows x1 is
+        row-sharded, and a cross-covariance with x2 the rank's rows is the
+        rank's columns, whose parameters' gradients are summed over the
+        model group."""
         k_grid = self.grid_operator()
-        li, lv = self._interp_weights_per_dim(x1)
-        ri, rv = (li, lv) if x2 is None else self._interp_weights_per_dim(x2)
-        lv = tuple(v.to(k_grid.dtype) for v in lv)
-        rv = tuple(v.to(k_grid.dtype) for v in rv)
+        mesh = _current_mesh()
+        if mesh is not None and mesh.size("model") > 1:
+            from ..parallel import _comm
+            from ..parallel.row_sharded import row_sharded_interpolated_operator
+
+            if x2 is None:
+                li, lv = flatten_grid_interp(*self._stencils(x1, k_grid.dtype), self.grid.sizes)
+                return row_sharded_interpolated_operator(k_grid, li, lv, mesh)
+            k_grid = k_grid._with_leaves(_comm.sum_grads(tuple(k_grid._leaves()), mesh.group("model")))
+        li, lv = self._stencils(x1, k_grid.dtype)
+        ri, rv = (li, lv) if x2 is None else self._stencils(x2, k_grid.dtype)
         return GridInterpolatedLinearOperator(k_grid, li, lv, ri, rv, self.grid.sizes)
+
+    def _prior_diagonal(self, x_star) -> torch.Tensor:
+        """K_SKI(x_star, x_star)'s diagonal, whole on every rank of a mesh."""
+        k_grid = self.grid_operator()
+        li, lv = self._stencils(x_star, k_grid.dtype)
+        return GridInterpolatedLinearOperator(k_grid, li, lv, li, lv, self.grid.sizes).diagonal()
 
     def train_operator(self, x):
         return self.covariance(x).add_diagonal(_softplus(self.raw_noise))
 
     def neg_mll(self, x, y, *, generator: torch.Generator | None = None) -> torch.Tensor:
         """Negative marginal log-likelihood, averaged over data points;
-        ``generator`` draws the probes."""
-        n = y.shape[-1]
-        iq, ld = inv_quad_logdet(self.train_operator(x), y[..., None], logdet=True, generator=generator)
-        return 0.5 * torch.mean(iq + ld + n * math.log(2.0 * math.pi)) / n
+        ``generator`` draws the probes.  Under an ambient mesh, x and y are
+        the rank's rows and the loss is the whole data set's."""
+        return mll_loss(self.train_operator(x), y, generator)
 
     def posterior_mean(self, x, y, x_star):
         alpha = solve(self.train_operator(x), y[..., None])
-        return (self.covariance(x_star, x) @ alpha)[..., 0]
+        return _sum_rows(self.covariance(x_star, x) @ alpha, "posterior")[..., 0]
 
     def posterior(self, x, y, x_star, *, generator: torch.Generator | None = None):
         """Predictive mean and latent variance at ``x_star`` by LOVE
@@ -202,5 +229,4 @@ class SKIGPRegression(nn.Module):
         the Lanczos start."""
         K = self.train_operator(x)
         k_star = self.covariance(x_star, x)
-        k_ss_diag = self.covariance(x_star).diagonal()
-        return love_posterior(K, k_star, y, k_ss_diag, generator=generator)
+        return love_posterior(K, k_star, y, self._prior_diagonal(x_star), generator=generator)

@@ -20,15 +20,15 @@ from .diag import DiagLinearOperator
 from .sum import SumLinearOperator
 
 
-def nystrom_factor(op: LinearOperator, rank: int, whole: LinearOperator | None = None) -> torch.Tensor:
+def nystrom_factor(op: LinearOperator, rank: int, landmarks=None) -> torch.Tensor:
     """Nystrom factor L with L L^T ~= K from uniformly strided landmark
     columns: L = K[:, idx] chol(K[idx, idx] + eps I)^{-T}.
 
     The landmarks are ``np.unique(np.linspace(0, n - 1, rank).round())``,
     the JAX package's choice, so both packages pick identical columns.
-    ``op`` may be a block of rows of K, ``whole`` being K itself (a
-    row-sharded operator's rows): then K[idx, idx] comes from ``whole`` and
-    the result is those rows of L."""
+    ``landmarks(idx)``, where given, returns (K[R, idx], K[idx, idx]) for a
+    block of rows R of K that ``op`` stands for (a row-sharded operator's
+    rows): the result is then those rows of L."""
     n = op.shape[-1]
     rank = min(rank, n)
     idx = np.unique(np.linspace(0, n - 1, rank).round().astype(np.int64))
@@ -36,11 +36,11 @@ def nystrom_factor(op: LinearOperator, rank: int, whole: LinearOperator | None =
     idx_t = torch.as_tensor(idx, device=op.device)
     eye = torch.eye(k, dtype=op.dtype, device=op.device)
     with highest_matmul_precision():
-        cols = op._select_cols(idx_t)._matmul(eye)  # (*b, n, k)
-        if whole is None:
+        if landmarks is None:
+            cols = op._select_cols(idx_t)._matmul(eye)  # (*b, n, k)
             kmm = cols[..., idx_t, :]  # (*b, k, k)
         else:
-            kmm = whole._select_rows(idx_t)._select_cols(idx_t)._matmul(eye)
+            cols, kmm = landmarks(idx_t)
         kmm = 0.5 * (kmm + kmm.mT)
         eps = 1e-6 * torch.diagonal(kmm, dim1=-2, dim2=-1).mean(dim=-1)
         lmm = psd_safe_cholesky(kmm + eps[..., None, None] * eye)

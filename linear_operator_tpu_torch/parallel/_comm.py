@@ -10,7 +10,8 @@ none, so each one the sharded solve needs is written here, explicitly:
 * :func:`broadcast`, a tensor from one rank to a group;
 * :func:`argmax`, the global argmax over row blocks, ties to the lowest
   global index, with the sums a pivoted Cholesky step tests;
-* :func:`owner_row`, a row broadcast from the rank whose block holds it;
+* :func:`owner_row`, a row broadcast from the rank whose block holds it,
+  and :func:`owner_rows`, several rows so;
 * :func:`sum_shares`, a differentiable sum whose backward hands each rank the
   gradient of its own share;
 * :func:`gather_rows`, a differentiable :func:`all_gather_rows` whose
@@ -111,18 +112,25 @@ def argmax(d: torch.Tensor, group: Group | None, offset: int, extra: torch.Tenso
     return won[..., 1].to(torch.int64), won[..., 0], total
 
 
-def owner_row(rows: torch.Tensor, index: torch.Tensor, group: Group | None, offset: int) -> torch.Tensor:
-    """Row ``index`` (global, (*b,)) of a row-sharded (*b, |R|, k) array on
-    every rank of ``group``: the owner writes it, the others zeros, and one
-    sum over the group broadcasts it (each batch element from its own
-    owner)."""
+def owner_rows(rows: torch.Tensor, index: torch.Tensor, group: Group | None, offset: int,
+               name: str = "owner_row") -> torch.Tensor:
+    """Rows ``index`` (global, (*b, j) or (j,)) of a row-sharded (*b, |R|, k)
+    array on every rank of ``group``, (*b, j, k): each row's owner writes
+    it, the others zeros, and one sum over the group broadcasts them all."""
     local = index - offset
     mine = (local >= 0) & (local < rows.shape[-2])
     safe = torch.where(mine, local, 0)
-    row = torch.take_along_dim(rows, safe[..., None, None], dim=-2)[..., 0, :]
+    picked = torch.take_along_dim(rows, safe[..., None], dim=-2)
     if group is None:
-        return row
-    return all_reduce(torch.where(mine[..., None], row, 0.0), group, name="owner_row")
+        return picked
+    return all_reduce(torch.where(mine[..., None], picked, 0.0), group, name=name)
+
+
+def owner_row(rows: torch.Tensor, index: torch.Tensor, group: Group | None, offset: int) -> torch.Tensor:
+    """Row ``index`` (global, (*b,)) of a row-sharded (*b, |R|, k) array on
+    every rank of ``group`` (each batch element from its own owner):
+    :func:`owner_rows` of one row."""
+    return owner_rows(rows, index[..., None], group, offset)[..., 0, :]
 
 
 def any_flags(flags: torch.Tensor, group: Group | None, name: str = "any") -> torch.Tensor:

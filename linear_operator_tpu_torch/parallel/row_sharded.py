@@ -1,37 +1,58 @@
 """The row-sharded GP operator of the ``model`` axis: the port's counterpart
 of what GSPMD makes of ``KernelLinearOperator`` under ``P("data", "model",
-None)`` (counterpart of linear_operator_tpu/parallel/sharding.py's layout).
+None)`` (linear_operator_tpu/parallel/sharding.py's layout) and of the SKI
+interpolation row-sharded by ``_maybe_shard_blocks``
+(linear_operator_tpu/utils/grid_interp.py).
 
-Each rank of a model group holds rows R of x; x is gathered once, when the
-operator is built.  The operator is K + D restricted to the rank's rows, and
-it maps a vector's rows R to the product's rows R: a mat-vec gathers the
-vector over the model group and computes k(x_R, x) v (K1 on the card, as
-``KernelLinearOperator`` computes any rectangular block), plus D's rows R.
-Its ``shape`` is the whole (*b, n, n), so that ``inv_quad_logdet`` draws
-whole probes and SLQ scales by n; the tensors it takes and returns are the
-rank's rows.  ``_bilinear_derivative`` takes the rank's rows of the left
-vectors and gathers the right ones, and returns this rank's share of the
-gradients, which ``inv_quad_logdet``'s and ``solve``'s backwards sum over
-the model group.
+Each rank of a model group holds rows R of the points.  The operator is
+K + D restricted to the rank's rows, and it maps a vector's rows R to the
+product's rows R.  Its ``rows`` form that product, in one of two ways:
 
-What GSPMD runs of the unsharded operator runs here on the rank's rows:
+* :class:`KernelRows`, k(x_R, x): x is gathered once, when the operator is
+  built, and a mat-vec gathers the vector over the model group and computes
+  k(x_R, x) v (K1 on the card, as ``KernelLinearOperator`` computes any
+  rectangular block);
+* :class:`InterpolatedRows`, W_R K_grid W^T (SKI): a mat-vec sums
+  u = sum_ranks W_R^T v_R, (M, t), over the model group in one all-reduce
+  ("interp") and forms W_R (K_grid u) locally on the replicated grid.  No
+  (n, t) vector is gathered.
+
+D's rows are added to either.  Its ``shape`` is the whole (*b, n, n), so
+that ``inv_quad_logdet`` draws whole probes and SLQ scales by n; the tensors
+it takes and returns are the rank's rows.  ``_bilinear_derivative`` takes
+the rank's rows of both vectors and returns this rank's share of the
+gradients.  The operator's tensors are of two kinds (``own_leaves``): the
+rank's own rows (x_R, W_R's stencils), whose gradient is the rank's alone,
+and replicated ones (the hyperparameters, the gathered x), whose shares
+``inv_quad_logdet``'s and ``solve``'s backwards sum over the model group
+(``SolveLayout.reduce_grads``).  So x may require a gradient: the gathered
+x's whole-n gradient is summed once, and ``_comm.gather_rows``'s backward
+hands each rank its rows of it, beside its own rows' gradient, which is the
+reduce-scatter GSPMD inserts.
+
+What GSPMD runs of the unsharded operator runs here on the rank's rows, for
+both kinds of rows, through one code path:
 * the preconditioner (``_preconditioner``, ``with_preconditioner``): the
   rank's rows of the unsharded factor L (Nystrom from global landmark
-  indices with no collective; the strict pivoted Cholesky with a global
-  argmax and the pivot's row of L from its owner a step) and the Woodbury
-  closure on row blocks (one sum of (r, t) an application);
+  indices, whose points or stencils the rows fetch once; the strict
+  pivoted Cholesky with a global argmax, the pivot's point or stencil and
+  its row of L from its owner a step) and the Woodbury closure on row
+  blocks (one sum of (r, t) an application);
 * ``solve``, through ``SolveLayout``'s reduction for a solve;
 * the Cholesky route (``to_dense``, ``_solve_structure``): at n <=
   ``max_cholesky_size`` the unsharded operator forms K and factors it, so
-  here the rows are gathered once and every rank factors the same n x n
-  matrix, as GSPMD does.  That is the route's own n x n, not a fallback;
-* the inverse root (``functions.root_inv_decomposition``): the rank's rows.
+  here the rows are formed (SKI's stencils gathered once), gathered once,
+  and every rank factors the same n x n matrix, as GSPMD does.  That is the
+  route's own n x n, not a fallback;
+* Lanczos and the inverse root (``functions.root_inv_decomposition``): the
+  rank's rows.
 
 What the mesh does not cover raises NotImplementedError naming
-``ROADMAP.md``: x's gradient, indexing, ``cat_rows``, a sum with anything
-but a diagonal, the blocked pivoted Cholesky sweep, the forward root, the
-inverse root's gradient and ``posterior_distribution``.  Nothing falls back
-to a replicated or unpreconditioned solve.
+``ROADMAP.md``: indexing, ``cat_rows``, a sum with anything but a diagonal,
+the blocked pivoted Cholesky sweep, a gradient in SKI's interpolation
+weights, the forward root, the inverse root's gradient and
+``posterior_distribution``.  Nothing falls back to a replicated or
+unpreconditioned solve.
 """
 
 from __future__ import annotations
@@ -40,6 +61,13 @@ import torch
 
 from .. import settings
 from ..operators._linear_operator import LinearOperator
+from ..operators.interpolated import (
+    InterpolatedLinearOperator,
+    InterpolationMatrix,
+    _batch_aranges,
+    _interp_to_dense,
+)
+from ..utils.sparse import left_interp, left_t_interp
 from . import _comm
 
 
@@ -50,24 +78,179 @@ def _queued(what: str) -> NotImplementedError:
     )
 
 
+class KernelRows(LinearOperator):
+    """The rank's rows k(x_R, x) of a kernel operator, (*b, |R|, n): its
+    products take and return the rank's rows, gathering the vector over
+    ``group`` (``sizes`` the group's row counts).  ``kernel`` is a
+    rectangular ``KernelLinearOperator`` on (x_R, x); x_R is the rank's own,
+    x gathered."""
+
+    def __init__(self, kernel: LinearOperator, sizes: tuple, group: _comm.Group):
+        self.kernel = kernel
+        self.sizes = tuple(sizes)
+        self.group = group
+
+    def _shape(self) -> tuple[int, ...]:
+        return self.kernel.shape
+
+    def _gather(self, v: torch.Tensor) -> torch.Tensor:
+        return _comm.all_gather_rows(v, self.group, self.sizes)
+
+    def _matmul(self, rhs: torch.Tensor) -> torch.Tensor:
+        return self.kernel._matmul(self._gather(rhs))
+
+    def _matmul_closure(self):
+        mm = self.kernel._matmul_closure()
+        return lambda rhs: mm(self._gather(rhs))
+
+    def _bilinear_derivative(self, left_vecs, right_vecs) -> tuple:
+        """The kernel's backward on the gathered right vectors (K1 and two
+        K2 launches on the card: x_R's gradient and the gathered x's)."""
+        return self.kernel._bilinear_derivative(left_vecs, self._gather(right_vecs))
+
+    def owned(self) -> tuple:
+        return (self.kernel.x1,)
+
+    def row_diagonal(self) -> torch.Tensor:
+        """K's diagonal on the rank's rows, (*b, |R|)."""
+        return self.kernel._replace(x2=self.kernel.x1)._diagonal()
+
+    def pivot_column(self, pivot: torch.Tensor) -> torch.Tensor:
+        """K's column ``pivot`` (global, (*b,)) on the rank's rows: k(x_R,
+        x_pivot), pointwise."""
+        batch, n = tuple(pivot.shape), self.shape[-2]
+        row = torch.arange(n, device=pivot.device).expand(*batch, n)
+        return self.kernel._get_indices(row, pivot[..., None].expand(*batch, n),
+                                        *_batch_aranges(batch, (n,), pivot.device))
+
+    def landmarks(self, idx: torch.Tensor) -> tuple:
+        """(K[R, idx], K[idx, idx]) for global landmark indices ``idx``: the
+        landmark points are in the gathered x, so no collective."""
+        eye = torch.eye(len(idx), dtype=self.dtype, device=self.device)
+        whole = self.kernel._replace(x1=self.kernel.x2, symmetric=True)
+        return (self.kernel._select_cols(idx)._matmul(eye),
+                whole._select_rows(idx)._select_cols(idx)._matmul(eye))
+
+    def block(self) -> torch.Tensor:
+        """The dense (*b, |R|, n) rows."""
+        return self.kernel.to_dense()
+
+
+class InterpolatedRows(LinearOperator):
+    """The rank's rows W_R K_grid W^T of an interpolated operator (SKI),
+    (*b, |R|, n): ``base`` the grid operator K_grid (M, M), replicated on
+    every rank, and ``indices`` and ``values`` (*b, |R|, k) the flat
+    stencils of the rank's own points.  A product takes the rank's rows v_R
+    and returns its rows: u = sum over ``group`` of W_R^T v_R ((M, t), one
+    all-reduce, "interp"), then W_R (K_grid u), local
+    (``_maybe_shard_blocks``' layout: one psum for W^T v, W g local)."""
+
+    def __init__(self, base: LinearOperator, indices: torch.Tensor, values: torch.Tensor, sizes: tuple,
+                 group: _comm.Group):
+        self.base = base
+        self.indices = indices
+        self.values = values
+        self.sizes = tuple(sizes)
+        self.group = group
+
+    def _shape(self) -> tuple[int, ...]:
+        batch = torch.broadcast_shapes(tuple(self.base.batch_shape), tuple(self.indices.shape[:-2]))
+        return (*batch, self.indices.shape[-2], sum(self.sizes))
+
+    @property
+    def grid_size(self) -> int:
+        return self.base.shape[-1]
+
+    def _interp_sum(self, rhs: torch.Tensor) -> torch.Tensor:
+        """W^T v = sum over the group of W_R^T v_R, (*b, M, t)."""
+        return _comm.all_reduce(left_t_interp(self.indices, self.values, rhs, self.grid_size), self.group,
+                                name="interp")
+
+    def _matmul(self, rhs: torch.Tensor) -> torch.Tensor:
+        return left_interp(self.indices, self.values, self.base._matmul(self._interp_sum(rhs)))
+
+    def _matmul_closure(self):
+        mm = self.base._matmul_closure()
+        return lambda rhs: left_interp(self.indices, self.values, mm(self._interp_sum(rhs)))
+
+    def _bilinear_derivative(self, left_vecs, right_vecs) -> tuple:
+        """This rank's share: the grid operator's backward on (W_R^T left_R,
+        W^T right), the right side summed over the group.  The stencils get
+        None (a gradient in the weights is not ported)."""
+        if self.values.requires_grad:
+            raise _queued("a gradient in the interpolation weights")
+        u = self._interp_sum(right_vecs)
+        a = left_t_interp(self.indices, self.values, left_vecs, self.grid_size)
+        return (*self.base._bilinear_derivative(a, u), None, None)
+
+    def owned(self) -> tuple:
+        return (self.indices, self.values)
+
+    def row_diagonal(self) -> torch.Tensor:
+        """K's diagonal on the rank's rows, (*b, |R|)."""
+        return InterpolatedLinearOperator(self.base, self.indices, self.values, self.indices, self.values)._diagonal()
+
+    def _stencils(self, index: torch.Tensor, name: str) -> tuple:
+        """The stencils (indices, values) of the global rows ``index``
+        ((*b, j) or (j,)), (*b, j, k) each, from their owners in one
+        collective."""
+        k = self.indices.shape[-1]
+        offset = sum(self.sizes[: self.group.index])
+        table = torch.cat([self.indices.to(self.values.dtype), self.values], dim=-1)
+        got = _comm.owner_rows(table, index, self.group, offset, name=name)
+        return got[..., :k].round().to(self.indices.dtype), got[..., k:]
+
+    def pivot_column(self, pivot: torch.Tensor) -> torch.Tensor:
+        """K's column ``pivot`` (global, (*b,)) on the rank's rows: W_R
+        K_grid w_p^T, the pivot's stencil w_p from its owner."""
+        idx, val = self._stencils(pivot[..., None], "owner_row")  # (*b, 1, k)
+        ones = torch.ones((*idx.shape[:-1], 1), dtype=val.dtype, device=val.device)
+        grid = left_t_interp(idx, val, ones, self.grid_size)  # (*b, M, 1)
+        return left_interp(self.indices, self.values, self.base._matmul(grid))[..., 0]
+
+    def landmarks(self, idx: torch.Tensor) -> tuple:
+        """(K[R, idx], K[idx, idx]) for global landmark indices ``idx``: the
+        landmarks' stencils fetched from their owners once ("landmarks"),
+        then W_R K_grid W_idx^T and W_idx K_grid W_idx^T from one product of
+        the grid operator."""
+        li, lv = self._stencils(idx, "landmarks")  # (*b, k, s)
+        eye = torch.eye(len(idx), dtype=self.dtype, device=self.device)
+        kw = self.base._matmul(left_t_interp(li, lv, eye, self.grid_size))  # (*b, M, k)
+        return left_interp(self.indices, self.values, kw), left_interp(li, lv, kw)
+
+    def block(self) -> torch.Tensor:
+        """The dense (*b, |R|, n) rows W_R K_grid W^T, every rank's stencils
+        gathered once (the Cholesky route's n is small)."""
+        whole_idx = _comm.all_gather_rows(self.indices.to(torch.float64), self.group, self.sizes)
+        whole_val = _comm.all_gather_rows(self.values, self.group, self.sizes)
+        w = InterpolationMatrix(whole_idx.round().to(self.indices.dtype), whole_val, self.grid_size)
+        return left_interp(self.indices, self.values, self.base._matmul(_interp_to_dense(w).mT))
+
+
 class RowShardedLinearOperator(LinearOperator):
-    """Rows R of K + D over a model group: ``rows`` is the (*b, |R|, n)
-    block k(x_R, x) (a rectangular ``KernelLinearOperator``), ``diag`` a
-    DiagLinearOperator of the whole n (``add_diagonal``) or None, ``sizes``
-    the row counts of the group's ranks, ``row_group`` the model group
-    (``_comm.Group``), ``mesh`` the mesh it was built on and
-    ``precond_factor`` the rank's rows of a preconditioner factor
+    """Rows R of K + D over a model group: ``rows`` the rank's rows of K
+    (a :class:`KernelRows` or an :class:`InterpolatedRows`, whose products
+    take and return the rank's rows), ``diag`` a DiagLinearOperator of the
+    whole n (``add_diagonal``) or None, ``mesh`` the mesh it was built on
+    and ``precond_factor`` the rank's rows of a preconditioner factor
     (``with_preconditioner``) or None.  D is a constant diagonal (the
     noise), whose mat-vec takes any rows."""
 
-    def __init__(self, rows: LinearOperator, diag, sizes: tuple, row_group: _comm.Group, mesh=None,
-                 precond_factor: torch.Tensor | None = None):
+    def __init__(self, rows: LinearOperator, diag, mesh=None, precond_factor: torch.Tensor | None = None):
         self.rows = rows
         self.diag = diag
-        self.sizes = tuple(sizes)
-        self.row_group = row_group
         self.mesh = mesh
         self.precond_factor = precond_factor
+
+    @property
+    def sizes(self) -> tuple:
+        """The row counts of the model group's ranks."""
+        return self.rows.sizes
+
+    @property
+    def row_group(self) -> _comm.Group:
+        """The model group (``_comm.Group``)."""
+        return self.rows.group
 
     @property
     def offset(self) -> int:
@@ -92,25 +275,31 @@ class RowShardedLinearOperator(LinearOperator):
         """D's entries on the rank's rows, (*b, |R|)."""
         return self.diag._diagonal()[..., self.row_slice()]
 
+    def own_leaves(self) -> list:
+        """For each of ``_leaves()``, whether it is the rank's own rows
+        (x_R, W_R's stencils), whose gradient is never summed over the
+        model group; the rest are replicated, their gradients shares."""
+        owned = self.rows.owned()
+        return [any(t is o for o in owned) for t in self._leaves()]
+
     def _matmul(self, rhs: torch.Tensor) -> torch.Tensor:
-        out = self.rows._matmul(self._gather(rhs))
+        out = self.rows._matmul(rhs)
         return out if self.diag is None else out + self.diag._matmul(rhs)
 
     def _matmul_closure(self):
         rows = self.rows._matmul_closure()
 
         def mm(rhs: torch.Tensor) -> torch.Tensor:
-            out = rows(self._gather(rhs))
+            out = rows(rhs)
             return out if self.diag is None else out + self.diag._matmul(rhs)
 
         return mm
 
     def _bilinear_derivative(self, left_vecs, right_vecs) -> tuple:
-        """This rank's share: the rows' backward on the gathered right
-        vectors (K1 and two K2 launches on the card), and D's on the rows
-        R.  The preconditioner factor, built on the detached operator, gets
-        None."""
-        grads = list(self.rows._bilinear_derivative(left_vecs, self._gather(right_vecs)))
+        """This rank's share: the rows' backward on the rank's rows of both
+        vectors, and D's on the rows R.  The preconditioner factor, built on
+        the detached operator, gets None."""
+        grads = list(self.rows._bilinear_derivative(left_vecs, right_vecs))
         if self.diag is not None:
             grads.extend(self.diag._bilinear_derivative(left_vecs, right_vecs))
         if self.precond_factor is not None:
@@ -134,18 +323,13 @@ class RowShardedLinearOperator(LinearOperator):
         mode = settings.preconditioner_mode.value()
         if mode in ("auto", "nystrom"):
             rank = auto_preconditioner_rank(self.shape[-1], k) if mode == "auto" else k
-            return nystrom_factor(self.rows, rank=rank, whole=self._square())
+            return nystrom_factor(self.rows, rank=rank, landmarks=self.rows.landmarks)
         block = settings.pivoted_cholesky_block_size.value()
         if block and block > 1 and k > block:
             raise _queued("the blocked pivoted Cholesky sweep (settings.pivoted_cholesky_block_size)")
-        diag = self.rows._replace(x2=self.rows.x1)._diagonal()  # K's diagonal on the rows R
-        L, _ = pivoted_cholesky_with_pivots(self.rows, k, diag=diag, group=self.row_group, offset=self.offset)
+        L, _ = pivoted_cholesky_with_pivots(self.rows, k, diag=self.rows.row_diagonal(), group=self.row_group,
+                                            offset=self.offset, column=self.rows.pivot_column)
         return L
-
-    def _square(self) -> LinearOperator:
-        """The whole k(x, x) on every rank, lazily: the Nystrom landmark
-        block K[idx, idx] is taken from it, with no collective."""
-        return self.rows._replace(x1=self.rows.x2, symmetric=True)
 
     def with_preconditioner(self, factor: torch.Tensor | None = None) -> "RowShardedLinearOperator":
         """The same operator carrying the rank's rows of the preconditioner
@@ -197,10 +381,13 @@ class RowShardedLinearOperator(LinearOperator):
         Cholesky route takes it, at n <= ``max_cholesky_size``, where the
         unsharded operator forms the same matrix: it is that route's own
         n x n, not a fallback.  Differentiable: each rank's rows carry its
-        share of the parameters' gradients, which ``_comm.sum_grads`` sums
-        over the model group, so every rank holds the whole gradient."""
-        op = self._with_leaves(_comm.sum_grads(tuple(self._leaves()), self.row_group))
-        block = op.rows.to_dense()
+        share of the replicated tensors' gradients, which
+        ``_comm.sum_grads`` sums over the model group, so every rank holds
+        the whole gradient; the rank's own rows keep their own."""
+        leaves, own = list(self._leaves()), self.own_leaves()
+        shared = iter(_comm.sum_grads(tuple(t for t, o in zip(leaves, own) if not o), self.row_group))
+        op = self._with_leaves([t if o else next(shared) for t, o in zip(leaves, own)])
+        block = op.rows.block()
         if op.diag is not None:
             eye = torch.eye(block.shape[-1], dtype=block.dtype, device=block.device)[self.row_slice()]
             block = block + op._diag_rows()[..., None] * eye
@@ -243,21 +430,33 @@ for _name in (
     setattr(RowShardedLinearOperator, _name, _queued_method(_name))
 
 
+def _row_sizes(rows: int, mesh, device) -> tuple:
+    """The row counts of the rank's model group, exchanged in one sum (they
+    may be uneven)."""
+    counts = torch.zeros(mesh.size("model"), dtype=torch.float64, device=device)
+    counts[mesh.index("model")] = rows
+    return tuple(int(c) for c in _comm.all_reduce(counts, mesh.group("model")).tolist())
+
+
 def row_sharded_kernel_operator(x, params: dict, mesh, **kernel_kwargs) -> RowShardedLinearOperator:
     """The rank's rows of the kernel operator k(x, x) on ``mesh``'s model
     axis, from the rank's rows ``x`` (*b, |R|, d): x is gathered over the
-    model group (the row counts exchanged first, so that they may be
-    uneven), and the rows are a rectangular ``KernelLinearOperator`` on
-    (x_R, x) with ``kernel_kwargs``.  x may not require a gradient: its
-    columns' share would have to come back to their ranks (not ported)."""
+    model group, differentiably (``_comm.gather_rows``: x may require a
+    gradient), and the rows are a rectangular ``KernelLinearOperator`` on
+    (x_R, x) with ``kernel_kwargs``."""
     from ..operators.kernel import KernelLinearOperator
 
-    if x.requires_grad:
-        raise _queued("a gradient in x")
     group = mesh.group("model")
-    counts = torch.zeros(mesh.size("model"), dtype=torch.float64, device=x.device)
-    counts[mesh.index("model")] = x.shape[-2]
-    sizes = tuple(int(c) for c in _comm.all_reduce(counts, group).tolist())
-    x_all = _comm.all_gather_rows(x, group, sizes)
+    sizes = _row_sizes(x.shape[-2], mesh, x.device)
+    x_all = _comm.gather_rows(x, group, sizes)
     rows = KernelLinearOperator(x, x_all, params, symmetric=False, **kernel_kwargs)
-    return RowShardedLinearOperator(rows, None, sizes, group, mesh)
+    return RowShardedLinearOperator(KernelRows(rows, sizes, group), None, mesh)
+
+
+def row_sharded_interpolated_operator(base: LinearOperator, indices: torch.Tensor, values: torch.Tensor,
+                                      mesh) -> RowShardedLinearOperator:
+    """The rank's rows of W K_grid W^T on ``mesh``'s model axis (SKI), from
+    the grid operator ``base`` (replicated) and the flat stencils of the
+    rank's own points, ``indices`` and ``values`` (*b, |R|, k)."""
+    sizes = _row_sizes(indices.shape[-2], mesh, values.device)
+    return RowShardedLinearOperator(InterpolatedRows(base, indices, values, sizes, mesh.group("model")), None, mesh)

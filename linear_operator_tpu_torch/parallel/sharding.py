@@ -272,7 +272,14 @@ def maybe_shard_probes(arr: torch.Tensor) -> torch.Tensor:
 def shard_gp_batch(mesh: Mesh, x: torch.Tensor, y: torch.Tensor):
     """This rank's block of a batch of GP data sets, x (B, n, d) and y
     (B, n): the batch over ``data`` (B a multiple of it), the rows over
-    ``model`` (uneven where n is not a multiple), on the mesh's device."""
+    ``model`` (uneven where n is not a multiple), on the mesh's device.  One
+    data set, x (n, d) and y (n,) (SKI's), splits its rows only, on a mesh
+    whose data axis is 1."""
+    if x.ndim == 2 and y.shape == x.shape[:1]:
+        if mesh.size("data") > 1:
+            raise ValueError(f"one data set does not split over data={mesh.size('data')}")
+        xs, ys = shard_gp_batch(mesh, x[None], y[None])
+        return xs[0], ys[0]
     if x.ndim != 3 or y.shape != x.shape[:2]:
         raise ValueError(f"shard_gp_batch takes x (B, n, d) and y (B, n), got {tuple(x.shape)} and {tuple(y.shape)}")
     if x.shape[0] % mesh.size("data"):
@@ -283,31 +290,52 @@ def shard_gp_batch(mesh: Mesh, x: torch.Tensor, y: torch.Tensor):
 
 
 def sharded_train_step(model, optimizer, mesh: Mesh):
-    """The sharded training step of ExactGPRegression: ``step(x, y,
-    generator)`` on this rank's block of the data (``shard_gp_batch``) zeroes
-    the gradients, computes the sharded ``neg_mll`` under the mesh and calls
-    ``backward`` (the operator's gradients reduced over ``model`` and
-    ``probe`` inside), sums the ranks' gradient shares over ``data`` (one
-    collective), calls ``optimizer.step()`` and returns the loss, the same
-    on every rank.  The parameters are broadcast from the mesh's first rank
-    when the step is built, so that every rank starts from the same ones."""
+    """The sharded training step of ``ExactGPRegression`` and
+    ``DeepKernelGPRegression`` (and of any model whose ``neg_mll`` takes the
+    rank's block): ``step(x, y, generator)`` on this rank's block of the
+    data (``shard_gp_batch``) zeroes the gradients, computes the sharded
+    ``neg_mll`` under the mesh and calls ``backward``, reduces the
+    gradients, calls ``optimizer.step()`` and returns the loss, the same on
+    every rank.
+
+    The GP's hyperparameters leave the backward whole over ``model`` and
+    ``probe`` (the operator's shares are reduced inside it), their batch's
+    share over ``data``.  A model's ``row_share_parameters()`` (DKL's MLP)
+    act on the rank's rows only: their gradient is the rank's share over
+    ``model`` too.  One collective sums each parameter over the axes it is
+    a share on: over ``data`` only where every parameter is whole on the
+    model group, else over the whole mesh with each gradient counted on one
+    rank of the axes it is whole on.  The parameters are broadcast from the
+    mesh's first rank when the step is built, so that every rank starts
+    from the same ones."""
     params = list(model.parameters())
     everyone = mesh.group(*mesh.axis_names)
     with torch.no_grad():
         for p in params:
             _comm.broadcast(p.data, 0, everyone)  # the mesh's ranks are 0, 1, ...
-    data = mesh.group("data")
+    shares = set()
+    if mesh.size("model") > 1 and hasattr(model, "row_share_parameters"):
+        shares = {id(p) for p in model.row_share_parameters()}
+    if shares:
+        # a row share counts once over probe, a whole parameter once over
+        # model and probe; the sum over the mesh adds the rest
+        first_probe = mesh.index("probe") == 0
+        counted = {id(p): first_probe and (id(p) in shares or mesh.index("model") == 0) for p in params}
+        group = everyone
+    else:
+        counted, group = {id(p): True for p in params}, mesh.group("data")
 
     def step(x, y, generator: torch.Generator | None = None) -> torch.Tensor:
         optimizer.zero_grad()
         with mesh:
             loss = model.neg_mll(x, y, generator=generator)
         loss.backward()
-        grads = [p.grad for p in params if p.grad is not None]
-        if data is not None and grads:
-            total = _comm.all_reduce(torch.cat([g.reshape(-1) for g in grads]), data)
-            for g, part in zip(grads, torch.split(total, [g.numel() for g in grads])):
-                g.copy_(part.view_as(g))
+        have = [p for p in params if p.grad is not None]
+        if group is not None and have:
+            parts = [p.grad if counted[id(p)] else torch.zeros_like(p.grad) for p in have]
+            total = _comm.all_reduce(torch.cat([g.reshape(-1) for g in parts]), group)
+            for p, part in zip(have, torch.split(total, [p.grad.numel() for p in have])):
+                p.grad.copy_(part.view_as(p.grad))
         optimizer.step()
         return loss.detach()
 
@@ -371,6 +399,8 @@ class SolveLayout:
         self.batch = batch
         self.n = op.shape[-1]
         self.rows = op.row_group if self.row_sharded else None
+        # which of the operator's tensors are the rank's own rows
+        self.owned = tuple(op.own_leaves()) if self.row_sharded else ()
         self.probes = mesh.group("probe") if probes else None
         # the operator's gradient shares: its rows, its probe columns
         if probes:
@@ -415,15 +445,24 @@ class SolveLayout:
 
     def reduce_grads(self, grads: tuple) -> tuple:
         """The operator's gradient shares summed over its rows (and probe
-        columns), in one collective."""
-        if self.grads is None:
-            return grads
-        have = [g for g in grads if g is not None]
-        if not have:
-            return grads
-        total = _comm.all_reduce(torch.cat([g.reshape(-1) for g in have]), self.grads)
-        parts = iter(torch.split(total, [g.numel() for g in have]))
-        return tuple(None if g is None else next(parts).view_as(g) for g in grads)
+        columns), in one collective.  The rank's own rows (``owned``: x_R,
+        W_R's stencils) are another rank's nowhere: their gradients are
+        summed over the probe columns only (a second collective, where a
+        probe axis splits them), never over the rows."""
+        own = [bool(self.owned) and self.owned[i] for i in range(len(grads))]
+        shared = _sum([None if o else g for g, o in zip(grads, own)], self.grads)
+        mine = _sum([g if o else None for g, o in zip(grads, own)], self.probes)
+        return tuple(m if o else s for s, m, o in zip(shared, mine, own))
+
+
+def _sum(grads: list, group) -> list:
+    """Each gradient (None: none) summed over ``group`` in one collective."""
+    have = [g for g in grads if g is not None]
+    if group is None or not have:
+        return grads
+    total = _comm.all_reduce(torch.cat([g.reshape(-1) for g in have]), group)
+    parts = iter(torch.split(total, [g.numel() for g in have]))
+    return [None if g is None else next(parts).view_as(g) for g in grads]
 
 
 def solve_layout(op) -> SolveLayout | None:

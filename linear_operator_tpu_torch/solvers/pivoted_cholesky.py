@@ -64,7 +64,7 @@ def _forward_only(op, build):
 
 
 def pivoted_cholesky_with_pivots(op, rank: int, error_tol: float | None = None, *, diag=None, group=None,
-                                 offset: int = 0):
+                                 offset: int = 0, column=None):
     """(L (*b, n, rank), pivots (*b, rank)); pivot -1 marks a step taken
     after the element converged.
 
@@ -74,7 +74,9 @@ def pivoted_cholesky_with_pivots(op, rank: int, error_tol: float | None = None, 
     factor.  Each step takes the residual diagonal's global argmax (ties to
     the lowest global index, as ``torch.argmax`` on the whole diagonal),
     with the residual trace, in one collective, and the pivot's row of L
-    from its owner in another."""
+    from its owner in another.  ``column(pivot)``, where given, returns the
+    pivot's column of K on the rows (*b, |R|) in place of ``op``'s
+    ``_get_indices``."""
     from ..parallel import _comm
 
     if error_tol is None:
@@ -110,7 +112,10 @@ def pivoted_cholesky_with_pivots(op, rank: int, error_tol: float | None = None, 
             tol_total = error_tol * sums[..., 1]  # (*b,)
         active = (sums[..., 0] > tol_total) & (dp > 1e-12)
 
-        col = op._get_indices(row, pivot[..., None].expand(*batch, n), *batch_idx).to(dtype)
+        if column is None:
+            col = op._get_indices(row, pivot[..., None].expand(*batch, n), *batch_idx).to(dtype)
+        else:
+            col = column(pivot).to(dtype)
         if rows:
             L = torch.stack(rows, dim=-2)  # (*b, i, |R|)
             Lp = _comm.owner_row(L.mT, pivot, group, offset)  # (*b, i)

@@ -34,7 +34,7 @@ from linear_operator_tpu.solvers.minres import minres as j_minres
 from linear_operator_tpu_torch.solvers.minres import minres as t_minres
 from test_torch_gp_slice import _Both, _close, _gp_data, _models, _np
 from test_torch_roots import same_draws  # noqa: F401  (a fixture)
-from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
+from test_torch_harness_common import _jit, one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # the modules (each package's ``solvers.contour_integral_quad`` is the function)
 jciq = importlib.import_module("linear_operator_tpu.solvers.contour_integral_quad")
@@ -89,11 +89,11 @@ def counts():
 @pytest.mark.parametrize("dtype, rtol", [(np.float64, 1e-12), (np.float32, 1e-6)])
 def test_elliptic_functions_match_jax(dtype, rtol):
     m = np.linspace(1e-4, 1 - 1e-4, 9).astype(dtype)
-    _close(tciq.ellipk_agm(torch.from_numpy(m)), jciq.ellipk_agm(jnp.asarray(m)), rtol)
+    _close(tciq.ellipk_agm(torch.from_numpy(m)), _jit(jciq.ellipk_agm)(jnp.asarray(m)), rtol)
     u = np.linspace(0.01, 3.0, 11).astype(dtype)
     for mm in (m[1], m[4], m[-1]):
         got = tciq.ellipj(torch.from_numpy(u), torch.tensor(mm))
-        want = jciq.ellipj(jnp.asarray(u), jnp.asarray(mm))
+        want = _jit(jciq.ellipj)(jnp.asarray(u), jnp.asarray(mm))
         for g, w in zip(got, want):
             assert g.dtype == torch.from_numpy(m).dtype
             _close(g, w, rtol)
@@ -104,7 +104,7 @@ def test_elliptic_functions_match_jax(dtype, rtol):
 def test_ciq_shifts_weights_match_jax(dtype, rtol, lo, hi, q):
     lo, hi = np.asarray(lo, dtype), np.asarray(hi, dtype)
     got = tciq.ciq_shifts_weights(torch.from_numpy(lo), torch.from_numpy(hi), q)
-    want = jciq.ciq_shifts_weights(jnp.asarray(lo), jnp.asarray(hi), q)
+    want = _jit(lambda a, b: jciq.ciq_shifts_weights(a, b, q))(jnp.asarray(lo), jnp.asarray(hi))
     for g, w in zip(got, want):
         assert g.shape == (q,) and g.dtype == torch.from_numpy(lo).dtype
         _close(g, w, rtol)
@@ -139,11 +139,11 @@ def test_minres_matches_jax(counts, shifted, precond, batch):
     kw = dict(tolerance=1e-7, max_iter=300)
 
     def j_run(**extra):
-        return j_minres(
-            lambda v: jnp.asarray(A) @ v, jnp.asarray(rhs),
+        return _jit(lambda b: j_minres(
+            lambda v: jnp.asarray(A) @ v, b,
             shifts=None if shifts is None else jnp.asarray(shifts),
             preconditioner=(lambda v: jnp.asarray(dinv)[..., None] * v) if precond else None, **{**kw, **extra},
-        )
+        ))(jnp.asarray(rhs))
 
     got = t_minres(
         lambda v: torch.from_numpy(A) @ v, torch.from_numpy(rhs),
@@ -173,7 +173,7 @@ def test_minres_vector_rhs_and_zero_column():
     rhs = np.random.default_rng(3).normal(size=(n, 2))
     rhs[:, 1] = 0.0
     got = t_minres(lambda v: torch.from_numpy(A) @ v, torch.from_numpy(rhs), tolerance=1e-10)
-    want = j_minres(lambda v: jnp.asarray(A) @ v, jnp.asarray(rhs), tolerance=1e-10)
+    want = _jit(lambda b: j_minres(lambda v: jnp.asarray(A) @ v, b, tolerance=1e-10))(jnp.asarray(rhs))
     _close(got, want, 1e-8)
     assert float(got[:, 1].abs().max()) == 0.0
     vec = t_minres(lambda v: torch.from_numpy(A) @ v, torch.from_numpy(rhs[:, 0]), tolerance=1e-10)
@@ -194,7 +194,7 @@ def test_contour_integral_quad_matches_jax(same_draws, inverse, precond):
     dinv = 1.0 / np.diagonal(A)
     init = same_draws((n,))  # the JAX range estimate draws this shape
     with _Both(minres_tolerance=1e-8, max_cg_iterations=400):
-        js, jw = jax.jit(lambda r: jciq.contour_integral_quad(
+        js, jw = _jit(lambda r: jciq.contour_integral_quad(
             lambda v: jnp.asarray(A) @ v, r, num_quad=10, inverse=inverse,
             preconditioner=(lambda v: jnp.asarray(dinv)[:, None] * v) if precond else None,
         ))(jnp.asarray(rhs))
@@ -240,7 +240,7 @@ def test_ciq_values_and_grads_match_jax(same_draws, counts, fused, dtype, rtol, 
     z, w, z2 = (rng.normal(size=(n, t)).astype(dtype) for t in (3, 3, 4))
     same_draws((n,))  # the Lanczos start
 
-    @jax.jit
+    @_jit
     def j_all(p, z):
         def inv(p, z):
             return jlo.sqrt_inv_matmul(jmodel.train_operator(p, jnp.asarray(x)), z, key=jax.random.PRNGKey(0))
@@ -302,7 +302,7 @@ def test_sqrt_inv_matmul_with_lhs_matches_jax(same_draws):
     rng = np.random.default_rng(22)
     z, lhs = rng.normal(size=(n, 2)), rng.normal(size=(4, n))
     same_draws((n,))
-    @jax.jit
+    @_jit
     def j_both(p):
         K = jmodel.train_operator(p, jnp.asarray(x))
         return jlo.sqrt_inv_matmul(K, jnp.asarray(z), jnp.asarray(lhs)), jlo.sqrt_inv_matmul(K, jnp.asarray(z[:, 0]))
@@ -347,7 +347,7 @@ def test_backward_reads_the_forwards_settings(same_draws):
 def test_zero_mean_mvn_samples_on_a_kernel_operator(same_draws, ciq, fused, dtype, rtol):
     x, jmodel, params, tmodel = _train_ops(fused, dtype, n=200, seed=26)
     with _Both(ciq_samples=ciq, **_setting(True)):
-        want = jax.jit(
+        want = _jit(
             lambda p: jmodel.train_operator(p, jnp.asarray(x)).zero_mean_mvn_samples(6, key=jax.random.PRNGKey(0))
         )(params)
         got = tmodel.train_operator(torch.from_numpy(x)).zero_mean_mvn_samples(6, generator=torch.Generator())

@@ -21,7 +21,7 @@ import linear_operator_tpu as jlo
 import linear_operator_tpu_torch as tlo
 from test_torch_gp_slice import _Both, _close, _gp_data, _models, _np
 from test_torch_roots import same_draws  # noqa: F401  (a fixture)
-from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
+from test_torch_harness_common import _jit, one_torch_thread  # noqa: F401 (an autouse fixture)
 
 RTOL = 1e-10
 
@@ -44,18 +44,22 @@ def _pair(seed, n, batch=()):
 def test_moments_and_log_prob_match_jax(batch):
     j, t = _pair(0, 40, batch)
     assert t.event_shape == j.event_shape and t.batch_shape == tuple(j.batch_shape)
-    for name in ("covariance_matrix", "variance", "stddev", "loc"):
-        _close(getattr(t, name), getattr(j, name), RTOL)
-    for got, want in zip(t.confidence_region(), j.confidence_region()):
-        _close(got, want, RTOL)
     rng = np.random.default_rng(1)
-    for sample_shape in ((), (3,), (2, 3)):
-        value = rng.normal(size=(*sample_shape, *batch, 40))
+    values = [rng.normal(size=(*sample_shape, *batch, 40)) for sample_shape in ((), (3,), (2, 3))]
+    names = ("covariance_matrix", "variance", "stddev", "loc")
+    # the JAX side in one jitted call
+    moments, region, log_probs, entropy = _jit(lambda *vs: (
+        [getattr(j, name) for name in names], j.confidence_region(), [j.log_prob(v) for v in vs], j.entropy(),
+    ))(*map(jnp.asarray, values))
+    for name, want in zip(names, moments):
+        _close(getattr(t, name), want, RTOL)
+    for got, want in zip(t.confidence_region(), region):
+        _close(got, want, RTOL)
+    for sample_shape, value, want in zip(((), (3,), (2, 3)), values, log_probs):
         got = t.log_prob(torch.from_numpy(value))
-        want = j.log_prob(jnp.asarray(value))
         assert got.shape == want.shape == (*sample_shape, *batch)
         _close(got, want, RTOL)
-    _close(t.entropy(), j.entropy(), RTOL)
+    _close(t.entropy(), entropy, RTOL)
     # a plain tensor covariance is wrapped
     dense = tlo.MultivariateNormal(t.mean, t.covariance_matrix)
     _close(dense.log_prob(torch.from_numpy(value)), want, RTOL)
@@ -66,7 +70,7 @@ def test_log_prob_on_the_stochastic_path(same_draws):
     j, t = _pair(2, 60)
     value = np.random.default_rng(3).normal(size=(2, 60))
     with _Both(max_cholesky_size=0, num_trace_samples=8, cg_tolerance=1e-10, max_cg_iterations=200):
-        want = j.log_prob(jnp.asarray(value), key=jax.random.PRNGKey(0))
+        want = _jit(lambda v: j.log_prob(v, key=jax.random.PRNGKey(0)))(jnp.asarray(value))
         got = t.log_prob(torch.from_numpy(value), generator=torch.Generator())
     _close(got, want, 1e-8)
 
@@ -93,7 +97,7 @@ def test_rsample_is_reparameterized():
 
 def test_kl_divergence_dense_root_matches_jax():
     (j1, t1), (j2, t2) = _pair(6, 50, (2,)), _pair(7, 50)
-    want = j1.kl_divergence(j2)
+    want = _jit(lambda: j1.kl_divergence(j2))()
     got = t1.kl_divergence(t2)
     assert got.shape == (2,)
     _close(got, want, RTOL)
@@ -114,7 +118,7 @@ def test_kl_divergence_lazy_trace_term_matches_jax():
     j2 = jlo.MultivariateNormal(jnp.asarray(mean2), jlo.operators.DenseLinearOperator(jnp.asarray(cov2)))
     t2 = tlo.MultivariateNormal(torch.from_numpy(mean2), tlo.DenseLinearOperator(torch.from_numpy(cov2)))
     assert type(t1.lazy_covariance_matrix.root_decomposition().root) is tlo.DiagLinearOperator
-    got, want = t1.kl_divergence(t2), j1.kl_divergence(j2)
+    got, want = t1.kl_divergence(t2), _jit(lambda: j1.kl_divergence(j2))()
     _close(got, want, RTOL)
     exact = 0.5 * (np.trace(np.linalg.solve(cov2, np.diag(d))) + mean2 @ np.linalg.solve(cov2, mean2) - n
                    + np.linalg.slogdet(cov2)[1] - np.sum(np.log(d)))
@@ -123,12 +127,15 @@ def test_kl_divergence_lazy_trace_term_matches_jax():
 
 def test_expand_and_add_jitter_match_jax():
     j, t = _pair(10, 25)
-    je, te = j.expand((3,)), t.expand((3,))
+    te = t.expand((3,))
     assert te.batch_shape == (3,) and te.mean.shape == (3, 25)
-    _close(te.covariance_matrix, je.covariance_matrix, RTOL)
     value = np.random.default_rng(11).normal(size=(3, 25))
-    _close(te.log_prob(torch.from_numpy(value)), je.log_prob(jnp.asarray(value)), RTOL)
-    _close(t.add_jitter(0.1).covariance_matrix, j.add_jitter(0.1).covariance_matrix, RTOL)
+    cov, log_prob, jittered = _jit(lambda v: (
+        j.expand((3,)).covariance_matrix, j.expand((3,)).log_prob(v), j.add_jitter(0.1).covariance_matrix,
+    ))(jnp.asarray(value))
+    _close(te.covariance_matrix, cov, RTOL)
+    _close(te.log_prob(torch.from_numpy(value)), log_prob, RTOL)
+    _close(t.add_jitter(0.1).covariance_matrix, jittered, RTOL)
 
 
 # ---------------------------------------------------------------------------
@@ -153,18 +160,20 @@ def test_posterior_distribution_from_the_jax_cache(same_draws, monkeypatch):
     by ``load_jax_cache``) equals the JAX one entry for entry."""
     jmodel, params, tmodel, args_j, args_t = _posterior_pair(same_draws)
     with _Both(**LOVE):
-        jcache = jax.jit(lambda p: jmodel.posterior_cache(p, *args_j[:2], key=jax.random.PRNGKey(0)))(params)
+        jcache = _jit(lambda p: jmodel.posterior_cache(p, *args_j[:2], key=jax.random.PRNGKey(0)))(params)
         monkeypatch.setattr(jmodel, "posterior_cache", lambda *a, **k: jcache)
-        want = jmodel.posterior_distribution(params, *args_j, key=jax.random.PRNGKey(0))
+        want, want_cov, want_var = _jit(lambda p: (
+            lambda d: (d, d.covariance_matrix, d.variance))(
+            jmodel.posterior_distribution(p, *args_j, key=jax.random.PRNGKey(0))))(params)
     cache = tlo.load_jax_cache(tmodel, jax.tree_util.tree_map(np.asarray, jcache))
     monkeypatch.setattr(tmodel, "posterior_cache", lambda *a, **k: cache)
     got = tmodel.posterior_distribution(*args_t)
     assert isinstance(got, tlo.MultivariateNormal)
     _close(got.mean, want.mean, RTOL)
-    _close(got.covariance_matrix, want.covariance_matrix, RTOL)
-    _close(got.variance, want.variance, RTOL)
+    _close(got.covariance_matrix, want_cov, RTOL)
+    _close(got.variance, want_var, RTOL)
     value = np.random.default_rng(41).normal(size=(4, 20))
-    _close(got.log_prob(torch.from_numpy(value)), jax.jit(want.log_prob)(jnp.asarray(value)), RTOL)
+    _close(got.log_prob(torch.from_numpy(value)), _jit(want.log_prob)(jnp.asarray(value)), RTOL)
     _close(got.rsample((6,), generator=torch.Generator()), want.rsample(jax.random.PRNGKey(1), (6,)), 1e-8)
 
 
@@ -172,14 +181,20 @@ def test_posterior_distribution_matches_jax(same_draws):
     """End to end, each package building its own LOVE cache from one start
     vector; the downdate root's columns enter only through V V^T."""
     jmodel, params, tmodel, args_j, args_t = _posterior_pair(same_draws, seed=42)
+    noise = 0.1 * np.random.default_rng(43).normal(size=(3, 20))
+
+    def jall(p):
+        want = jmodel.posterior_distribution(p, *args_j, key=jax.random.PRNGKey(0))
+        value = want.mean + jnp.asarray(noise)
+        return want, want.covariance_matrix, value, want.log_prob(value)
+
     with _Both(**LOVE):
-        want = jmodel.posterior_distribution(params, *args_j, key=jax.random.PRNGKey(0))
+        want, want_cov, value, log_prob = _jit(jall)(params)
         got = tmodel.posterior_distribution(*args_t, generator=torch.Generator())
     _close(got.mean, want.mean, 1e-7)
-    _close(got.covariance_matrix, want.covariance_matrix, 1e-7)
+    _close(got.covariance_matrix, want_cov, 1e-7)
     # a draw's log density, and the draw itself (m = 20: the Cholesky root)
-    value = _np(want.mean) + 0.1 * np.random.default_rng(43).normal(size=(3, 20))
-    _close(got.log_prob(torch.from_numpy(value)), want.log_prob(jnp.asarray(value)), 1e-7)
+    _close(got.log_prob(torch.from_numpy(_np(value))), log_prob, 1e-7)
     _close(got.rsample((4,), generator=torch.Generator()), want.rsample(jax.random.PRNGKey(1), (4,)), 1e-7)
     # the covariance is the prior's less the downdate, with the jitter
     cov = got.lazy_covariance_matrix

@@ -110,10 +110,11 @@ def test_posterior_and_the_love_cache_match_jax(same_draws):
     for got, want in ((mean, jmean), (var, jvar), (tcache_mean, cache_mean), (tcache_var, cache_var)):
         _close(got, want, CG64)
     # the cache carried across from the JAX package gives the same predictions
-    jcache = jmodel.posterior_cache(params, jx, jy, key=jax.random.PRNGKey(0))
+    jcache, (carried_mean, _) = _jit(lambda p: (lambda c: (c, jmodel.posterior_from_cache(p, jx, c, jxs)))(
+        jmodel.posterior_cache(p, jx, jy, key=jax.random.PRNGKey(0))))(params)
     with torch.no_grad():
         carried = tmodel.posterior_from_cache(tx, tlo.load_jax_cache(tmodel.gp, jcache), txs)
-    _close(carried[0], jmodel.posterior_from_cache(params, jx, jcache, jxs)[0], 1e-10)
+    _close(carried[0], carried_mean, 1e-10)
 
 
 def test_float32_fused_matches_jax(same_draws):

@@ -25,7 +25,7 @@ from test_torch_gp_slice import (  # noqa: F401  (same_probes is a fixture)
     _port_grads,
     same_probes,
 )
-from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
+from test_torch_harness_common import _jit, one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 
@@ -51,7 +51,7 @@ def test_batched_neg_mll_and_grads_match_jax(same_probes, layout, fused, dtype, 
     x, y, _ = _batched_data(layout, dtype)
     jmodel, params, tmodel = _models(fused, dtype, block_rows)
     with _Both(**SLICE):
-        want, jg = jax.jit(jax.value_and_grad(
+        want, jg = _jit(jax.value_and_grad(
             lambda p: jmodel.neg_mll(p, jnp.asarray(x), jnp.asarray(y), key=jax.random.PRNGKey(0))
         ))(params)
         loss = tmodel.neg_mll(torch.from_numpy(x), torch.from_numpy(y), generator=torch.Generator())
@@ -72,7 +72,7 @@ def test_batched_posterior_and_grads_match_jax(layout, fused, dtype, block_rows,
         return jnp.sum(mean) + jnp.sum(var), (mean, var)
 
     with _Both(**SLICE):
-        jg, (jmean, jvar) = jax.jit(jax.grad(jloss, has_aux=True))(params)
+        jg, (jmean, jvar) = _jit(jax.grad(jloss, has_aux=True))(params)
         mean, var = tmodel.posterior(*(torch.from_numpy(a) for a in (x, y, x_star)))
         (mean.sum() + var.sum()).backward()
     assert mean.shape == var.shape == (2, 12)

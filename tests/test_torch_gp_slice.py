@@ -48,7 +48,7 @@ from linear_operator_tpu_torch.operators.low_rank_root_added_diag import (
 from linear_operator_tpu_torch.solvers.lanczos import lanczos_tridiag_to_diag as t_tridiag_to_diag
 from linear_operator_tpu_torch.solvers.linear_cg import linear_cg as t_linear_cg
 from linear_operator_tpu_torch.solvers.stochastic_lq import slq_quadrature as t_slq
-from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
+from test_torch_harness_common import _jit, one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _np(a):
@@ -118,10 +118,10 @@ def test_linear_cg_solutions_and_tmats(precond):
     rhs = np.random.default_rng(1).normal(size=(n, 5))
     dinv = 1.0 / np.diag(A)
     kw = dict(tolerance=1e-6, n_tridiag=3, max_iter=60)
-    jres = j_linear_cg(
-        lambda v: jnp.asarray(A) @ v, jnp.asarray(rhs),
+    jres = _jit(lambda b: j_linear_cg(
+        lambda v: jnp.asarray(A) @ v, b,
         preconditioner=(lambda v: jnp.asarray(dinv)[:, None] * v) if precond else None, **kw,
-    )
+    ))(jnp.asarray(rhs))
     At, dt = torch.from_numpy(A), torch.from_numpy(dinv)
     tres = t_linear_cg(
         lambda v: At @ v, torch.from_numpy(rhs),
@@ -140,7 +140,7 @@ def test_linear_cg_identity_pad_and_min_iter():
     A = np.eye(n) * 2.0
     rhs = np.random.default_rng(2).normal(size=(n, 2))
     kw = dict(n_tridiag=1, max_tridiag_iter=15)
-    jres = j_linear_cg(lambda v: jnp.asarray(A) @ v, jnp.asarray(rhs), **kw)
+    jres = _jit(lambda b: j_linear_cg(lambda v: jnp.asarray(A) @ v, b, **kw))(jnp.asarray(rhs))
     tres = t_linear_cg(lambda v: torch.from_numpy(A) @ v, torch.from_numpy(rhs), **kw)
     assert tres.num_iters == int(jres.num_iters) == 15
     _close(tres.t_mats, jres.t_mats, 1e-12)
@@ -168,7 +168,7 @@ def test_nystrom_factor():
     kw = dict(lengthscale=0.8, outputscale=1.2, materialize_threshold=None)
     jop = jkernel.rbf_kernel_operator(jnp.asarray(x), **kw)
     top = tkernel.rbf_kernel_operator(torch.from_numpy(x), use_fused_kernels=False, **kw)
-    _close(t_nystrom(top, 50), j_nystrom(jop, 50), 1e-8)
+    _close(t_nystrom(top, 50), _jit(lambda: j_nystrom(jop, 50))(), 1e-8)
 
 
 def test_woodbury_closure_and_logdet():
@@ -192,7 +192,7 @@ def test_stochastic_forward_on_identical_probes():
     top = tkernel.rbf_kernel_operator(torch.from_numpy(x), use_fused_kernels=False, **kw)
     top = top.add_diagonal(torch.tensor(0.1, dtype=torch.float64))
     with _Both(**SLICE):
-        jiq, jld = jax.jit(j_stochastic_iqld)(
+        jiq, jld = _jit(j_stochastic_iqld)(
             jop, jnp.asarray(y)[:, None], jnp.asarray(probes), jnp.asarray(probes), jnp.asarray(norms)
         )
         targs = [torch.from_numpy(a) for a in (probes, probes, norms)]
@@ -256,7 +256,7 @@ def test_neg_mll_matches_jax(same_probes, fused, dtype, rtol):
     x, y, _ = (a.astype(dtype) for a in _gp_data(9))
     jmodel, params, tmodel = _models(fused, dtype)
     with _Both(**SLICE):
-        want = jax.jit(lambda p: jmodel.neg_mll(p, jnp.asarray(x), jnp.asarray(y), key=jax.random.PRNGKey(0)))(params)
+        want = _jit(lambda p: jmodel.neg_mll(p, jnp.asarray(x), jnp.asarray(y), key=jax.random.PRNGKey(0)))(params)
         got = tmodel.neg_mll(torch.from_numpy(x), torch.from_numpy(y), generator=torch.Generator())
     assert np.isfinite(_np(got)).all()
     np.testing.assert_allclose(_np(got), _np(want), rtol=rtol)
@@ -268,7 +268,7 @@ def test_posterior_matches_jax(same_probes, fused, dtype, rtol):
     x, y, x_star = (a.astype(dtype) for a in _gp_data(10))
     jmodel, params, tmodel = _models(fused, dtype)
     with _Both(**SLICE):
-        jmean, jvar = jax.jit(jmodel.posterior)(params, jnp.asarray(x), jnp.asarray(y), jnp.asarray(x_star))
+        jmean, jvar = _jit(jmodel.posterior)(params, jnp.asarray(x), jnp.asarray(y), jnp.asarray(x_star))
         tmean, tvar = tmodel.posterior(*(torch.from_numpy(a) for a in (x, y, x_star)))
     assert tmean.shape == tvar.shape == (24,)
     _close(tmean, jmean, rtol)
@@ -337,7 +337,7 @@ def test_training_step_grads_match_jax(same_probes, fused, dtype, block_rows, rt
     jmodel, params, tmodel = _models(fused, dtype, block_rows)
     yt = torch.from_numpy(y).requires_grad_()
     with _Both(**SLICE):
-        want, (jg, jgy) = jax.jit(jax.value_and_grad(
+        want, (jg, jgy) = _jit(jax.value_and_grad(
             lambda p, yy: jmodel.neg_mll(p, jnp.asarray(x), yy, key=jax.random.PRNGKey(0)), argnums=(0, 1)
         ))(params, jnp.asarray(y))
         loss = tmodel.neg_mll(torch.from_numpy(x), yt, generator=torch.Generator())
@@ -353,7 +353,7 @@ def test_training_step_grads_cholesky_path():
     x, y, _ = _gp_data(21, n=128)
     jmodel, params, tmodel = _models(False, np.float64)
     with _Both(**{**SLICE, "max_cholesky_size": 1000}):
-        want, jg = jax.jit(jax.value_and_grad(lambda p: jmodel.neg_mll(p, jnp.asarray(x), jnp.asarray(y))))(params)
+        want, jg = _jit(jax.value_and_grad(lambda p: jmodel.neg_mll(p, jnp.asarray(x), jnp.asarray(y))))(params)
         loss = tmodel.neg_mll(torch.from_numpy(x), torch.from_numpy(y))
         loss.backward()
     np.testing.assert_allclose(_np(loss), _np(want), rtol=1e-10)
@@ -391,7 +391,7 @@ def test_posterior_grads_match_jax(fused, dtype, block_rows, rtol):
         return jnp.sum(mean) + jnp.sum(var)
 
     with _Both(**SLICE):
-        jg = jax.jit(jax.grad(jloss))(params)
+        jg = _jit(jax.grad(jloss))(params)
         mean, var = tmodel.posterior(*(torch.from_numpy(a) for a in (x, y, x_star)))
         (mean.sum() + var.sum()).backward()
     _grad_close(_port_grads(tmodel), _jax_grads(jg), rtol)
@@ -414,7 +414,7 @@ def test_solve_grads_match_jax():
     leaves = [torch.tensor(h, dtype=torch.float64, requires_grad=True) for h in hyper]
     rt = torch.from_numpy(rhs).requires_grad_()
     with _Both(**SLICE):
-        want = jax.jit(jax.grad(jf, argnums=(0, 1, 2, 3)))(*(jnp.asarray(h) for h in hyper), jnp.asarray(rhs))
+        want = _jit(jax.grad(jf, argnums=(0, 1, 2, 3)))(*(jnp.asarray(h) for h in hyper), jnp.asarray(rhs))
         op = tkernel.rbf_kernel_operator(
             torch.from_numpy(x), lengthscale=leaves[0], outputscale=leaves[1], block_rows=64,
             use_fused_kernels=False, materialize_threshold=None,
@@ -518,7 +518,7 @@ def test_neg_mll_and_grads_under_pivoted_preconditioner(same_probes):
     x, y, _ = _gp_data(30, n=2000)
     jmodel, params, tmodel = _models(False, np.float64)
     with _Both(**PIVOTED):
-        want, jg = jax.jit(jax.value_and_grad(
+        want, jg = _jit(jax.value_and_grad(
             lambda p: jmodel.neg_mll(p, jnp.asarray(x), jnp.asarray(y), key=jax.random.PRNGKey(0))
         ))(params)
         loss = tmodel.neg_mll(torch.from_numpy(x), torch.from_numpy(y), generator=torch.Generator())
@@ -531,7 +531,7 @@ def test_posterior_under_pivoted_preconditioner():
     x, y, x_star = _gp_data(31, n=2000)
     jmodel, params, tmodel = _models(False, np.float64)
     with _Both(**PIVOTED):
-        jmean, jvar = jax.jit(jmodel.posterior)(params, jnp.asarray(x), jnp.asarray(y), jnp.asarray(x_star))
+        jmean, jvar = _jit(jmodel.posterior)(params, jnp.asarray(x), jnp.asarray(y), jnp.asarray(x_star))
         tmean, tvar = tmodel.posterior(*(torch.from_numpy(a) for a in (x, y, x_star)))
     _close(tmean, jmean, 1e-7)
     _close(tvar, jvar, 1e-7)

@@ -37,6 +37,17 @@ def one_torch_thread():
     torch.set_num_threads(threads)
 
 
+def _jit(fn):
+    """``fn`` jitted with XLA's backend (LLVM) optimizations off: the same
+    operations, compiled in less time (compiling, not running, is what the
+    JAX references cost at these sizes).  Positional arguments only."""
+
+    def call(*args):
+        return jax.jit(fn).lower(*args).compile({"xla_backend_optimization_level": 0})(*args)
+
+    return call
+
+
 def rng(seed):
     return np.random.default_rng(seed)
 

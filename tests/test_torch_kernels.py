@@ -30,7 +30,7 @@ from linear_operator_tpu.ops import rbf as jrbf
 from linear_operator_tpu_torch import _build, kernel_variants
 from linear_operator_tpu_torch.operators.kernel import rbf_kernel_operator
 from linear_operator_tpu_torch.ops import rbf as trbf
-from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
+from test_torch_harness_common import _jit, one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 COVARS = ["rbf", "matern52", "matern32", "matern12", "rq"]
@@ -312,7 +312,7 @@ def test_k1_backward_matches_jax(covar, d):
     def f(a, b, c):
         return jnp.sum(jrbf.kernel_matvec(a, b, c, 512, jname) * w)
 
-    want = jax.jit(jax.grad(f, argnums=(0, 1, 2)))(*map(jnp.asarray, (x1, x2, v)))
+    want = _jit(jax.grad(f, argnums=(0, 1, 2)))(*map(jnp.asarray, (x1, x2, v)))
     got = _torch_grads(lambda a, b, c: trbf.kernel_matvec(a, b, c, tname), (x1, x2, v), w)
     for a, b in zip(got, want):
         _close(a, b, 1e-4)
@@ -335,7 +335,7 @@ def test_k3_backward_matches_jax(covar, d):
     def f(a, c):
         return jnp.sum(jrbf.kernel_matvec_sym(a, c, 1024, jname) * w)
 
-    want = jax.jit(jax.grad(f, argnums=(0, 1)))(jnp.asarray(x), jnp.asarray(v))
+    want = _jit(jax.grad(f, argnums=(0, 1)))(jnp.asarray(x), jnp.asarray(v))
     got = _torch_grads(lambda a, c: trbf.kernel_matvec_sym(a, c, tname), (x, v), w)
     for a, b in zip(got, want):
         _close(a, b, 1e-4)

@@ -24,7 +24,7 @@ from linear_operator_tpu_torch.functions import _root_decomposition as t_roots
 from linear_operator_tpu_torch.models.gp import love_posterior
 from test_torch_gp_slice import _Both, _close, _models, _np
 from test_torch_roots import _gram, same_draws  # noqa: F401  (same_draws is a fixture)
-from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
+from test_torch_harness_common import _jit, one_torch_thread  # noqa: F401 (an autouse fixture)
 
 # the module (the package's ``solvers.linear_cg`` is the function)
 t_linear_cg = importlib.import_module("linear_operator_tpu_torch.solvers.linear_cg")
@@ -63,8 +63,8 @@ def test_posterior_cache_and_queries_match_jax(same_draws, fused, dtype, rtol, l
     with _Both(**LOVE):
         # jitted: a tenth of the eager time on the CPU; the settings and the
         # patched draw are read while tracing, inside this block
-        jcache = jax.jit(jmodel.posterior_cache)(params, jnp.asarray(x), jnp.asarray(y))
-        jmean, jvar = jax.jit(jmodel.posterior_from_cache)(params, jnp.asarray(x), jcache, jnp.asarray(x_star))
+        jcache = _jit(jmodel.posterior_cache)(params, jnp.asarray(x), jnp.asarray(y))
+        jmean, jvar = _jit(jmodel.posterior_from_cache)(params, jnp.asarray(x), jcache, jnp.asarray(x_star))
         tx, ty, tx_star = _torch(x, y, x_star)
         cache = tmodel.posterior_cache(tx, ty, generator=torch.Generator())
         tmean, tvar = tmodel.posterior_from_cache(tx, cache, tx_star)
@@ -121,8 +121,8 @@ def test_a_jax_cache_serves_the_jax_queries(fused, dtype, rtol):
     x, y, x_star = _data("single", dtype)
     jmodel, params, tmodel = _models(fused, dtype)
     with _Both(**LOVE):
-        jcache = jax.jit(jmodel.posterior_cache)(params, jnp.asarray(x), jnp.asarray(y))
-        jmean, jvar = jax.jit(jmodel.posterior_from_cache)(params, jnp.asarray(x), jcache, jnp.asarray(x_star))
+        jcache = _jit(jmodel.posterior_cache)(params, jnp.asarray(x), jnp.asarray(y))
+        jmean, jvar = _jit(jmodel.posterior_from_cache)(params, jnp.asarray(x), jcache, jnp.asarray(x_star))
     cache = tlo.load_jax_cache(tmodel, jax.tree_util.tree_map(np.asarray, jcache))
     assert isinstance(cache, tlo.PosteriorCache) and cache.root_inv.dtype == tmodel.raw_noise.dtype
     tx, tx_star = _torch(x, x_star)

@@ -29,6 +29,18 @@ layouts the collectives by name.  They lie 2.8e-11 (losses), 5.3e-9
 cache's mean) from the JAX package, and are held to the step's 2e-9 and
 3e-7.
 
+The SKI, DKL and trainable-x runs, in the same worlds: SKI (TestShardedSKI's data, grid (16, 8)),
+linear on model 2 and 4 at n = 513 (uneven rows) and cubic on model 4 at
+n = 512, under TestShardedSKI's settings, pivoted rank 5, Nystrom rank 8
+and the Cholesky route, and its LOVE posterior, against the JAX package's
+unsharded SKIGPRegression on the same draws (SKI_RTOL where CG stops
+unconverged), with the collectives by name: one "interp" sum a mat-vec, no
+gathered vector; DKL (d_in 3, hidden (8, 2), B = 2) on (1, 2), (2, 2) and
+(1, 2, 2): the loss and every gradient after sharded_train_step's one sum
+over the mesh against the JAX package's, and two steps against unsharded
+Adam; and each f64 exact-GP run's gradient in a trainable x, the rank's rows
+of the JAX gradient.
+
 Tolerances (measured): the unsharded port lies 7.2e-10 (the loss) and
 7.2e-8 (the gradient, of its norm) from the JAX package at n = 32: 21 CG
 iterations, 20 of them building the SLQ tridiagonals, which lose
@@ -61,13 +73,31 @@ import linear_operator_tpu_torch.parallel as tpar
 from linear_operator_tpu.models import ExactGPRegression as JaxGP
 from linear_operator_tpu_torch.parallel.sharding import Mesh, mesh_axes, shard_gp_batch, split_sizes
 from linear_operator_tpu_torch.test.utils import local_device_mesh
-from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
+from test_torch_harness_common import _jit, one_torch_thread  # noqa: F401 (an autouse fixture)
 
 WORKER = Path(__file__).resolve().parent / "torch_parallel_worker.py"
 sys.path.insert(0, str(WORKER.parent))
-from torch_parallel_worker import SERVE  # noqa: E402 (the serving cases' settings)
+from torch_parallel_worker import DKL_HIDDEN, SERVE, SKI_CASES  # noqa: E402 (the cases' settings)
 
 WORLDS = {2: [(2, 1, None), (1, 2, None)], 4: [(2, 2, None), (1, 2, 2)]}
+# SKI (TestShardedSKI's data: n = 512, grid (16, 8), and n = 513, whose
+# rows split unevenly): (interp, layout, n) in each world; DKL (B = 2,
+# d_in = 3) on each layout
+SKI_RUNS = {2: [("linear", (1, 2, None), 513)],
+            4: [("linear", (1, 4, None), 513), ("cubic", (1, 4, None), 512)]}
+SKI_SIZES, SKI_GRID, SKI_M = (512, 513), (16, 8), 5
+DKL_RUNS = {2: [(1, 2, None)], 4: [(2, 2, None), (1, 2, 2)]}
+DKL_B, DKL_D = 2, 3
+SKI_STENCIL = {"linear": 4, "cubic": 16}  # points a stencil: 2^D, 4^D
+# SKI's holds against the JAX package (loss, gradient of its norm) where CG
+# stops unconverged: under TestShardedSKI's settings (no preconditioner, 30
+# iterations to 1e-6 at noise 0.127) every reordering of a sum moves the
+# result: the unsharded port lies 1.2e-6 and 3.9e-7 from the JAX package,
+# the sharded port up to 8.2e-7 and 3.3e-7 from the unsharded port, and up
+# to 1.2e-6 and 3.9e-7 from the JAX package; under the pivoted
+# preconditioner (rank 5) 2.2e-8 and 1.0e-8.  Nystrom and the Cholesky
+# route lie within 1e-11 and take LOSS_RTOL and GRAD_RTOL
+SKI_RTOL = {"cg": (5e-6, 1.5e-6), "pivoted": (1e-7, 5e-8)}
 SIZES = (32, 33)
 B, D, PROBES = 8, 2, 4
 SERVE_B, SERVE_M = 2, 5
@@ -187,8 +217,47 @@ def _serve_data(n):
     return arrays
 
 
+def _ski_data(n):
+    """TestShardedSKI's data set at n points (x ~ U[0, 1]^2), its grid and
+    parameters (the JAX model's initial ones), query points, and the draws
+    of both packages by shape: the probes, the preconditioners' eps1 and
+    eps2 and the Lanczos start."""
+    rng = np.random.default_rng(200 + n)
+    x = rng.uniform(size=(n, 2))
+    grid = jlo.models.make_grid(jnp.asarray(x), SKI_GRID)
+    arrays = dict(x=x, y=np.sin(5.0 * x[:, 0]) * np.cos(3.0 * x[:, 1]), x_star=rng.uniform(size=(SKI_M, 2)),
+                  mins=np.asarray(grid.mins), maxs=np.asarray(grid.maxs), sizes=np.array(SKI_GRID),
+                  ls=np.zeros(2), params=np.array([0.0, 0.0, -2.0]))
+    for shape in {(n, PROBES), (PROBES, 5), (PROBES, 8), (PROBES, n), (n,)}:
+        arrays["draw" + "x".join(map(str, shape))] = rng.normal(size=shape)
+    return arrays
+
+
+def _dkl_data(n):
+    """A DKL data set of DKL_B systems (x (B, n, d_in)), the JAX model's
+    initial MLP, the GP head's parameters and the probes."""
+    rng = np.random.default_rng(300 + n)
+    x = rng.normal(size=(DKL_B, n, DKL_D))
+    mlp = jlo.models.init_mlp(jax.random.PRNGKey(3), (DKL_D, *DKL_HIDDEN), dtype=jnp.float64)
+    arrays = dict(x=x, y=np.sin(3.0 * np.tanh(x @ np.linspace(-1.0, 1.0, DKL_D))), params=np.array(PARAMS),
+                  draw=rng.normal(size=(DKL_B, n, PROBES)))
+    arrays.update({f"w{i}": np.asarray(w) for i, w in enumerate(mlp.weights)})
+    arrays.update({f"b{i}": np.asarray(b) for i, b in enumerate(mlp.biases)})
+    return arrays
+
+
 def _runs():
     runs = {world: [] for world in WORLDS}
+    for world, cases in SKI_RUNS.items():
+        for interp, layout, n in cases:
+            tag = "x".join(str(a) for a in layout if a is not None)
+            runs[world].append(dict(name=f"ski-{interp}-{tag}-n{n}", layout=list(layout), case=f"ski{n}",
+                                    interp=interp, ski=True))
+    for world, layouts in DKL_RUNS.items():
+        for layout in layouts:
+            tag = "x".join(str(a) for a in layout if a is not None)
+            for n in SIZES:
+                runs[world].append(dict(name=f"dkl-{tag}-n{n}", layout=list(layout), case=f"dkl{n}", dkl=True))
     for world, layouts in WORLDS.items():
         for layout in layouts:
             tag = "x".join(str(a) for a in layout if a is not None)
@@ -212,7 +281,8 @@ def _free_port() -> int:
 
 
 def _jax_reference(n):
-    """The JAX package's unsharded loss and gradient on the same probes."""
+    """The JAX package's unsharded loss, its gradient and its gradient in x
+    on the same probes."""
     x, y, probes = _data(n)
     model = JaxGP(block_rows=32, materialize_threshold=None)
     params = model.init_params(D, dtype=jnp.float64)._replace(
@@ -224,23 +294,23 @@ def _jax_reference(n):
         assert tuple(shape) == probes.shape
         return jnp.asarray(probes, dtype)
 
-    def loss(p):
+    def loss_in(p, xx):
         ctxs = [getattr(jlo.settings, k)(v) for k, v in SETTINGS.items()]
         for c in ctxs:
             c.__enter__()
         try:
-            return model.neg_mll(p, jnp.asarray(x), jnp.asarray(y), key=jax.random.PRNGKey(7))
+            return model.neg_mll(p, xx, jnp.asarray(y), key=jax.random.PRNGKey(7))
         finally:
             for c in reversed(ctxs):
                 c.__exit__(None, None, None)
 
     jax.random.normal = draw
     try:
-        value, grads = jax.jit(jax.value_and_grad(loss))(params)
+        value, (grads, x_grad) = _jit(jax.value_and_grad(loss_in, argnums=(0, 1)))(params, jnp.asarray(x))
     finally:
         jax.random.normal = normal
     return float(value), np.array([float(grads.raw_lengthscale), float(grads.raw_outputscale),
-                                   float(grads.raw_noise)])
+                                   float(grads.raw_noise)]), np.asarray(x_grad)
 
 
 def _jax_serving(n):
@@ -296,7 +366,7 @@ def _jax_serving(n):
 
     jax.random.normal = draw
     try:
-        res = jax.jit(everything)(params, rhs)
+        res = _jit(everything)(params, rhs)
     finally:
         jax.random.normal = normal
 
@@ -312,6 +382,78 @@ def _jax_serving(n):
     return out
 
 
+def _under(case_settings, fn):
+    ctxs = [getattr(jlo.settings, k)(v) for k, v in case_settings.items()]
+    for c in ctxs:
+        c.__enter__()
+    try:
+        return fn()
+    finally:
+        for c in reversed(ctxs):
+            c.__exit__(None, None, None)
+
+
+def _with_draws(draws, fn):
+    """``fn()`` with ``jax.random.normal`` handing out ``draws`` by shape."""
+    normal = jax.random.normal
+    jax.random.normal = lambda key, shape=(), dtype=jnp.float64: jnp.asarray(draws[tuple(shape)], dtype)
+    try:
+        return fn()
+    finally:
+        jax.random.normal = normal
+
+
+def _jax_ski(interp, n):
+    """The JAX package's unsharded SKI model on the same data and draws, in
+    one jitted function: neg_mll and its gradient under each SKI case, and
+    the LOVE posterior."""
+    arrays = _ski_data(n)
+    draws = {v.shape: v for k, v in arrays.items() if k.startswith("draw")}
+    x, y, x_star = (jnp.asarray(arrays[k]) for k in ("x", "y", "x_star"))
+    model = jlo.models.SKIGPRegression(jlo.models.GridSpec(jnp.asarray(arrays["mins"]), jnp.asarray(arrays["maxs"]),
+                                                           SKI_GRID), interp=interp)
+    params = model.init_params(2, dtype=jnp.float64)
+    key = jax.random.PRNGKey(1)
+
+    def everything(p):
+        out = {}
+        for case, over in SKI_CASES.items():
+            over = {**SETTINGS, **over}
+            if case == "posterior":
+                out[case] = _under(over, lambda: model.posterior(p, x, y, x_star, key=key))
+            else:
+                out[case] = jax.value_and_grad(lambda q, o=over: _under(o, lambda: model.neg_mll(q, x, y, key=key)))(p)
+        return out
+
+    res = _with_draws(draws, lambda: _jit(everything)(params))
+    out = {case: dict(loss=float(v), grads=np.concatenate([np.ravel(np.asarray(leaf)) for leaf in g]))
+           for case, (v, g) in res.items() if case != "posterior"}
+    out["posterior"] = dict(mean=np.asarray(res["posterior"][0]), var=np.asarray(res["posterior"][1]))
+    return out
+
+
+def _jax_dkl(n):
+    """The JAX package's unsharded DKL loss and gradients (each layer's
+    weights, the biases, the GP head's) on the same data and probes."""
+    arrays = _dkl_data(n)
+    model = jlo.models.DeepKernelGPRegression(hidden=DKL_HIDDEN, materialize_threshold=None, block_rows=32)
+    layers = len(DKL_HIDDEN)
+    mlp = jlo.models.dkl.MLPParams(tuple(jnp.asarray(arrays[f"w{i}"]) for i in range(layers)),
+                                   tuple(jnp.asarray(arrays[f"b{i}"]) for i in range(layers)))
+    gp = model.gp.init_params(DKL_HIDDEN[-1], dtype=jnp.float64)._replace(
+        **{name: jnp.asarray(v, jnp.float64) for name, v in zip(("raw_lengthscale", "raw_outputscale",
+                                                                 "raw_noise"), PARAMS)})
+    params = jlo.models.dkl.DKLParams(mlp, gp)
+    x, y = jnp.asarray(arrays["x"]), jnp.asarray(arrays["y"])
+
+    def loss(p):
+        return _under(SETTINGS, lambda: model.neg_mll(p, x, y, key=jax.random.PRNGKey(7)))
+
+    value, g = _with_draws({arrays["draw"].shape: arrays["draw"]}, lambda: _jit(jax.value_and_grad(loss))(params))
+    return float(value), np.concatenate([np.ravel(np.asarray(leaf)) for leaf in (*g.mlp.weights, *g.mlp.biases,
+                                                                                  *g.gp)])
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """Both worlds spawned at once (each rank one process), the JAX
@@ -324,6 +466,9 @@ def worlds(tmp_path_factory):
         arrays.update({f"n{n}_x": x, f"n{n}_y": y, f"n{n}_probes": probes, f"n{n}_params": np.array(PARAMS)})
         arrays.update({f"s{n}_{k}": v for k, v in _serve_data(n).items()})
         arrays[f"s{n}_params"] = np.array(PARAMS)
+        arrays.update({f"dkl{n}_{k}": v for k, v in _dkl_data(n).items()})
+    for n in SKI_SIZES:
+        arrays.update({f"ski{n}_{k}": v for k, v in _ski_data(n).items()})
     np.savez(tmp / "arrays.npz", **arrays)
     env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS",)}
     env["OMP_NUM_THREADS"] = "1"
@@ -341,6 +486,9 @@ def worlds(tmp_path_factory):
         ]
     refs = {n: _jax_reference(n) for n in SIZES}
     refs.update({f"s{n}": _jax_serving(n) for n in SIZES})
+    refs.update({f"dkl{n}": _jax_dkl(n) for n in SIZES})
+    refs.update({(interp, n): _jax_ski(interp, n) for interp, n in
+                 {(i, n) for cases in SKI_RUNS.values() for i, _, n in cases}})
     results, failures = {}, []
     for world, ranks in procs.items():
         deadline = started + TIMEOUT_S
@@ -364,7 +512,9 @@ def worlds(tmp_path_factory):
 def _cases(kind):
     for world, runs in _runs().items():
         for run in runs:
-            if run.get("serve"):
+            if run.get("serve") or run.get("ski") or run.get("dkl"):
+                if run.get(kind):
+                    yield pytest.param(world, run, id=run["name"])
                 continue
             if kind == "f64" and run["dtype"] == "float64":
                 yield pytest.param(world, run, id=run["name"])
@@ -385,7 +535,7 @@ def test_sharded_loss_and_grads_match_jax(worlds, world, run):
     gradient against the JAX package's unsharded ones, and its CG iteration
     count against the unsharded run's."""
     results, refs = worlds
-    want_loss, want_grads = refs[int(run["case"][1:])]
+    want_loss, want_grads, _ = refs[int(run["case"][1:])]
     ranks = [r[run["name"]] for r in results[world]]
     for out in ranks:
         np.testing.assert_allclose(out["loss"], want_loss, rtol=LOSS_RTOL)
@@ -402,7 +552,7 @@ def test_sharded_train_step_moves_as_adam(worlds, world, run):
     gradients (shares summed over data, once) the JAX gradient, and the
     parameters move as Adam's first step on that gradient moves them."""
     results, refs = worlds
-    _, want_grads = refs[int(run["case"][1:])]
+    _, want_grads, _ = refs[int(run["case"][1:])]
     moved = np.array(PARAMS) - LR * want_grads / (np.abs(want_grads) + ADAM_EPS)
     for r in results[world]:
         out = r[run["name"]]
@@ -455,14 +605,16 @@ def test_fused_route_matches_unsharded(worlds, world, run):
 
 @pytest.mark.parametrize("world, run", list(_cases("raises")))
 def test_what_the_row_sharded_operator_does_not_cover_raises(worlds, world, run):
-    """x's gradient, indexing, cat_rows, a sum with anything but a diagonal
-    and the blocked pivoted Cholesky sweep on a model-sharded mesh raise
-    NotImplementedError naming ROADMAP.md: nothing falls back to a
-    replicated or unpreconditioned solve."""
+    """What ROADMAP.md queue 1 still lists under a mesh (items 4-5: a
+    sharded Cat, posterior_distribution, the forward root) and indexing, a
+    sum with anything but a diagonal and the blocked pivoted Cholesky sweep
+    on a model-sharded mesh raise NotImplementedError naming ROADMAP.md:
+    nothing falls back to a replicated or unpreconditioned solve."""
     results, _ = worlds
     for r in results[world]:
         raised = r[run["name"]]["raised"]
-        assert set(raised) == {"x gradient", "indexing", "cat_rows", "sum", "blocked pivoted sweep"}
+        assert set(raised) == {"posterior_distribution", "forward root", "indexing", "cat_rows", "sum",
+                               "blocked pivoted sweep"}
         assert all("ROADMAP.md" in msg for msg in raised.values()), raised
 
 
@@ -577,3 +729,150 @@ def test_scaling_report_on_meshes_of_two_and_four_ranks(worlds):
         assert all(np.isfinite(e["solves_per_s"]) and e["solves_per_s"] > 0 for e in report.values())
         if rank < 2:
             assert report["2"]["mesh"] == {"data": 1, "model": 2} and report["2"]["efficiency"] == 1.0
+
+
+# ---------------------------------------------------------------------------
+# x's gradient, DKL and SKI on the model axis
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("world, run", list(_cases("f64")))
+def test_x_gradient_through_the_row_sharded_operator_matches_jax(worlds, world, run):
+    """An exact GP with a trainable x: each rank's gradient in its own rows
+    (its own rows' share, never summed over the model group, plus its rows
+    of the gathered x's summed gradient) against the JAX package's gradient
+    in x, and the hyperparameters' gradients unchanged by it.  Where the
+    rows are sharded, the backward makes one sum of the replicated
+    gradients over the model (and probe) group and, with a probe axis, one
+    of the own rows' over the probe group."""
+    results, refs = worlds
+    n = int(run["case"][1:])
+    _, want_grads, want_x = refs[n]
+    data, model, probe = run["layout"]
+    for rank, r in enumerate(results[world]):
+        out = r[run["name"]]
+        place = Mesh({"data": data, "model": model, **({"probe": probe} if probe else {})}, rank, torch.device("cpu"))
+        batch = torch.tensor_split(torch.arange(B), data)[place.index("data")].numpy()
+        rows = torch.tensor_split(torch.arange(n), model)[place.index("model")].numpy()
+        np.testing.assert_allclose(out["x_grad"], want_x[batch][:, rows], rtol=0,
+                                   atol=GRAD_RTOL * np.abs(want_x).max())
+        assert np.abs(out["x_grad"]).max() > 0.0
+        # the worker's shares are summed over data by the test's own sum
+        if data == 1:
+            _grad_close(out["x_grads"], want_grads, GRAD_RTOL)
+        back = out["x_backward_counts"]
+        assert back.get("all_reduce", 0) == (model > 1 or bool(probe)) + (model > 1 and bool(probe))
+
+
+@pytest.mark.parametrize("world, run", list(_cases("dkl")))
+def test_sharded_dkl_matches_jax(worlds, world, run):
+    """DKL on the rank's block (d_in 3, hidden (8, 2), B = 2, float64): the
+    loss, the same on every rank, and every gradient (each MLP layer's
+    weights and biases and the GP head's) after sharded_train_step's one
+    sum over the mesh against the JAX package's unsharded ones; a gradient
+    counted twice (the GP head's summed again over model, or an MLP share
+    missed) moves them by O(1)."""
+    results, refs = worlds
+    want_loss, want_grads = refs[run["case"]]
+    ranks = [r[run["name"]] for r in results[world]]
+    for out in ranks:
+        np.testing.assert_allclose(out["loss"], want_loss, rtol=LOSS_RTOL)
+        _grad_close(out["step_grads"], want_grads, GRAD_RTOL)
+        first = slice(0, DKL_D * DKL_HIDDEN[0])
+        _grad_close(out["step_grads"][first], want_grads[first], GRAD_RTOL)
+        _grad_close(out["ref_grads"], want_grads, GRAD_RTOL)
+    assert len({out["loss"] for out in ranks}) == 1
+    assert len({tuple(out["step_grads"]) for out in ranks}) == 1
+
+
+@pytest.mark.parametrize("world, run", list(_cases("dkl")))
+def test_sharded_dkl_train_step_moves_as_adam(worlds, world, run):
+    """Two sharded_train_step steps with Adam move every parameter (the
+    MLP's and the GP head's) as two Adam steps on the unsharded port on the
+    whole data; the backward gathers the features once and sums the
+    replicated gradients once."""
+    results, _ = worlds
+    data, model, probe = run["layout"]
+    for r in results[world]:
+        out = r[run["name"]]
+        np.testing.assert_allclose(out["step_params"], out["ref_params"], rtol=0, atol=2 * LR * GRAD_RTOL)
+        assert out["counts"]["all_gather"] == out["iters"][0] + 1
+        assert out["backward_counts"].get("all_gather", 0) == 1
+        assert out["backward_counts"].get("all_reduce", 0) == 1 + bool(probe)
+
+
+def _ski_runs(cases=tuple(SKI_CASES)):
+    for world, runs in _runs().items():
+        for run in runs:
+            if run.get("ski"):
+                for case in cases:
+                    yield pytest.param(world, run, case, id=f"{run['name']}-{case}")
+
+
+@pytest.mark.parametrize("world, run, case", list(_ski_runs()))
+def test_sharded_ski_matches_jax(worlds, world, run, case):
+    """Row-sharded SKI (linear on model 2 and 4, cubic on model 4, n = 512
+    and the uneven 513) against the JAX package's unsharded SKIGPRegression
+    on the same data and draws: neg_mll and its gradient with no
+    preconditioner (TestShardedSKI's settings), pivoted (rank 5), Nystrom
+    (rank 8) and on the Cholesky route; the LOVE posterior's mean and
+    variance.  The same on every rank."""
+    results, refs = worlds
+    want = refs[(run["interp"], int(run["case"][3:]))][case]
+    ranks = [r[run["name"]][case] for r in results[world]]
+    for got in ranks:
+        if case == "posterior":
+            for key in ("mean", "var"):
+                np.testing.assert_allclose(got[key], want[key], rtol=0, atol=SERVE_RTOL * np.abs(want[key]).max())
+        else:
+            loss_rtol, grad_rtol = SKI_RTOL.get(case, (LOSS_RTOL, GRAD_RTOL))
+            np.testing.assert_allclose(got["loss"], want["loss"], rtol=loss_rtol)
+            _grad_close(got["grads"], want["grads"], grad_rtol)
+    key = "mean" if case == "posterior" else "loss"
+    assert len({str(got[key]) for got in ranks}) == 1
+
+
+@pytest.mark.parametrize("world, run", list(_cases("ski")))
+def test_sharded_ski_neg_mll_is_the_whole_data_set_loss(worlds, world, run):
+    """Given shard_gp_batch's rows of one data set, each rank's neg_mll is
+    the whole data set's (the JAX package's unsharded loss), not the loss of
+    its own rows alone: its operator is n x n, its rows |R| < n."""
+    results, refs = worlds
+    n = int(run["case"][3:])
+    want = refs[(run["interp"], n)]["nystrom"]["loss"]
+    for rank, r in enumerate(results[world]):
+        out = r[run["name"]]
+        assert out["rows"] == split_sizes(n, run["layout"][1])[rank] < n
+        np.testing.assert_allclose(out["nystrom"]["loss"], want, rtol=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("world, run, case", list(_ski_runs()))
+def test_sharded_ski_collectives_follow_the_design(worlds, world, run, case):
+    """The collectives by name: one interpolation sum ("interp", W_R^T v over
+    the model group) a mat-vec (each CG iteration and Lanczos step) and one
+    in the backward, no gathered (n, t) vector anywhere (the Cholesky route
+    gathers the stencils and its own n x n rows once); the pivoted factor's
+    argmax a step and its owner's rows (the pivot's row of L and its
+    stencil), the Nystrom landmarks' stencils once."""
+    results, _ = worlds
+    for r in results[world]:
+        got = r[run["name"]][case]
+        counts, its = got["counts"], got["iters"]
+        if case == "cholesky":
+            assert its == [] and "interp" not in counts
+            rows, k = r[run["name"]]["rows"], SKI_STENCIL[run["interp"]]
+            assert got["gathered"] == [[rows, k], [rows, k], [rows, int(run["case"][3:])], [rows, 1]]
+            continue
+        assert got["gathered"] == []
+        (it,) = its if case != "posterior" else its[:1]
+        if case == "posterior":
+            k = min(int(run["case"][3:]), 100)
+            assert counts["interp"] == it + k and counts["posterior"] == 1
+        else:
+            assert counts["interp"] == it
+            assert got["backward_counts"]["interp"] == 1
+        if case == "pivoted":
+            assert counts["argmax"] == 5 and counts["owner_row"] == 4 + 5
+        if case == "nystrom":
+            assert counts["landmarks"] == 1
+

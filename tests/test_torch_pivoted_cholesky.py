@@ -24,7 +24,7 @@ from linear_operator_tpu_torch.functions import pivoted_cholesky as t_pivoted_ch
 from linear_operator_tpu_torch.operators import kernel as tkernel
 from linear_operator_tpu_torch.operators.dense import DenseLinearOperator as TorchDense
 from linear_operator_tpu_torch.solvers.pivoted_cholesky import _blocked_pivoted_cholesky as t_blocked
-from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
+from test_torch_harness_common import _jit, one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _np(a):
@@ -68,7 +68,7 @@ OPS = {"kernel": _kernel_ops, "dense": _dense_ops}
 @pytest.mark.parametrize("kind", ["kernel", "dense"])
 def test_strict_greedy_matches_jax(kind, batched):
     jop, top = OPS[kind](1, batched)
-    jl, jp = j_pivoted_cholesky(jop, 25, return_pivots=True)
+    jl, jp = _jit(lambda: j_pivoted_cholesky(jop, 25, return_pivots=True))()
     tl, tp = t_pivoted_cholesky(top, 25, return_pivots=True)
     assert tl.shape == jl.shape and tp.shape == jp.shape
     np.testing.assert_array_equal(_np(tp), _np(jp))
@@ -81,7 +81,7 @@ def test_error_tol_stops_early(kind, tol):
     # a loose tolerance: each element converges before rank 40, and the
     # remaining steps write zero columns and record pivot -1
     jop, top = OPS[kind](2, batched=True)
-    jl, jp = j_pivoted_cholesky(jop, 40, error_tol=tol, return_pivots=True)
+    jl, jp = _jit(lambda: j_pivoted_cholesky(jop, 40, error_tol=tol, return_pivots=True))()
     tl, tp = t_pivoted_cholesky(top, 40, error_tol=tol, return_pivots=True)
     np.testing.assert_array_equal(_np(tp), _np(jp))
     stopped = _np(tp) < 0
@@ -94,7 +94,7 @@ def test_return_pivots_and_operator_method():
     jop, top = _kernel_ops(3, batched=False)
     L = top.pivoted_cholesky(10)
     L2, piv = top.pivoted_cholesky(10, return_pivots=True)
-    jl, jp = jop.pivoted_cholesky(10, return_pivots=True)
+    jl, jp = _jit(lambda: jop.pivoted_cholesky(10, return_pivots=True))()
     assert isinstance(L, torch.Tensor) and L.shape == (300, 10)
     assert piv.dtype == torch.int32 and piv.shape == (10,)
     np.testing.assert_array_equal(_np(piv), _np(jp))
@@ -152,7 +152,7 @@ def test_strict_gradient_matches_jax(batched):
         op = jkernel.rbf_kernel_operator(x_, lengthscale=ls, outputscale=os_)
         return jnp.sum(j_pivoted_cholesky(op, 12))
 
-    want = jax.grad(jf, argnums=(0, 1, 2))(jnp.asarray(x), *(jnp.asarray(h) for h in hyper))
+    want = _jit(jax.grad(jf, argnums=(0, 1, 2)))(jnp.asarray(x), *(jnp.asarray(h) for h in hyper))
     leaves = [torch.from_numpy(x).requires_grad_()] + [
         torch.tensor(h, dtype=torch.float64, requires_grad=True) for h in hyper
     ]
@@ -185,5 +185,5 @@ def test_default_preconditioner_is_pivoted():
     jk = jop.add_diagonal(jnp.asarray(0.1))
     tk = top.add_diagonal(torch.tensor(0.1, dtype=torch.float64))
     assert tlo.settings.preconditioner_mode.value() == "pivoted"
-    _close(tk._build_precond_factor(), jk._build_precond_factor(), 1e-10)
+    _close(tk._build_precond_factor(), _jit(jk._build_precond_factor)(), 1e-10)
     assert tk._build_precond_factor().shape == (300, 15)

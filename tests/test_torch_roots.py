@@ -29,7 +29,7 @@ from linear_operator_tpu_torch.solvers.lanczos import lanczos_tridiag as t_lancz
 from linear_operator_tpu_torch.utils.eigh import eigh_safe as t_eigh_safe
 from linear_operator_tpu_torch.utils.errors import NotPSDError as TNotPSD
 from test_torch_gp_slice import _Both, _close, _np, _spd
-from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
+from test_torch_harness_common import _jit, one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N = 60  # the dense operators' size
 
@@ -76,7 +76,7 @@ def _dense_pair(a):
 def test_lanczos_tridiag_matches_jax(batch):
     a = _spd(1, N) if not batch else np.stack([_spd(1, N), _spd(2, N)])
     init = np.random.default_rng(3).normal(size=(*batch, N))
-    jq, jt = j_lanczos(lambda v: jnp.asarray(a) @ v, 30, init_vecs=jnp.asarray(init))
+    jq, jt = _jit(lambda i: j_lanczos(lambda v: jnp.asarray(a) @ v, 30, init_vecs=i))(jnp.asarray(init))
     ta = torch.from_numpy(a)
     tq, tt = t_lanczos(lambda v: ta @ v, 30, init_vecs=torch.from_numpy(init))
     assert tq.shape == (*batch, N, 30) and tt.shape == (*batch, 30, 30)
@@ -92,7 +92,7 @@ def test_lanczos_breakdown_matches_jax():
     b = np.random.default_rng(4).normal(size=(N, 5))
     a = b @ b.T + 1e-9 * np.eye(N)
     init = np.random.default_rng(5).normal(size=N)
-    jq, jt = j_lanczos(lambda v: jnp.asarray(a) @ v, 12, init_vecs=jnp.asarray(init))
+    jq, jt = _jit(lambda i: j_lanczos(lambda v: jnp.asarray(a) @ v, 12, init_vecs=i))(jnp.asarray(init))
     ta = torch.from_numpy(a)
     tq, tt = t_lanczos(lambda v: ta @ v, 12, init_vecs=torch.from_numpy(init))
     _close(tq, jq, 1e-10)
@@ -136,7 +136,7 @@ def test_default_method_follows_the_size_cutoff(same_draws):
         jop, top = _dense_pair(a)
         tr = top.root_decomposition()
         assert type(tr).__name__ == "RootLinearOperator"
-        _close(_gram(tr.root.to_dense()), _gram(jop.root_decomposition().root.to_dense()), 1e-7)
+        _close(_gram(tr.root.to_dense()), _gram(_jit(lambda: jop.root_decomposition().root.to_dense())()), 1e-7)
         # k = n: exact, but for the jitter added to T
         _close(_gram(tr.root.to_dense()), a + tlo.settings.tridiagonal_jitter.value() * np.eye(N), 1e-10)
 
@@ -196,7 +196,7 @@ def test_best_probe_pick_matches_jax():
     init = np.random.default_rng(10).normal(size=(N, 3))
     test = np.random.default_rng(11).normal(size=(N, 2))
     with _Both(max_cholesky_size=0, max_root_decomposition_size=8):
-        ji = jop.root_inv_decomposition(jnp.asarray(init), jnp.asarray(test)).root.to_dense()
+        ji = _jit(lambda i, t: jop.root_inv_decomposition(i, t).root.to_dense())(jnp.asarray(init), jnp.asarray(test))
         ti = top.root_inv_decomposition(torch.from_numpy(init), torch.from_numpy(test)).root.to_dense()
         singles = [
             _gram(top.root_inv_decomposition(torch.from_numpy(init[:, p : p + 1])).root.to_dense())
@@ -213,10 +213,10 @@ def test_diagonalization_matches_jax(same_draws, method):
     a = _spd(12, N)
     jop, top = _dense_pair(a)
     with _Both(max_root_decomposition_size=30):
-        jw, jq = jop.diagonalization(method=method)
+        jw, jq = _jit(lambda: (lambda w, q: (w, q.to_dense()))(*jop.diagonalization(method=method)))()
         tw, tq = top.diagonalization(method=method)
     _close(tw, jw, 1e-8)
-    tq, jq = _np(tq.to_dense()), _np(jq.to_dense())
+    tq, jq = _np(tq.to_dense()), _np(jq)
     _close(tq @ np.diag(_np(tw)) @ tq.T, jq @ np.diag(_np(jw)) @ jq.T, 1e-7)
 
 
@@ -252,7 +252,7 @@ def test_batched_dense_step_matches_jax(same_draws, cholesky_size):
         return iq, ld, op.root_decomposition().root.to_dense()
 
     with _Both(**sizes):
-        jiq, jld, jroot = jax.jit(jstep)(jnp.asarray(mats), jnp.asarray(rhs))
+        jiq, jld, jroot = _jit(jstep)(jnp.asarray(mats), jnp.asarray(rhs))
         op = tlo.operators.DenseLinearOperator(torch.from_numpy(mats))
         tiq, tld = tlo.inv_quad_logdet(op, torch.from_numpy(rhs), logdet=True, generator=torch.Generator())
         troot = op.root_decomposition(generator=torch.Generator()).root.to_dense()
@@ -279,14 +279,15 @@ def test_chol_operator_matches_jax(batch):
     top = tlo.operators.CholLinearOperator(tlo.operators.TriangularLinearOperator(torch.from_numpy(tri)))
     k = tri @ np.swapaxes(tri, -1, -2)
     _close(top.to_dense(), k, 1e-12)
-    _close(tlo.solve(top, torch.from_numpy(rhs)), jlo.solve(jop, jnp.asarray(rhs)), 1e-10)
+    jsol, (jiq, jld), jinv = _jit(lambda r: (jlo.solve(jop, r), jlo.inv_quad_logdet(jop, r, logdet=True),
+                                             jop.inverse().to_dense()))(jnp.asarray(rhs))
+    _close(tlo.solve(top, torch.from_numpy(rhs)), jsol, 1e-10)
     _close(tlo.solve(top, torch.from_numpy(rhs)), np.linalg.solve(k, rhs), 1e-10)
     tiq, tld = tlo.inv_quad_logdet(top, torch.from_numpy(rhs), logdet=True)
-    jiq, jld = jlo.inv_quad_logdet(jop, jnp.asarray(rhs), logdet=True)
     _close(tiq, jiq, 1e-10)
     _close(tld, jld, 1e-10)
     _close(tld, np.linalg.slogdet(k)[1], 1e-10)
-    _close(top.inverse().to_dense(), jop.inverse().to_dense(), 1e-10)
+    _close(top.inverse().to_dense(), jinv, 1e-10)
     _close(top.inverse().to_dense(), np.linalg.inv(k), 1e-10)
     assert top.inverse().root.upper and not top.cholesky(upper=False).upper
 
@@ -327,7 +328,7 @@ def test_eigh_safe_gradient_at_a_degenerate_spectrum():
         w, v = j_eigh_safe(m)
         return jnp.sum(jnp.asarray(b) * ((v * jnp.exp(w)) @ v.T))
 
-    want = jax.grad(jf)(jnp.asarray(a))
+    want = _jit(jax.grad(jf))(jnp.asarray(a))
     t = torch.from_numpy(a).requires_grad_()
     w, v = t_eigh_safe(t)
     torch.sum(torch.from_numpy(b) * ((v * torch.exp(w)) @ v.T)).backward()
@@ -383,7 +384,7 @@ def test_lanczos_root_gradients_match_jax(same_draws, inverse):
                                       block_rows=64, symmetric=True, materialize_threshold=None)
     op = op.add_diagonal(softplus(r[2], torch))
     with _Both(max_cholesky_size=0, max_root_decomposition_size=20):
-        want_val, want = jax.value_and_grad(jloss)(jnp.asarray(raw))
+        want_val, want = _jit(jax.value_and_grad(jloss))(jnp.asarray(raw))
         dec = op.root_inv_decomposition() if inverse else op.root_decomposition()
         loss = torch.sum((torch.from_numpy(b) @ dec.root.to_dense()) ** 2)
         loss.backward()

@@ -361,7 +361,7 @@ def test_ski_stencils_and_covariance_match_jax(interp):
     x, _, x_star = _ski_data()
     jmodel, params, tmodel = _ski_models(interp)
     _close(tmodel.grid.mins, jmodel.grid.mins, F64)
-    jw = jmodel._interp_weights_per_dim(jnp.asarray(x))
+    jw = _jit(jmodel._interp_weights_per_dim)(jnp.asarray(x))
     tw = tmodel._interp_weights_per_dim(torch.tensor(x))
     for a, b in zip((*tw[0], *tw[1]), (*jw[0], *jw[1])):
         _close(a, b, F64)
@@ -370,7 +370,7 @@ def test_ski_stencils_and_covariance_match_jax(interp):
         _close(sum(np.sum(_np(w), axis=-1) for w in tw[1]) / 2, np.ones(len(x)), F64)
     else:
         fi, fv = tski.linear_interp_weights(torch.tensor(x), tmodel.grid)
-        jfi, jfv = jski.linear_interp_weights(jnp.asarray(x), jmodel.grid)
+        jfi, jfv = _jit(lambda xx: jski.linear_interp_weights(xx, jmodel.grid))(jnp.asarray(x))
         _close(fi, jfi, 0)
         _close(fv, jfv, F64)
 

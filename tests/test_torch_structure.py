@@ -25,7 +25,7 @@ from linear_operator_tpu.models.ski import rbf_toeplitz_column as j_column
 from linear_operator_tpu_torch.models.ski import rbf_toeplitz_column as t_column
 from test_torch_gp_slice import _Both, _close, _grad_close, _np
 from test_torch_roots import same_draws  # noqa: F401  (a fixture)
-from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
+from test_torch_harness_common import _jit, one_torch_thread  # noqa: F401 (_jit is re-exported; an autouse fixture)
 
 # the modules (each package's utils exports a function of the same name)
 jtz = importlib.import_module("linear_operator_tpu.utils.toeplitz")
@@ -34,17 +34,6 @@ ttz = importlib.import_module("linear_operator_tpu_torch.utils.toeplitz")
 F64 = 1e-8
 CG64 = 1e-7
 F32 = 1e-4
-
-
-def _jit(fn):
-    """``fn`` jitted with XLA's backend (LLVM) optimizations off: the same
-    operations, compiled in a third of the time (compiling, not running, is
-    what the references cost at these sizes)."""
-
-    def call(*args):
-        return jax.jit(fn).lower(*args).compile({"xla_backend_optimization_level": 0})(*args)
-
-    return call
 
 
 def _rng(seed):

@@ -58,14 +58,18 @@ def _data(seed, kind, n=80, d=2, m_star=9):
 def _models(kind, x, m, dtype=np.float64, seed=0):
     jcls, jkw, tcls, tkw = KINDS[kind]
     jmodel = jcls(**jkw)
-    params = jmodel.init_params(jnp.asarray(x, dtype), m)
     rng = np.random.default_rng(seed)
-    params = params._replace(
-        raw_lengthscale=jnp.asarray(-0.2, dtype), raw_outputscale=jnp.asarray(0.3, dtype),
-        raw_noise=jnp.asarray(-1.7, dtype), z=params.z + 0.05,
-        var_mean=jnp.asarray(0.5 * rng.normal(size=m), dtype),
-        var_root_raw=jnp.asarray(params.var_root_raw + 0.2 * rng.normal(size=(m, m)), dtype),
-    )
+    mean_draw, root_draw = 0.5 * rng.normal(size=m), 0.2 * rng.normal(size=(m, m))
+
+    def jax_params(xx):  # in one jitted call
+        params = jmodel.init_params(xx, m)
+        return params._replace(
+            raw_lengthscale=jnp.asarray(-0.2, dtype), raw_outputscale=jnp.asarray(0.3, dtype),
+            raw_noise=jnp.asarray(-1.7, dtype), z=params.z + 0.05, var_mean=jnp.asarray(mean_draw, dtype),
+            var_root_raw=(params.var_root_raw + root_draw).astype(dtype),
+        )
+
+    params = _jit(jax_params)(jnp.asarray(x, dtype))
     tmodel = tcls(torch.from_numpy(x.astype(dtype)), m, device="cpu", **tkw)
     tlo.load_jax_params(tmodel, jax.tree_util.tree_map(np.asarray, params))
     return jmodel, params, tmodel
@@ -124,7 +128,7 @@ def test_predictions_and_their_gradients_match_jax(kind):
     if kind in ("probit", "logit"):
         labels = tmodel.predict(torch.from_numpy(xs))
         assert labels.dtype == torch.int32
-        np.testing.assert_array_equal(_np(labels), np.asarray(jmodel.predict(params, jnp.asarray(xs))))
+        np.testing.assert_array_equal(_np(labels), np.asarray(_jit(jmodel.predict)(params, jnp.asarray(xs))))
 
 
 def test_posterior_distribution_matches_jax():

@@ -34,7 +34,7 @@ from linear_operator_tpu_torch.operators.low_rank_root_added_diag import (
     LowRankRootAddedDiagLinearOperator as TorchLowRank,
 )
 from linear_operator_tpu_torch.ops import rbf as trbf
-from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
+from test_torch_harness_common import _jit, one_torch_thread  # noqa: F401 (an autouse fixture)
 
 COVARS = ["rbf", "matern52", "matern32", "matern12", "rq"]
 
@@ -323,7 +323,7 @@ def test_slice_matches_jax(open_gates, same_probes, monkeypatch, mode):
 
     leaves = [_f32(h).requires_grad_() for h in HYPER]
     with _Both(**settings):
-        (jl, jsol), jg = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True))(
+        (jl, jsol), jg = _jit(jax.value_and_grad(jloss, argnums=(0, 1, 2), has_aux=True))(
             *(jnp.asarray(h, jnp.float32) for h in HYPER)
         )
         op = tkernel.KernelLinearOperator(

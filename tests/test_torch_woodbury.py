@@ -29,7 +29,7 @@ from linear_operator_tpu_torch import operators as tops
 from linear_operator_tpu_torch.utils.warnings import PerformanceWarning
 from test_torch_gp_slice import _Both, _close, _np
 from test_torch_roots import same_draws  # noqa: F401  (a fixture)
-from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
+from test_torch_harness_common import _jit, one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N, RANK, NOISE = 1000, 20, 0.5
 RTOL = 1e-10
@@ -238,7 +238,7 @@ def test_inv_quad_logdet_gradients_match_jax(solver_log, factorized):
         iq, ld = jlo.inv_quad_logdet(op, jnp.asarray(y), logdet=True)
         return iq + ld
 
-    want = jax.grad(j_loss, argnums=(0, 1))(jnp.asarray(U), jnp.asarray(d))
+    want = _jit(jax.grad(j_loss, argnums=(0, 1)))(jnp.asarray(U), jnp.asarray(d))
     Ut, dt, op = _torch_leaves(U, d)
     op = op.factorize() if factorized else op
     iq, ld = op.inv_quad_logdet(torch.from_numpy(y), logdet=True)
@@ -260,7 +260,7 @@ def test_solve_gradient_runs_cg_in_both_packages(solver_log):
         return jnp.sum(jlo.solve(_jax_op(U, d), jnp.asarray(y)) * jnp.asarray(w))
 
     with _Both(max_cholesky_size=0, cg_tolerance=1e-12, max_cg_iterations=400):
-        want = jax.grad(j_loss, argnums=(0, 1))(jnp.asarray(U), jnp.asarray(d))
+        want = _jit(jax.grad(j_loss, argnums=(0, 1)))(jnp.asarray(U), jnp.asarray(d))
         Ut, dt, op = _torch_leaves(U, d)
         assert type(op.mT) is tops.SumLinearOperator
         torch.sum(op.solve(torch.from_numpy(y)) * torch.from_numpy(w)).backward()
@@ -337,27 +337,32 @@ def test_algebra_methods_match_jax():
         (ja + jnp.asarray(b), ta + torch.from_numpy(b)),
         (ja.add_jitter(0.1), ta.add_jitter(0.1)),
     ]
-    for jo, to in pairs:
-        _close(to.to_dense(), jo.to_dense(), RTOL)
+    lhs = np.random.default_rng(13).normal(size=(2, 25))
+
+    def jax_side(r, left):
+        return dict(
+            dense=[jo.to_dense() for jo, _ in pairs], solve=ja.solve(r), solve_lhs=ja.solve(r, left),
+            inv_quad=ja.inv_quad(r), inv_quad_cols=ja.inv_quad(r, reduce_inv_quad=False),
+            iqld=ja.inv_quad_logdet(r, logdet=True), logdet=ja.logdet(),
+            jitter=jlo.add_jitter(ja, 0.2).to_dense(), diagonal=jlo.add_diagonal(ja, jnp.ones(25)).to_dense(),
+            fn_inv_quad=jlo.inv_quad(ja, r))
+
+    want = _jit(jax_side)(jnp.asarray(rhs), jnp.asarray(lhs))  # the JAX side in one jitted call
+    for (_, to), jdense in zip(pairs, want["dense"]):
+        _close(to.to_dense(), jdense, RTOL)
     assert type(ta * 3.0) is tops.ConstantMulLinearOperator
     assert type(-ta) is tops.ConstantMulLinearOperator
     # the public solves of any operator (dense: Cholesky at this size)
-    _close(ta.solve(torch.from_numpy(rhs)), ja.solve(jnp.asarray(rhs)), RTOL)
-    lhs = np.random.default_rng(13).normal(size=(2, 25))
-    _close(ta.solve(torch.from_numpy(rhs), torch.from_numpy(lhs)), ja.solve(jnp.asarray(rhs), jnp.asarray(lhs)), RTOL)
-    _close(ta.inv_quad(torch.from_numpy(rhs)), ja.inv_quad(jnp.asarray(rhs)), RTOL)
-    _close(
-        ta.inv_quad(torch.from_numpy(rhs), reduce_inv_quad=False),
-        ja.inv_quad(jnp.asarray(rhs), reduce_inv_quad=False),
-        RTOL,
-    )
-    for got, want in zip(ta.inv_quad_logdet(torch.from_numpy(rhs), logdet=True),
-                         ja.inv_quad_logdet(jnp.asarray(rhs), logdet=True)):
-        _close(got, want, RTOL)
-    _close(ta.logdet(), ja.logdet(), RTOL)
-    _close(tlo.add_jitter(ta, 0.2).to_dense(), jlo.add_jitter(ja, 0.2).to_dense(), RTOL)
-    _close(tlo.add_diagonal(ta, torch.ones(25)).to_dense(), jlo.add_diagonal(ja, jnp.ones(25)).to_dense(), RTOL)
-    _close(tlo.inv_quad(ta, torch.from_numpy(rhs)), jlo.inv_quad(ja, jnp.asarray(rhs)), RTOL)
+    _close(ta.solve(torch.from_numpy(rhs)), want["solve"], RTOL)
+    _close(ta.solve(torch.from_numpy(rhs), torch.from_numpy(lhs)), want["solve_lhs"], RTOL)
+    _close(ta.inv_quad(torch.from_numpy(rhs)), want["inv_quad"], RTOL)
+    _close(ta.inv_quad(torch.from_numpy(rhs), reduce_inv_quad=False), want["inv_quad_cols"], RTOL)
+    for got, jw in zip(ta.inv_quad_logdet(torch.from_numpy(rhs), logdet=True), want["iqld"]):
+        _close(got, jw, RTOL)
+    _close(ta.logdet(), want["logdet"], RTOL)
+    _close(tlo.add_jitter(ta, 0.2).to_dense(), want["jitter"], RTOL)
+    _close(tlo.add_diagonal(ta, torch.ones(25)).to_dense(), want["diagonal"], RTOL)
+    _close(tlo.inv_quad(ta, torch.from_numpy(rhs)), want["fn_inv_quad"], RTOL)
 
 
 def test_algebra_refuses_what_is_not_ported():

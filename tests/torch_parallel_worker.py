@@ -16,8 +16,15 @@ its mesh, runs the sharded neg_mll and its gradient under each
 preconditioner mode and on the Cholesky route, ``solve`` and its gradient,
 ``posterior`` and its gradient (beside the unsharded port's), and
 ``posterior_cache`` with ``posterior_from_cache`` (its SERVE settings),
-counting the collectives and the rows of every gathered block.  The rank
-writes ``OUT_DIR/rank<RANK>.json``.  Imports no JAX.
+counting the collectives and the rows of every gathered block.  A "ski" run
+takes one data set's x (n, 2), y, x_star, grid and raw parameters and runs
+the row-sharded SKI model's neg_mll and gradient under each of SKI_CASES and
+its LOVE posterior, with the collectives by name.  A "dkl" run holds a
+small DKL model's sharded neg_mll, its gradients and two
+``sharded_train_step`` steps with Adam against the unsharded port on the
+whole data.  The f64 exact-GP runs also return the rank's gradient in its
+own rows of a trainable x.  The rank writes ``OUT_DIR/rank<RANK>.json``.
+Imports no JAX.
 """
 
 import json
@@ -57,6 +64,21 @@ SERVE = {
     "cache": dict(max_cholesky_size=0, min_preconditioning_size=16, max_preconditioner_size=5,
                   cg_tolerance=1e-11, max_cg_iterations=200),
 }
+
+# the SKI cases: TestShardedSKI's settings (test_models_parallel.py: 4
+# probes, CG to 1e-6 at most 30, no preconditioner, 10 Lanczos steps), then
+# the pivoted and Nystrom preconditioners, the Cholesky route and LOVE
+SKI_CG = dict(max_cholesky_size=0, min_preconditioning_size=10**9, max_lanczos_quadrature_iterations=10)
+SKI_CASES = {
+    "cg": SKI_CG,
+    "pivoted": {**SKI_CG, "min_preconditioning_size": 16, "max_preconditioner_size": 5,
+                "preconditioner_mode": "pivoted"},
+    "nystrom": {**SKI_CG, "min_preconditioning_size": 16, "max_preconditioner_size": 8,
+                "preconditioner_mode": "nystrom"},
+    "cholesky": {**SKI_CG, "max_cholesky_size": 1000},
+    "posterior": {**SKI_CG, "cg_tolerance": 1e-11, "max_cg_iterations": 200},
+}
+DKL_HIDDEN = (8, 2)
 
 
 class _Iterations(logging.Handler):
@@ -158,6 +180,134 @@ def _serve(run, arrays, mesh, log, gathered):
     return out
 
 
+def _ski(run, arrays, mesh, log, gathered):
+    """The row-sharded SKI model on the rank's rows: per SKI case the loss
+    and gradient (ls (2,), outputscale, noise), or the posterior's mean and
+    variance, with the collectives, CG iterations and gathered blocks."""
+    x, y, x_star = (torch.from_numpy(arrays[k]) for k in ("x", "y", "x_star"))
+    xs, ys = shard_gp_batch(mesh, x, y)
+    out = {"rows": xs.shape[0]}
+    for case, over in SKI_CASES.items():
+        model = _ski_model(run, arrays)
+        log.iters.clear()
+        gathered.clear()
+        _comm.reset_counts()
+        res = {}
+        with _settings(**over), mesh:
+            if case == "posterior":
+                mean, var = model.posterior(xs, ys, x_star, generator=torch.Generator())
+                res["mean"], res["var"] = mean.tolist(), var.tolist()
+                res["counts"] = dict(_comm.counts)
+            else:
+                loss = model.neg_mll(xs, ys, generator=torch.Generator())
+                res["counts"] = dict(_comm.counts)
+                loss.backward()
+                res["loss"] = float(loss)
+                res["grads"] = _ski_grads(model)
+                res["backward_counts"] = {k: v - res["counts"].get(k, 0) for k, v in _comm.counts.items()
+                                          if v > res["counts"].get(k, 0)}
+        res["iters"], res["gathered"] = list(log.iters), list(gathered)
+        if case != "posterior":
+            # the unsharded port on the whole data set
+            ref = _ski_model(run, arrays)
+            with _settings(**over):
+                loss = ref.neg_mll(x, y, generator=torch.Generator())
+            loss.backward()
+            res["ref_loss"], res["ref_grads"] = float(loss), _ski_grads(ref)
+        out[case] = res
+    return out
+
+
+def _ski_model(run, arrays):
+    grid = lo.GridSpec(*(torch.from_numpy(arrays[k]) for k in ("mins", "maxs")), tuple(arrays["sizes"]))
+    model = lo.SKIGPRegression(grid, run["interp"], dtype=torch.float64, device="cpu")
+    with torch.no_grad():
+        model.raw_lengthscale.copy_(torch.from_numpy(arrays["ls"]))
+        model.raw_outputscale.fill_(float(arrays["params"][1]))
+        model.raw_noise.fill_(float(arrays["params"][2]))
+    return model
+
+
+def _ski_grads(model):
+    return [*model.raw_lengthscale.grad.tolist(), float(model.raw_outputscale.grad), float(model.raw_noise.grad)]
+
+
+def _dkl_model(arrays, d_in):
+    model = lo.DeepKernelGPRegression(d_in, DKL_HIDDEN, dtype=torch.float64, device="cpu",
+                                      materialize_threshold=None, block_rows=8, use_fused_kernels=False)
+    layers = [m for m in model.mlp if isinstance(m, torch.nn.Linear)]
+    with torch.no_grad():
+        for i, layer in enumerate(layers):
+            layer.weight.copy_(torch.from_numpy(arrays[f"w{i}"]).T)
+            layer.bias.copy_(torch.from_numpy(arrays[f"b{i}"]))
+        for name, value in zip(("raw_lengthscale", "raw_outputscale", "raw_noise"), arrays["params"]):
+            getattr(model.gp, name).fill_(float(value))
+    return model
+
+
+def _dkl_grads(model):
+    """The gradients in the JAX package's layout: each layer's weights
+    (in, out), then the biases, then the GP head's."""
+    layers = [m for m in model.mlp if isinstance(m, torch.nn.Linear)]
+    parts = [layer.weight.grad.T for layer in layers] + [layer.bias.grad for layer in layers]
+    parts += [getattr(model.gp, n).grad for n in ("raw_lengthscale", "raw_outputscale", "raw_noise")]
+    return torch.cat([p.reshape(-1) for p in parts]).tolist()
+
+
+def _dkl(run, arrays, mesh, log):
+    """DKL on the rank's block: the sharded neg_mll, every gradient (MLP
+    shares summed over the mesh as the training step sums them), then two
+    ``sharded_train_step`` steps with Adam beside two unsharded Adam steps
+    on the whole data."""
+    x, y = (torch.from_numpy(arrays[k]) for k in ("x", "y"))
+    xs, ys = shard_gp_batch(mesh, x, y)
+    d_in = x.shape[-1]
+    out = {}
+    model = _dkl_model(arrays, d_in)
+    _comm.reset_counts()
+    log.iters.clear()
+    with _settings(), mesh:
+        loss = model.neg_mll(xs, ys, generator=torch.Generator())
+    forward = dict(_comm.counts)
+    loss.backward()
+    out.update(loss=float(loss), counts=forward, iters=list(log.iters),
+               backward_counts={k: v - forward.get(k, 0) for k, v in _comm.counts.items() if v > forward.get(k, 0)})
+    steps = []
+    for sharded in (True, False):
+        model = _dkl_model(arrays, d_in)
+        opt = torch.optim.Adam(model.parameters(), lr=LR)
+        if sharded:
+            step = sharded_train_step(model, opt, mesh)
+        for i in range(2):
+            with _settings():
+                if sharded:
+                    step(xs, ys, generator=torch.Generator())
+                else:
+                    opt.zero_grad()
+                    model.neg_mll(x, y, generator=torch.Generator()).backward()
+                    opt.step()
+            if i == 0:
+                out["step_grads" if sharded else "ref_grads"] = _dkl_grads(model)
+        steps.append(torch.cat([p.detach().reshape(-1) for p in model.parameters()]).tolist())
+    out["step_params"], out["ref_params"] = steps
+    return out
+
+
+def _x_grad(run, arrays, mesh, xs, ys, dtype):
+    """The exact GP's gradient in a trainable x: the rank's rows of its
+    batch (shares over data are its own batch's)."""
+    model = _model(run, arrays, dtype)
+    x_r = xs.clone().requires_grad_(True)
+    _comm.reset_counts()
+    with _settings(), mesh:
+        loss = model.neg_mll(x_r, ys, generator=torch.Generator())
+    forward = dict(_comm.counts)
+    loss.backward()
+    return dict(x_grad=x_r.grad.tolist(), x_grads=_grads(model),
+                x_backward_counts={k: v - forward.get(k, 0) for k, v in _comm.counts.items()
+                                   if v > forward.get(k, 0)})
+
+
 def main():
     rank, world, port = (int(a) for a in sys.argv[1:4])
     spec = json.loads(Path(sys.argv[4]).read_text())
@@ -170,6 +320,8 @@ def main():
 
     def randn(*size, dtype=None, device=None, generator=None):
         shape = tuple(size[0]) if len(size) == 1 and not isinstance(size[0], int) else tuple(size)
+        if shape not in probes_by_shape:  # a draw the JAX side makes no copy of (DKL's initial MLP)
+            return real_randn(shape, dtype=dtype, device=device, generator=generator)
         return torch.from_numpy(probes_by_shape[shape]).to(dtype=dtype, device=device)
 
     torch.randn = randn
@@ -199,6 +351,16 @@ def main():
 
     results = {}
     for run in spec["runs"]:
+        if run.get("ski") or run.get("dkl"):
+            prefix = f"{run['case']}_"
+            arrays = {k[len(prefix):]: data[k] for k in data.files if k.startswith(prefix)}
+            probes_by_shape.clear()
+            probes_by_shape.update({v.shape: v for k, v in arrays.items() if k.startswith("draw")})
+            layout = run["layout"]
+            mesh = make_mesh(None, data=layout[0], model=layout[1], probe=layout[2], device="cpu")
+            results[run["name"]] = (_ski(run, arrays, mesh, log, gathered) if run.get("ski")
+                                    else _dkl(run, arrays, mesh, log))
+            continue
         if run.get("serve"):
             arrays = {k: data[f"{run['case']}_{k}"] for k in ("x", "y", "x_star", "rhs", "w", "params")}
             probes_by_shape.clear()
@@ -251,12 +413,15 @@ def main():
             step_loss = step(xs, ys, generator=torch.Generator())
         out.update(step_loss=float(step_loss), step_grads=_grads(model),
                    step_params=[float(p) for p in (model.raw_lengthscale, model.raw_outputscale, model.raw_noise)])
+        if dtype == torch.float64:
+            out.update(_x_grad(run, arrays, mesh, xs, ys, dtype))
 
         if run.get("raises"):
             raised = {}
             other = lo.DenseLinearOperator(torch.eye(x.shape[1], dtype=dtype).expand(xs.shape[0], -1, -1))
             for label, over, call in [
-                ("x gradient", {}, lambda m: m.neg_mll(xs.clone().requires_grad_(True), ys)),
+                ("posterior_distribution", {}, lambda m: m.posterior_distribution(xs, ys, xs[..., :3, :])),
+                ("forward root", {}, lambda m: m.train_operator(xs).root_decomposition()),
                 ("indexing", {}, lambda m: m.train_operator(xs)[..., :3, :3]),
                 ("cat_rows", {}, lambda m: m.train_operator(xs).cat_rows(xs[..., :3, :1], ys[..., :1, None])),
                 ("sum", {}, lambda m: m.train_operator(xs) + other),
