@@ -165,8 +165,17 @@ Phases, each reported on its own line:
     iteration, no gathered vector, no kernel); DKL at 18e's width on (1, 2)
     through ``sharded_train_step`` (19i: K1 a CG iteration, K1 and two K2 a
     backward, the features' gradient back to their ranks), and its LOVE
-    cache; K1 and K2 at the sharded shapes against their plain
-    versions, timed beside their bounds (ms_sharded in the kernels line);
+    cache; (19j) posterior_distribution at N = 100,000, m = 1024, k = 100
+    on (1, 2) (the LOVE cache and one all-reduce of (m, 1 + k), its mean,
+    variance, covariance times a probe, draws and log_prob), the forward
+    root's R R^T v and the inverse root's backward (K1 a Lanczos step, K1
+    and K2 in the backward, one row sum of S^T S); (19k) the blocked
+    pivoted sweep (rank 24, block 8) at n = 8192 and N = 100,000, its
+    pivots as the unsharded sweep's, and config 5's step under it; (19l)
+    SKI at config 4b with x's gradient through the interpolation weights
+    (one more sum of W_R^T left); K1 and K2 at the sharded shapes against
+    their plain versions, timed beside their bounds (ms_sharded in the
+    kernels line);
  7. one JSON line listing every ported kernel with its launches (K3's and
     K1's including phases 12, 13, 18e and 19), error, times and bound (bound_basis:
     the f32 rate for K4, the tensor cores' for K1, K2, K3 and K5; K5's t = 1
@@ -373,6 +382,23 @@ SKI_LOSS_RTOL, SKI_LOSS_ATOL, SKI_GRAD_RTOL, SKI_GRAD_ATOL, SKI_SERVE_ITERS = 1e
 # at lengthscale 0.127 and the model's noise CG's unconverged iterations put
 # the f64 runs further apart than SHARDED_F64_RTOL
 SKI_HELD_RAW = (math.log(math.expm1(0.05)), math.log(math.expm1(1.0)))
+# 19j, k and l (the roots, the blocked sweep and SKI's weights on the
+# row-sharded operator), each against the unsharded run in the same rank
+# process.  19j: posterior_distribution at N, M_LOVE queries, LOVE_K, at
+# SHARDED_RAW_LS under the serve settings, its mean, variance, covariance
+# times a probe and draws held to SERVE_RTOL of their largest, its log_prob
+# (on the Cholesky route of the m x m, ROOTS_LOG_PROB_CHOLESKY) to
+# SERVE_RTOL of its size; the forward root's R R^T v to SERVE_RTOL; the
+# gradient of |S^T w|^2 through the inverse root (100 f32 Lanczos steps, S
+# weighting K's small eigenvalues) to SHARDED_F32_ATOL + SHARDED_F32_RTOL,
+# beside the unsharded run's distance from itself (measured on an H100:
+# sharded 0.9e-4-1.2e-3 of each gradient).  19k: the blocked pivoted sweep at BLOCK_RANK and
+# BLOCK_SIZE (tests/solvers/test_lanczos_slq.py:126-136), its pivots in f64
+# equal to the unsharded sweep's and its factor's rows to SHARDED_F64_RTOL,
+# config 5's step under it in f32 held as 19e.  19l: SKI's x gradient at
+# SKI_HELD_RAW, f64 to SHARDED_F64_RTOL and f32 to SKI_GRAD_RTOL of its
+# largest, beside the unsharded f32 run's distance from itself
+BLOCK_RANK, BLOCK_SIZE, ROOTS_LOG_PROB_CHOLESKY = 24, 8, M_LOVE
 HARNESS_KERNEL_TOLERANCES = {
     "matmul": {"rtol": 1e-4, "atol": 2e-4},
     "grad": {"rtol": 1e-3, "atol": 1e-3},
@@ -2670,7 +2696,7 @@ def _sharded_worker(argv) -> None:
     for lay in spec.get("layouts", []):
         started = time.perf_counter()
         mesh = make_mesh(data=lay["data"], model=lay["model"], probe=lay["probe"])
-        if lay.get("ski") or lay.get("dkl"):
+        if lay.get("ski") or lay.get("dkl") or lay.get("roots") or lay.get("blocked"):
             def reset():
                 rbf.reset_launch_counts()
                 _comm.reset_counts()
@@ -2678,7 +2704,8 @@ def _sharded_worker(argv) -> None:
 
             w = types.SimpleNamespace(torch=torch, lo=lo, settings=settings, _comm=_comm, dev=dev, dist=dist,
                                       mesh=mesh, log=log, counts=counts, reset=reset)
-            res = (_ski_layout if lay.get("ski") else _dkl_layout)(w, lay)
+            res = (_ski_layout if lay.get("ski") else _dkl_layout if lay.get("dkl")
+                   else _roots_layout if lay.get("roots") else _blocked_layout)(w, lay)
             res["seconds"] = time.perf_counter() - started
             results[lay["name"]] = res
             torch.cuda.empty_cache()
@@ -2893,6 +2920,37 @@ def _ski_layout(w, lay) -> dict:
                     grads=[*mdl.raw_lengthscale.grad.tolist(), float(mdl.raw_outputscale.grad),
                            float(mdl.raw_noise.grad)])
 
+    if lay.get("x_grad"):
+        # 19l: x requires a gradient, which reaches it through the
+        # interpolation weights; at SKI_HELD_RAW, f32 (the unsharded run
+        # twice) and f64
+        rows = w.mesh.block(torch.arange(lay["n"])[:, None], batch=False, rows=True, cols=False)[:, 0].to(dev)
+
+        def grad_run(dtype, sharded):
+            mdl = model(dtype, held=True)
+            xx, yy = (xs, ys) if sharded else (x, y)
+            xx = xx.to(dtype).clone().requires_grad_(True)
+            w.reset()
+            with _sharded_settings(settings, lay["hold"]), (w.mesh if sharded else contextlib.nullcontext()):
+                loss = mdl.neg_mll(xx, yy.to(dtype), generator=torch.Generator(device=dev).manual_seed(81))
+            fwd, comm = w.counts(), dict(_comm.counts)
+            loss.backward()
+            grad = xx.grad if sharded else xx.grad[rows]
+            return dict(loss=float(loss), x_grad=grad.double(), iters=list(w.log.counts), fwd=fwd, comm=comm,
+                        bwd={k: v - fwd[k] for k, v in w.counts().items()},
+                        comm_bwd={k: v - comm.get(k, 0) for k, v in _comm.counts.items() if v > comm.get(k, 0)})
+
+        for tag, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+            runs = dict(unsharded=grad_run(dtype, False), sharded=grad_run(dtype, True))
+            if dtype == torch.float32:
+                runs["again"] = grad_run(dtype, False)
+            ref = runs["unsharded"]["x_grad"]
+            for r in runs.values():
+                r["err"] = float((r.pop("x_grad") - ref).abs().max() / ref.abs().max())
+                r["finite"] = math.isfinite(r["err"])
+            out[tag] = runs
+        out["step_s"] = _timed_call(w, lambda: grad_run(torch.float32, True), 1)
+        return out
     if lay.get("serve"):
         xq = torch.rand(M_LOVE, 2, device=dev, generator=g)
         for label, xx, yy in (("unsharded", x, y), ("sharded", xs, ys)):
@@ -2925,6 +2983,162 @@ def _ski_layout(w, lay) -> dict:
     out["step_s"] = _timed_call(w, lambda: run(torch.float32, True), SHARDED_STEP_REPS)
     u = torch.ones((G_SKI * G_SKI, PROBES + 1), device=dev)
     out["interp_ms"] = 1e3 * _timed_call(w, lambda: _comm.all_reduce(u, w.mesh.group("model"), name="timing"), 20)
+    return out
+
+
+def _exact_model(w, fused: bool, raw_ls=None):
+    mdl = w.lo.ExactGPRegression(block_rows=8192 if fused else 2048, materialize_threshold=None,
+                                 use_fused_kernels=fused, dtype=w.torch.float32 if fused else w.torch.float64,
+                                 device=w.dev)
+    if raw_ls is not None:
+        with w.torch.no_grad():
+            mdl.raw_lengthscale.fill_(raw_ls)
+    return mdl
+
+
+def _roots_layout(w, lay) -> dict:
+    """19j on (1, 2): ``posterior_distribution`` (the LOVE cache, then the
+    mean and the downdate root from one all-reduce of (m, 1 + k)) at N
+    training points and M_LOVE queries under the serve settings at
+    SHARDED_RAW_LS, its mean, variance, covariance times a probe, draws
+    under one generator and log_prob; the forward root's R R^T v (the
+    rank's rows); the gradient of |S^T w|^2 through the inverse root; each
+    unsharded and sharded on the same data, with launches, collectives and
+    seconds."""
+    torch, settings, _comm, dev = w.torch, w.settings, w._comm, w.dev
+    from linear_operator_tpu_torch.parallel import shard_gp_batch
+
+    g = torch.Generator().manual_seed(194)
+    x = torch.randn((lay["n"], D), generator=g)
+    y = torch.sin(3.0 * x[:, 0]) + 0.1 * torch.randn(lay["n"], generator=g)
+    vw = torch.randn((lay["n"], 2), generator=g)
+    xs, ys = shard_gp_batch(w.mesh, x, y)
+    vw_r = w.mesh.block(vw, batch=False, rows=True, cols=False).to(dev)
+    x, y, vw = x.to(dev), y.to(dev), vw.to(dev)
+    xq = torch.randn((lay["m"], D), generator=g).to(dev)
+    probe = torch.randn((lay["m"], 1), generator=g).to(dev)
+    group = w.mesh.group("model")
+    out = dict(rows=xs.shape[0])
+    for label, xx, yy, v in (("unsharded", x, y, vw), ("sharded", xs, ys, vw_r)):
+        sharded = label == "sharded"
+        scope = w.mesh if sharded else contextlib.nullcontext()
+        total = (lambda t: _comm.sum_shares(t, group)) if sharded else (lambda t: t)
+        run, parts = {}, {}
+
+        def part(name, fn):
+            w.reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = fn()
+            torch.cuda.synchronize()
+            parts[name] = dict(s=time.perf_counter() - t0, launches=w.counts(), comm=dict(_comm.counts),
+                               iters=list(w.log.counts))
+            return got
+
+        mdl = _exact_model(w, True, SHARDED_RAW_LS)
+        with _sharded_settings(settings, "serve"), scope, torch.no_grad():
+            dist = part("build", lambda: mdl.posterior_distribution(
+                xx, yy, xq, generator=torch.Generator(device=dev).manual_seed(195)))
+            run["mean"], run["var"] = dist.mean, dist.variance
+            run["cov_probe"] = dist.lazy_covariance_matrix.matmul(probe)[:, 0]
+            run["draws"] = part("rsample", lambda: dist.rsample(
+                (PRED_SAMPLES,), generator=torch.Generator(device=dev).manual_seed(196)))
+            with settings.max_cholesky_size(ROOTS_LOG_PROB_CHOLESKY):
+                run["log_prob"] = part("log_prob", lambda: dist.log_prob(dist.mean + 0.1 * probe[:, 0]))[None]
+            K = mdl.train_operator(xx)
+            R = part("root", lambda: K.root_decomposition(
+                generator=torch.Generator(device=dev).manual_seed(197)).root.to_dense())
+            run["rrv"] = R @ total(R.mT @ v[:, :1])[..., 0]
+        for tag in ("inv_root", "again") if not sharded else ("inv_root",):
+            # the unsharded run twice: K3's atomic sums move it from run to run
+            mdl = _exact_model(w, True, SHARDED_RAW_LS)
+            with _sharded_settings(settings, "serve"), scope:
+                def inverse():
+                    S = mdl.train_operator(xx).root_inv_decomposition(
+                        generator=torch.Generator(device=dev).manual_seed(198)).root.to_dense()
+                    proj = total(S.mT @ v[:, 1:])
+                    torch.sum(proj * proj).backward()
+
+                part(tag, inverse)
+            run["grads" if tag == "inv_root" else "again"] = [
+                float(p.grad) for p in (mdl.raw_lengthscale, mdl.raw_outputscale, mdl.raw_noise)]
+        run = {k: (t.double().cpu() if torch.is_tensor(t) else t) for k, t in run.items()}
+        run["parts"] = parts
+        out[label] = run
+    ref, got = out["unsharded"], out["sharded"]
+    rows = w.mesh.block(torch.arange(lay["n"])[:, None], batch=False, rows=True, cols=False)[:, 0]
+    ref["rrv"] = ref["rrv"][rows]
+    got["err"] = {k: float((got[k] - ref[k]).abs().max() / ref[k].abs().max())
+                  for k in ("mean", "var", "cov_probe", "draws", "log_prob", "rrv")}
+    got["grad_err"] = [abs(a - b) for a, b in zip(got["grads"], ref["grads"])]
+    ref["grad_spread"] = [abs(a - b) for a, b in zip(ref["again"], ref["grads"])]
+    got["finite"] = all(bool(torch.isfinite(got[k]).all()) for k in ("mean", "var", "draws", "log_prob", "rrv"))
+    # the same on every rank: the mean and the variance to the bit; the
+    # draws (K3's atomic sums on each rank's m x m) to SERVE_RTOL
+    got["digest"] = [float(got[k].sum()) for k in ("mean", "var")]
+    got["draws_head"] = got["draws"][:, :8].tolist()
+    for r in (got, ref):
+        for k in ("mean", "var", "cov_probe", "draws", "log_prob", "rrv"):
+            del r[k]
+    return out
+
+
+def _blocked_layout(w, lay) -> dict:
+    """19k on (1, 2) at lay["n"] points (config 5's data): the blocked
+    pivoted sweep at BLOCK_RANK and BLOCK_SIZE, sharded (the rank's rows, a
+    pool choice and a fetch a sweep) and unsharded, in f64 and f32, its
+    pivots and factor; then config 5's step under
+    ``pivoted_cholesky_block_size(BLOCK_SIZE)`` with rank BLOCK_RANK at
+    SHARDED_RAW_LS in f32 on the fused kernels, unsharded and sharded, with
+    its launches, collectives and seconds."""
+    torch, settings, _comm, dev = w.torch, w.settings, w._comm, w.dev
+    from linear_operator_tpu_torch.parallel import shard_gp_batch
+    from linear_operator_tpu_torch.solvers.pivoted_cholesky import blocked_pivoted_cholesky_with_pivots
+
+    g = torch.Generator().manual_seed(199)
+    x = torch.randn((lay["n"], D), generator=g)
+    y = torch.sin(3.0 * x[:, 0]) + 0.1 * torch.randn(lay["n"], generator=g)
+    xs, ys = shard_gp_batch(w.mesh, x, y)
+    x, y = x.to(dev), y.to(dev)
+    rows = w.mesh.block(torch.arange(lay["n"])[:, None], batch=False, rows=True, cols=False)[:, 0]
+    out = dict(rows=xs.shape[0])
+    for tag, fused in (("f64", False), ("f32", True)):
+        cast = (lambda t: t) if fused else (lambda t: t.double())
+        mdl = _exact_model(w, fused)
+        with w.mesh:
+            K = mdl.train_operator(cast(xs)).detach()
+            w.reset()
+            t0 = time.perf_counter()
+            L, piv = K.pivoted_factor(BLOCK_RANK, BLOCK_SIZE)
+        torch.cuda.synchronize()
+        secs, comm = time.perf_counter() - t0, dict(_comm.counts)
+        t0 = time.perf_counter()
+        L_ref, piv_ref = blocked_pivoted_cholesky_with_pivots(mdl.covariance(cast(x)).detach(), BLOCK_RANK, None,
+                                                              BLOCK_SIZE)
+        torch.cuda.synchronize()
+        ref_s = time.perf_counter() - t0
+        out[tag] = dict(pivots=piv.tolist(), ref_pivots=piv_ref.tolist(), comm=comm, s=secs, ref_s=ref_s,
+                        err=float((L - L_ref[rows.to(dev)]).abs().max() / L_ref.abs().max()))
+        del L, L_ref
+
+    def step(sharded):
+        mdl = _exact_model(w, True, SHARDED_RAW_LS)
+        w.reset()
+        stack = _sharded_settings(settings, "default")
+        stack.enter_context(settings.max_preconditioner_size(BLOCK_RANK))
+        stack.enter_context(settings.pivoted_cholesky_block_size(BLOCK_SIZE))
+        with stack, (w.mesh if sharded else contextlib.nullcontext()):
+            loss = mdl.neg_mll(xs if sharded else x, ys if sharded else y,
+                               generator=torch.Generator(device=dev).manual_seed(191))
+        fwd, comm, iters = w.counts(), dict(_comm.counts), list(w.log.counts)
+        loss.backward()
+        return dict(loss=float(loss), iters=iters, fwd=fwd, comm=comm,
+                    grads=[float(p.grad) for p in (mdl.raw_lengthscale, mdl.raw_outputscale, mdl.raw_noise)],
+                    bwd={k: v - fwd[k] for k, v in w.counts().items()},
+                    comm_bwd={k: v - comm.get(k, 0) for k, v in _comm.counts.items() if v > comm.get(k, 0)})
+
+    out["unsharded"], out["sharded"] = step(False), step(True)
+    out["step_s"] = _timed_call(w, lambda: step(True), 1)
     return out
 
 
@@ -3103,7 +3317,12 @@ def phase_sharded(c) -> None:
     LOVE posterior at m = 1024 on (1, 2) at SKI_HELD_RAW; (i) DKL at 18e's
     width on (1, 2): one sharded_train_step against one unsharded step, at
     the model's noise (reported) and at DKL_HELD_NOISE (held), its launches
-    and collectives, and the LOVE cache and a query at DKL_HELD_NOISE."""
+    and collectives, and the LOVE cache and a query at DKL_HELD_NOISE.
+    (j) posterior_distribution, the forward root and the inverse root's
+    backward at N = 100,000 on (1, 2) (_roots_layout), (k) the blocked
+    pivoted sweep and config 5's step under it at n = 8192 and N = 100,000
+    (_blocked_layout), (l) SKI at config 4b with x's gradient (_ski_layout),
+    each held against the unsharded run in the same process."""
     import tempfile
 
     torch, rbf = c.torch, c.rbf
@@ -3152,7 +3371,14 @@ def phase_sharded(c) -> None:
                      ski(f"h 2 ranks (1, 2) SKI linear n={N_SKI} default settings", 2, "linear", "default"),
                      ski(f"h 2 ranks (1, 2) SKI linear n={N_SKI} LOVE m={M_LOVE}", 2, "linear", serve=True),
                      dict(name=f"i 2 ranks (1, 2) DKL N={N_DKL} hidden {HIDDEN_DKL}", data=1, model=2, probe=None,
-                          n=N_DKL, dkl=True)]),
+                          n=N_DKL, dkl=True),
+                     dict(name=f"j 2 ranks (1, 2) N={N} posterior_distribution m={M_LOVE} k={LOVE_K}", data=1,
+                          model=2, probe=None, n=N, m=M_LOVE, roots=True),
+                     dict(name=f"k 2 ranks (1, 2) n={N_SHARDED} blocked sweep", data=1, model=2, probe=None,
+                          n=N_SHARDED, blocked=True),
+                     dict(name=f"k 2 ranks (1, 2) N={N} blocked sweep", data=1, model=2, probe=None, n=N,
+                          blocked=True),
+                     dict(ski(f"l 2 ranks (1, 2) SKI linear n={N_SKI} x's gradient", 2, "linear"), x_grad=True)]),
         (4, shared, [layout("c 4 ranks (2, 2) n=8192", 2, 2, None, N_SHARDED, "dryrun"),
                      layout("c 4 ranks (1, 2, 2) n=8192", 1, 2, 2, N_SHARDED, "dryrun"),
                      layout("e 4 ranks (2, 2) n=8192 default settings", 2, 2, None, N_SHARDED, "default", False),
@@ -3170,6 +3396,7 @@ def phase_sharded(c) -> None:
         for lay in layouts:
             ranks = [r[lay["name"]] for r in results]
             check = (_check_ski if lay.get("ski") else _check_dkl if lay.get("dkl")
+                     else _check_roots if lay.get("roots") else _check_blocked if lay.get("blocked")
                      else _check_served if lay.get("serve") else _check_sharded)
             problems += check(c, lay, ranks)
     torch.cuda.empty_cache()
@@ -3348,6 +3575,28 @@ def _check_ski(c, lay, ranks) -> list:
     one in the backward, no gathered vector.  With lay["serve"], the LOVE
     posterior to SERVE_RTOL."""
     problems, name, first = [], lay["name"], ranks[0]
+    if lay.get("x_grad"):
+        for tag, tol in (("f32", SKI_GRAD_RTOL), ("f64", SHARDED_F64_RTOL)):
+            runs = first[tag]
+            got, ref = runs["sharded"], runs["unsharded"]
+            spread = f", the unsharded run against itself {runs['again']['err']:.2e}" if "again" in runs else ""
+            say(f"  {name}, {tag} at the held point: x's gradient (the rank's rows) {got['err']:.2e} of its largest "
+                f"from the unsharded run's (held to {tol}){spread}; loss {got['loss']:.10f}, unsharded "
+                f"{ref['loss']:.10f}; CG iterations {got['iters']} (unsharded {ref['iters']}); backward collectives "
+                f"{got['comm_bwd']}; launches {got['fwd']} / {got['bwd']}")
+            for r, rank in enumerate(ranks):
+                run = rank[tag]["sharded"]
+                if not (run["finite"] and run["err"] <= tol):
+                    problems.append(f"{name} rank {r}, {tag}: x's gradient lies {run['err']:.2e} from the unsharded")
+                if (run["comm_bwd"].get("interp", 0) != 1 or run["comm_bwd"].get("interp_left", 0) != 1
+                        or run["comm_bwd"].get("all_gather", 0) or any(run["fwd"].values())
+                        or any(run["bwd"].values())):
+                    problems.append(f"{name} rank {r}, {tag}: backward collectives {run['comm_bwd']}, launches "
+                                    f"{run['fwd']} / {run['bwd']}: the design implies one interp and one "
+                                    "interp_left sum, no gather, no kernel")
+        say(f"    with x's gradient: {', '.join('%.3f' % (1.0 / r['step_s']) for r in ranks)} solves/s by rank, "
+            f"forward and backward (ranks share one card: no scaling); the layout took {first['seconds']:.1f} s")
+        return problems
     if lay.get("serve"):
         ref, got = first["unsharded"], first["sharded"]
         its = got["iters"][0] if got["iters"] else -1
@@ -3406,6 +3655,120 @@ def _check_ski(c, lay, ranks) -> list:
         f"backward, warm, {SHARDED_STEP_REPS} repetitions; ranks share one card: no scaling): "
         f"{', '.join('%.3f' % (1.0 / r['step_s']) for r in ranks)} (by rank); one interpolation sum of "
         f"({G_SKI * G_SKI}, {PROBES + 1}) {first['interp_ms']:.3f} ms; the layout took {first['seconds']:.1f} s")
+    return problems
+
+
+def _check_roots(c, lay, ranks) -> list:
+    """19j's holds on the ranks of (1, 2): posterior_distribution's mean,
+    variance, covariance times a probe, draws and log_prob, the forward
+    root's R R^T v and the inverse root's gradient against the unsharded
+    run's, the same on both ranks; the launches the design implies (the
+    LOVE cache's and two K1 a distribution on each rank, no K3; a draw's K3
+    on the replicated m x m, as unsharded; K1 a Lanczos step of a root, K1
+    and K2 in the inverse root's backward) and the collectives (one
+    all-reduce of (m, 1 + k) beyond the cache's; none in a draw or a
+    density; one row sum of S^T S in the backward)."""
+    problems, name, first = [], lay["name"], ranks[0]
+    ref, got = first["unsharded"], first["sharded"]
+    gp, rp = got["parts"], ref["parts"]
+    its = gp["build"]["iters"][0] if gp["build"]["iters"] else -1
+    k = LOVE_K
+    say(f"  {name} (CG to {SERVE_CG_TOL}, held to {SERVE_RTOL} of each one's largest): "
+        + ", ".join(f"{key} {err:.3e}" for key, err in got["err"].items())
+        + f" from the unsharded run; the inverse root's gradient |diff| {['%.2e' % e for e in got['grad_err']]} "
+          f"(of {['%.4e' % g for g in ref['grads']]}; the unsharded run against itself "
+          f"{['%.2e' % e for e in ref['grad_spread']]}; held to {SHARDED_F32_ATOL} + {SHARDED_F32_RTOL} of each); "
+          f"CG iterations {gp['build']['iters']} (unsharded {rp['build']['iters']})")
+    for part in ("build", "rsample", "log_prob", "root", "inv_root"):
+        say(f"    {part}: launches {gp[part]['launches']} (unsharded {rp[part]['launches']}); collectives "
+            f"{gp[part]['comm']}; {gp[part]['s']:.3f} s on rank 0 (unsharded {rp[part]['s']:.3f} s; ranks share one "
+            f"card: no scaling)")
+    say(f"    {1.0 / gp['build']['s']:.3f} distributions/s and {PRED_SAMPLES / gp['rsample']['s']:.1f} draws/s a rank "
+        f"(ranks share one card); the layout took {first['seconds']:.1f} s")
+    if not (got["finite"] and max(got["err"].values()) <= SERVE_RTOL):
+        problems.append(f"{name}: the sharded distribution or root lies {got['err']} from the unsharded run")
+    if not all(e <= SHARDED_F32_ATOL + SHARDED_F32_RTOL * abs(b) for e, b in zip(got["grad_err"], ref["grads"])):
+        problems.append(f"{name}: the inverse root's gradient lies {got['grad_err']} from the unsharded one")
+    if len(gp["build"]["iters"]) != 1 or abs(its - rp["build"]["iters"][0]) > SERVE_ITERS:
+        problems.append(f"{name}: CG iterations {gp['build']['iters']} against {rp['build']['iters']}")
+    for r, rank in enumerate(ranks):
+        parts = rank["sharded"]["parts"]
+        head, head0 = _max_diff(rank["sharded"]["draws_head"], got["draws_head"])
+        if rank["sharded"]["digest"] != got["digest"] or head > SERVE_RTOL * head0:
+            problems.append(f"{name}: rank {r}'s outputs differ from rank 0's (draws by {head:.2e})")
+        want = {
+            "build": (dict(K1=its + k + 2, K3=0, K2=0), dict(posterior_distribution=1, lanczos=4 * k + 1)),
+            "rsample": (rp["rsample"]["launches"], {}),
+            "log_prob": (dict(K1=0, K3=0, K2=0), {}),
+            "root": (dict(K1=k, K3=0, K2=0), dict(lanczos=4 * k + 1)),
+        }
+        for part, (launches, comm) in want.items():
+            got_comm = parts[part]["comm"]
+            if parts[part]["launches"] != launches or any(got_comm.get(key, 0) != v for key, v in comm.items()) \
+                    or (not comm and got_comm):
+                problems.append(f"{name} rank {r}, {part}: launches {parts[part]['launches']}, collectives "
+                                f"{got_comm}; the design implies {launches}, {comm or 'none'}")
+        inv = parts["inv_root"]
+        if inv["launches"]["K3"] or inv["launches"]["K1"] < k + 1 or not inv["launches"]["K2"] \
+                or inv["comm"].get("root_grad") != 1:
+            problems.append(f"{name} rank {r}, the inverse root: launches {inv['launches']}, collectives "
+                            f"{inv['comm']}; the design implies K1 a Lanczos step and in the backward, K2 in the "
+                            "backward, no K3, one root_grad sum")
+        for part in parts.values():
+            for key in ("K1", "K2", "K3"):
+                c.launches[key] += part["launches"][key]
+    return problems
+
+
+def _max_diff(a, b) -> tuple:
+    """(max |a - b|, max |b|) over two nested lists of numbers."""
+    flat_a = [v for row in a for v in row]
+    flat_b = [v for row in b for v in row]
+    return max(abs(p - q) for p, q in zip(flat_a, flat_b)), max(abs(q) for q in flat_b)
+
+
+def _check_blocked(c, lay, ranks) -> list:
+    """19k's holds on the ranks of (1, 2): the blocked sweep's pivots (f64)
+    equal to the unsharded sweep's, its factor's rows to SHARDED_F64_RTOL,
+    one pool choice and one fetch a sweep; config 5's step under it held
+    as 19e (SHARDED_LOSS_RTOL, SHARDED_GRAD_RTOL + SHARDED_GRAD_ATOL) with
+    the unsharded CG iterations, K1 a CG iteration and no K3 on each rank."""
+    problems, name, first = [], lay["name"], ranks[0]
+    for tag in ("f64", "f32"):
+        b = first[tag]
+        same = sum(p == q for p, q in zip(b["pivots"], b["ref_pivots"]))
+        say(f"  {name}, the blocked sweep (rank {BLOCK_RANK}, block {BLOCK_SIZE}) in {tag}: {same} of "
+            f"{len(b['ref_pivots'])} pivots as unsharded (first {b['pivots'][:6]}); the factor's rows "
+            f"{b['err']:.2e} of its largest from the unsharded one; collectives {b['comm']}; {b['s']:.3f} s "
+            f"(unsharded {b['ref_s']:.3f} s)")
+    for r, rank in enumerate(ranks):
+        b = rank["f64"]
+        if b["pivots"] != b["ref_pivots"] or not b["err"] <= SHARDED_F64_RTOL:
+            problems.append(f"{name} rank {r}: the f64 sweep's pivots or factor differ from the unsharded sweep's")
+        sweeps = b["comm"].get("pool", 0)
+        if set(b["comm"]) != {"top", "pool"} or b["comm"]["top"] not in (sweeps, sweeps + 1) or sweeps < 3:
+            problems.append(f"{name} rank {r}: the sweep made collectives {b['comm']}, not one pool choice and "
+                            "one fetch a sweep")
+    ref, got = first["unsharded"], first["sharded"]
+    dl = abs(got["loss"] - ref["loss"])
+    dg = [abs(a - b) for a, b in zip(got["grads"], ref["grads"])]
+    its = got["iters"][0] if got["iters"] else -1
+    say(f"    config 5's step under it (f32, lengthscale {math.log1p(math.exp(SHARDED_RAW_LS)):.3f}): loss "
+        f"{got['loss']:.10f}, unsharded {ref['loss']:.10f}, |diff| {dl:.2e}; gradients |diff| "
+        f"{['%.2e' % e for e in dg]}; CG iterations {got['iters']} (unsharded {ref['iters']}); launches "
+        f"{got['fwd']} / {got['bwd']} (unsharded {ref['fwd']} / {ref['bwd']}); collectives {got['comm']}, "
+        f"backward {got['comm_bwd']}; {1.0 / first['step_s']:.3f} solves/s a rank, forward and backward (ranks "
+        f"share one card: no scaling); the layout took {first['seconds']:.1f} s")
+    if not (dl <= SHARDED_LOSS_RTOL * abs(ref["loss"])
+            and all(e <= SHARDED_GRAD_ATOL + SHARDED_GRAD_RTOL * abs(b) for e, b in zip(dg, ref["grads"]))):
+        problems.append(f"{name}: the step under the blocked sweep disagrees with the unsharded one")
+    if (got["iters"] != ref["iters"] or got["fwd"] != dict(K1=its, K3=0, K2=0)
+            or got["bwd"] != dict(K1=1, K3=0, K2=2)):
+        problems.append(f"{name}: CG iterations {got['iters']} against {ref['iters']}, launches {got['fwd']} / "
+                        f"{got['bwd']}; the design implies K1 {its} / K1 1 and K2 2")
+    for rank in ranks:
+        for key in ("K1", "K2", "K3"):
+            c.launches[key] += rank["sharded"]["fwd"][key] + rank["sharded"]["bwd"][key]
     return problems
 
 

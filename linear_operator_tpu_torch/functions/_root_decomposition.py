@@ -25,9 +25,12 @@ On a mesh (``parallel/``; ``sharding.solve_layout``) the start vector is
 drawn for the whole batch and n and cut to the rank's block.  On a
 row-sharded operator Lanczos sums its inner products over the model
 group, so that every rank builds the unsharded T and its k x k
-eigendecomposition, and the inverse root is the rank's rows of the
-unsharded one (on the Cholesky route, the rows of the whole L^{-T}).  Its
-gradient is not ported (``ROADMAP.md``).
+eigendecomposition: the root, the inverse root and ``diagonalization``'s
+vectors are the rank's rows of the unsharded ones (on the Cholesky and
+symeig routes, the rows of the whole factor every rank computes,
+``_comm.own_rows``).  The backward's contractions over n (S^T S) are row
+sums, and the operator's gradient shares are summed once over the model
+group (``SolveLayout.reduce_grads``), as ``solve``'s are.
 """
 
 from __future__ import annotations
@@ -40,33 +43,54 @@ from ..utils.cholesky import highest_matmul_precision
 from ..utils.random import randn
 
 
-def _random_start(op, generator: torch.Generator | None) -> torch.Tensor:
-    """N(0, I) Lanczos start vectors (*b, n) in the operator's dtype (on a
-    mesh: the rank's block of the whole draw)."""
+def _draw(op, shape: tuple, generator: torch.Generator | None, rows: bool = False) -> torch.Tensor:
+    """N(0, I) of (*b, *shape) in the operator's dtype.  On a mesh the whole
+    batch is drawn (with ``rows``, the last dim the whole n) and the rank's
+    block kept, so that its draws are its block of the unsharded ones."""
     from ..parallel.sharding import solve_layout
 
     layout = solve_layout(op)
     if layout is None:
-        return randn((*op.batch_shape, op.shape[-1]), op.dtype, op.device, generator)
-    whole = randn((*layout.batch, layout.n), op.dtype, op.device, generator)
-    return layout.draw_block(whole[None], rows=True)[0]
+        return randn((*op.batch_shape, *shape), op.dtype, op.device, generator)
+    whole = randn((*layout.batch, *shape), op.dtype, op.device, generator)
+    return layout.draw_block(whole[None], rows=True)[0] if rows else layout.block(whole, rows=False)
 
 
-def _row_sum(op):
+def _random_start(op, generator: torch.Generator | None) -> torch.Tensor:
+    """N(0, I) Lanczos start vectors (*b, n) in the operator's dtype (on a
+    mesh: the rank's block of the whole draw)."""
+    return _draw(op, (op.shape[-1],), generator, rows=True)
+
+
+def _row_sum(op, name: str = "lanczos"):
     """The sum over a row-sharded operator's model group, else None."""
     group = getattr(op, "row_group", None)
     if group is None:
         return None
     from ..parallel import _comm
 
-    return lambda t: _comm.all_reduce(t, group, name="lanczos")
+    return lambda t: _comm.all_reduce(t, group, name=name)
 
 
-def _not_sharded(op, what: str) -> None:
-    if getattr(op, "row_group", None) is not None:
-        from ..parallel.row_sharded import _queued
+def _own_rows(op, whole: torch.Tensor) -> torch.Tensor:
+    """A row-sharded operator's rows of a whole (*b, n, k) factor that every
+    rank computes alike (the Cholesky and symeig routes); else ``whole``."""
+    if getattr(op, "row_group", None) is None:
+        return whole
+    from ..parallel import _comm
 
-        raise _queued(what)
+    return _comm.own_rows(whole, op.row_group, op.sizes)
+
+
+def _op_grads(op, left: torch.Tensor, right: torch.Tensor) -> tuple:
+    """The operator's gradients of sum(left * (K @ right)); on a
+    row-sharded operator (the rank's rows of both) its shares summed once
+    over the model group."""
+    from ..parallel.sharding import solve_layout
+
+    grads = op._bilinear_derivative(left, right)
+    layout = solve_layout(op)
+    return grads if layout is None else layout.reduce_grads(grads)
 
 
 def _lanczos_root_impl(op, init: torch.Tensor, k: int, want_inverse: bool = True):
@@ -100,11 +124,10 @@ class _LanczosRoot(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, root_bar):
-        _not_sharded(ctx.op, "the root's gradient")
         (inv_root,) = ctx.saved_tensors
         left = torch.cat([0.25 * root_bar, 0.25 * inv_root], dim=-1)
         right = torch.cat([inv_root, root_bar], dim=-1)
-        return (None, None, None, None, *ctx.op._bilinear_derivative(left, right))
+        return (None, None, None, None, *_op_grads(ctx.op, left, right))
 
 
 class _LanczosRootInv(torch.autograd.Function):
@@ -119,15 +142,15 @@ class _LanczosRootInv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, root_bar, inv_bar):
-        _not_sharded(ctx.op, "the inverse root's gradient")
         (inv_root,) = ctx.saved_tensors
         # K_bar = 1/4 (R_bar S^T + S R_bar^T) - 1/4 (P S_bar^T + S_bar P^T)
-        # with P = S S^T S
+        # with P = S S^T S (S^T S a row sum on a row-sharded operator)
+        row_sum = _row_sum(ctx.op, "root_grad") or (lambda t: t)
         with highest_matmul_precision():
-            p = inv_root @ (inv_root.mT @ inv_root)
+            p = inv_root @ row_sum(inv_root.mT @ inv_root)
         left = torch.cat([0.25 * root_bar, 0.25 * inv_root, -0.25 * p, -0.25 * inv_bar], dim=-1)
         right = torch.cat([inv_root, root_bar, inv_bar, p], dim=-1)
-        return (None, None, None, *ctx.op._bilinear_derivative(left, right))
+        return (None, None, None, *_op_grads(ctx.op, left, right))
 
 
 def _lanczos_root(op, generator, need_inverse: bool, init: torch.Tensor | None = None):
@@ -163,10 +186,14 @@ def root_decomposition(op, method: str | None = None, *, generator: torch.Genera
     if method is None:
         method = op._choose_root_method()
     if method == "cholesky":
-        return CholLinearOperator(op._cholesky_impl(upper=False))
+        chol = op._cholesky_impl(upper=False)
+        if getattr(op, "row_group", None) is None:
+            return CholLinearOperator(chol)
+        return RootLinearOperator(DenseLinearOperator(_own_rows(op, chol.to_dense())))
     if method in ("symeig", "diagonalization"):
         evals, evecs = torch.linalg.eigh(op.to_dense())
-        return RootLinearOperator(DenseLinearOperator(evecs * torch.sqrt(torch.clamp_min(evals, 0.0))[..., None, :]))
+        root = evecs * torch.sqrt(torch.clamp_min(evals, 0.0))[..., None, :]
+        return RootLinearOperator(DenseLinearOperator(_own_rows(op, root)))
     if method == "lanczos":
         root, _ = _lanczos_root(op, generator, need_inverse=False)
         return RootLinearOperator(DenseLinearOperator(root))
@@ -175,11 +202,14 @@ def root_decomposition(op, method: str | None = None, *, generator: torch.Genera
 
 def _postprocess_lanczos_root_inv_decomp(op, inv_roots: torch.Tensor, test_vectors: torch.Tensor) -> torch.Tensor:
     """The best of p candidate inverse roots (p, *b, n, k) by the residual
-    test: argmin_p sum |K R_p R_p^T t - t| over the test vectors (*b, n, t).
-    The index stays on the device; gradients reach only the winner."""
+    test: argmin_p sum |K R_p R_p^T t - t| over the test vectors (*b, n, t)
+    (on a row-sharded operator, the rank's rows: the sums over n are row
+    sums).  The index stays on the device; gradients reach only the
+    winner."""
+    row_sum = _row_sum(op) or (lambda t: t)
     with highest_matmul_precision():
-        solves = inv_roots @ (inv_roots.mT @ test_vectors)
-    resid = torch.linalg.norm(op._matmul(solves) - test_vectors, dim=-2)  # (p, *b, t)
+        solves = inv_roots @ row_sum(inv_roots.mT @ test_vectors)
+    resid = torch.sqrt(row_sum(torch.sum((op._matmul(solves) - test_vectors) ** 2, dim=-2)))  # (p, *b, t)
     best = torch.argmin(resid.reshape(resid.shape[0], -1).sum(dim=-1))
     return torch.index_select(inv_roots, 0, best.reshape(1))[0]
 
@@ -206,7 +236,9 @@ def root_inv_decomposition(
         if initial_vectors is not None:
             if initial_vectors.ndim == 1:
                 raise RuntimeError("initial_vectors must be (*b, n, p)")
-            if initial_vectors.shape[-2] != op.shape[-1]:
+            # a row-sharded operator takes this rank's rows
+            rows = op.rows.shape[-2] if getattr(op, "row_group", None) is not None else op.shape[-1]
+            if initial_vectors.shape[-2] != rows:
                 raise RuntimeError(
                     f"initial_vectors shape {tuple(initial_vectors.shape)} incompatible with operator {op.shape}"
                 )
@@ -220,17 +252,15 @@ def root_inv_decomposition(
     if method == "cholesky":
         root = op._cholesky_impl(upper=False).inverse()._transpose()  # L^{-T}
         if getattr(op, "row_group", None) is not None:
-            root = DenseLinearOperator(root.to_dense()[..., op.row_slice(), :])  # the rank's rows
+            root = DenseLinearOperator(_own_rows(op, root.to_dense()))  # the rank's rows
         return RootLinearOperator(root)
     if method in ("symeig", "diagonalization"):
-        _not_sharded(op, "a symeig inverse root")
         evals, evecs = torch.linalg.eigh(op.to_dense())
         inv_sqrt = torch.where(evals > 1e-12, torch.rsqrt(torch.clamp_min(evals, 1e-12)), 0.0)
-        return RootLinearOperator(DenseLinearOperator(evecs * inv_sqrt[..., None, :]))
+        return RootLinearOperator(DenseLinearOperator(_own_rows(op, evecs * inv_sqrt[..., None, :])))
     if method == "lanczos":
         init = None
         if initial_vectors is not None:
-            _not_sharded(op, "root_inv_decomposition's initial_vectors")
             init = torch.movedim(initial_vectors, -1, 0)  # (p, *b, n)
             if init.shape[0] == 1:
                 init = init[0]
@@ -254,10 +284,10 @@ def diagonalization(op, method: str | None = None, *, generator: torch.Generator
         method = "symeig" if small or settings.fast_computations.covar_root_decomposition.off() else "lanczos"
     if method == "symeig":
         evals, evecs = torch.linalg.eigh(op.to_dense())
-        return evals, DenseLinearOperator(evecs)
+        return evals, DenseLinearOperator(_own_rows(op, evecs))
     if method == "lanczos":
         k = min(settings.max_root_decomposition_size.value(), n)
-        Q, T = lanczos_tridiag(op._matmul, k, init_vecs=_random_start(op, generator))
+        Q, T = lanczos_tridiag(op._matmul, k, init_vecs=_random_start(op, generator), row_sum=_row_sum(op), n=n)
         evals, evecs = torch.linalg.eigh(T)
         with highest_matmul_precision():
             return torch.clamp_min(evals, 0.0), DenseLinearOperator(Q @ evecs)

@@ -155,8 +155,12 @@ class ExactGPRegression(nn.Module):
 
     def _prior_diagonal(self, x_star) -> torch.Tensor:
         """k(x_star, x_star)'s diagonal, whole on every rank of a mesh."""
+        return self._prior(x_star).diagonal()
+
+    def _prior(self, x_star) -> KernelLinearOperator:
+        """k(x_star, x_star), the same on every rank of a mesh."""
         params, kw = self._kernel_args()
-        return KernelLinearOperator(x_star, x_star, params, symmetric=True, **kw).diagonal()
+        return KernelLinearOperator(x_star, x_star, params, symmetric=True, **kw)
 
     def train_operator(self, x):
         return self.covariance(x).add_diagonal(_softplus(self.raw_noise))
@@ -213,13 +217,20 @@ class ExactGPRegression(nn.Module):
         Under an ambient mesh with a ``model`` axis above 1 (x and the cache
         the rank's rows, x_star whole), the two products are the rank's
         shares, summed over the model group in one all-reduce of (m, k + 1)."""
+        mean, v = self._cached_products(x, cache, x_star, "posterior_from_cache")
+        var = self._prior_diagonal(x_star) - torch.sum(v * v, dim=-1)
+        return mean, torch.clamp_min(var, 0.0)
+
+    def _cached_products(self, x, cache: PosteriorCache, x_star, name: str):
+        """(K_s* alpha (*b, m), K_s* R (*b, m, k)): two products with the
+        lazy cross-covariance; under an ambient mesh with a ``model`` axis
+        above 1 the rank's shares, summed over the model group in one
+        all-reduce of (m, 1 + k) named ``name``."""
         k_star = self.covariance(x_star, x)  # (*b, m, n)
         mean = (k_star @ cache.alpha)[..., 0]
         v = k_star @ cache.root_inv  # (*b, m, k)
-        both = _sum_rows(torch.cat([mean[..., None], v], dim=-1), "posterior_from_cache")
-        mean, v = both[..., 0], both[..., 1:]
-        var = self._prior_diagonal(x_star) - torch.sum(v * v, dim=-1)
-        return mean, torch.clamp_min(var, 0.0)
+        both = _sum_rows(torch.cat([mean[..., None], v], dim=-1), name)
+        return both[..., 0], both[..., 1:]
 
     def posterior_distribution(self, x, y, x_star, *, generator: torch.Generator | None = None):
         """The joint predictive at ``x_star`` as a MultivariateNormal over a
@@ -227,21 +238,21 @@ class ExactGPRegression(nn.Module):
         operator and a downdate root (K_s* R with R the LOVE cache's inverse
         root), plus a jitter of 1e-6; nothing of size m x m is formed until a
         density or a draw asks for it.  ``generator`` draws the cache's
-        Lanczos start."""
+        Lanczos start.
+
+        Under an ambient mesh with a ``model`` axis above 1 (x, y and the
+        cache the rank's rows, x_star whole), the mean and the downdate root
+        are the rank's shares summed in one all-reduce of (m, 1 + k), and
+        the prior is k(x_star, x_star) on every rank: the distribution is
+        the same on every rank of a model group, and its densities and
+        draws run on the replicated m x m."""
         from ..distributions import MultivariateNormal
         from ..operators import ConstantMulLinearOperator, RootLinearOperator
 
-        mesh = _current_mesh()
-        if mesh is not None and mesh.size("model") > 1:
-            from ..parallel.row_sharded import _queued
-
-            raise _queued("posterior_distribution")
         cache = self.posterior_cache(x, y, generator=generator)
-        k_star = self.covariance(x_star, x)  # (*b, m, n)
-        mean = (k_star @ cache.alpha)[..., 0]
-        v = k_star @ cache.root_inv  # (*b, m, k)
+        mean, v = self._cached_products(x, cache, x_star, "posterior_distribution")
         downdate = ConstantMulLinearOperator(RootLinearOperator(v), -1.0)
-        return MultivariateNormal(mean, (self.covariance(x_star) + downdate).add_jitter(1e-6))
+        return MultivariateNormal(mean, (self._prior(x_star) + downdate).add_jitter(1e-6))
 
 
 def mll_loss(K, y, generator: torch.Generator | None = None) -> torch.Tensor:

@@ -714,7 +714,9 @@ class LinearOperator:
         integral quadrature under ``settings.ciq_samples``, else R z with R
         the operator's root decomposition.  ``generator`` draws z and the
         decomposition's start vector on its own device (a fixed CPU
-        generator when None)."""
+        generator when None); on a mesh z is drawn for the whole batch and
+        the rank's block kept, as the start vector is."""
+        from ..functions._root_decomposition import _draw
         from ..utils.random import randn
 
         if generator is None:
@@ -725,8 +727,7 @@ class LinearOperator:
             base = randn((*self.batch_shape, self.shape[-1], num_samples), self.dtype, self.device, generator)
             return sqrt_matmul_ciq(self, base, generator=generator).movedim(-1, 0)
         root = self.root_decomposition(generator=generator).root
-        base = randn((*self.batch_shape, root.shape[-1], num_samples), self.dtype, self.device, generator)
-        return root.matmul(base).movedim(-1, 0)
+        return root.matmul(_draw(self, (root.shape[-1], num_samples), generator)).movedim(-1, 0)
 
     # ------------------------------------------------------------------
     # Batch dims

@@ -387,6 +387,11 @@ def kernel_matvec(x1, x2, v, covar: str = "rbf") -> torch.Tensor:
     return _KernelMatvec.apply(x1, x2, v, covar)
 
 
+def rbf_matvec(x1, x2, v) -> torch.Tensor:
+    """RBF alias of :func:`kernel_matvec` (K1)."""
+    return kernel_matvec(x1, x2, v, "rbf")
+
+
 def _kernel_matvec(x1, x2, v, covar):
     if not _on_cuda(x1, x2, v):
         return kernel_matvec_plain(x1, x2, v, covar)
@@ -474,6 +479,11 @@ def kernel_matvec_sym(x, v, covar: str = "rbf") -> torch.Tensor:
     x (*b, n, d), v (*b, n, t) -> (*b, n, t), at most one batch dim;
     ``sym_matvec_supported(t)`` must hold.  Differentiable in x and v."""
     return _KernelMatvecSym.apply(x, v, covar)
+
+
+def rbf_matvec_sym(x, v) -> torch.Tensor:
+    """RBF alias of :func:`kernel_matvec_sym` (K3)."""
+    return kernel_matvec_sym(x, v, "rbf")
 
 
 def _kernel_matvec_sym(x, v, covar):

@@ -9,13 +9,15 @@ none, so each one the sharded solve needs is written here, explicitly:
 * :func:`any_flags`, the global "any" of a few flags: CG's stopping test;
 * :func:`broadcast`, a tensor from one rank to a group;
 * :func:`argmax`, the global argmax over row blocks, ties to the lowest
-  global index, with the sums a pivoted Cholesky step tests;
+  global index, with the sums a pivoted Cholesky step tests, and
+  :func:`top`, the global top k so (a blocked sweep's pool);
 * :func:`owner_row`, a row broadcast from the rank whose block holds it,
   and :func:`owner_rows`, several rows so;
 * :func:`sum_shares`, a differentiable sum whose backward hands each rank the
   gradient of its own share;
 * :func:`gather_rows`, a differentiable :func:`all_gather_rows` whose
-  backward keeps the rank's rows of the cotangent;
+  backward keeps the rank's rows of the cotangent, and :func:`own_rows`,
+  its inverse;
 * :func:`sum_grads`, the identity whose backward sums the gradients over a
   group: a replicated tensor that a rank uses for its share of a result.
 
@@ -112,6 +114,35 @@ def argmax(d: torch.Tensor, group: Group | None, offset: int, extra: torch.Tenso
     return won[..., 1].to(torch.int64), won[..., 0], total
 
 
+def top(d: torch.Tensor, k: int, group: Group | None, offset: int, extra: torch.Tensor | None = None):
+    """(indices (k,), values (k,), extra summed) of the ``k`` largest
+    entries of a row-sharded (|R|,) array whose block starts at global row
+    ``offset``, in descending order with ties to the lowest global index,
+    as a stable descending sort of the whole array takes them.  Each rank
+    writes its block's own top ``k`` (a rank with fewer rows pads with -inf
+    at index +inf) and ``extra`` (e,) into its slot of a zero table; one sum
+    over the group hands every rank the whole table, which every rank
+    merges alike."""
+    order = torch.sort(d, descending=True, stable=True)
+    if group is None:
+        return order.indices[:k], order.values[:k], extra
+    have = min(k, d.shape[-1])
+    values = torch.full((k,), -torch.inf, dtype=d.dtype, device=d.device)
+    index = torch.full((k,), torch.inf, dtype=d.dtype, device=d.device)
+    values[:have] = order.values[:have]
+    index[:have] = (order.indices[:have] + offset).to(d.dtype)
+    row = torch.cat([values, index] + ([] if extra is None else [extra.to(d.dtype)]))
+    table = torch.zeros((group.size, row.shape[-1]), dtype=d.dtype, device=d.device)
+    table[group.index] = row
+    table = all_reduce(table, group, name="top")
+    values, index = table[:, :k].reshape(-1), table[:, k : 2 * k].reshape(-1)
+    # the whole array's order: by value, ties by global index
+    by_index = torch.argsort(index, stable=True)
+    chosen = by_index[torch.sort(values[by_index], descending=True, stable=True).indices[:k]]
+    total = table[:, 2 * k :].sum(dim=0) if extra is not None else None
+    return index[chosen].to(torch.int64), values[chosen], total
+
+
 def owner_rows(rows: torch.Tensor, index: torch.Tensor, group: Group | None, offset: int,
                name: str = "owner_row") -> torch.Tensor:
     """Rows ``index`` (global, (*b, j) or (j,)) of a row-sharded (*b, |R|, k)
@@ -179,6 +210,28 @@ def gather_rows(t: torch.Tensor, group: Group | None, sizes: tuple) -> torch.Ten
     if group is None:
         return t
     return _GatherRows.apply(t, group, sizes)
+
+
+class _OwnRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, sizes):
+        ctx.group, ctx.sizes = group, sizes
+        offset = sum(sizes[: group.index])
+        return t[..., offset : offset + sizes[group.index], :].clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_rows(g, ctx.group, ctx.sizes), None, None
+
+
+def own_rows(t: torch.Tensor, group: Group | None, sizes: tuple) -> torch.Tensor:
+    """The rank's rows of a whole (..., sum(sizes), k) matrix that every
+    rank of ``group`` computes alike (the Cholesky route's factor); the
+    backward gathers each rank's cotangent of its rows, so that every rank
+    holds the whole matrix's cotangent, the inverse of :func:`gather_rows`."""
+    if group is None:
+        return t
+    return _OwnRows.apply(t, group, sizes)
 
 
 class _SumGrads(torch.autograd.Function):

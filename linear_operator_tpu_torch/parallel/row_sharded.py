@@ -36,23 +36,29 @@ both kinds of rows, through one code path:
   rank's rows of the unsharded factor L (Nystrom from global landmark
   indices, whose points or stencils the rows fetch once; the strict
   pivoted Cholesky with a global argmax, the pivot's point or stencil and
-  its row of L from its owner a step) and the Woodbury closure on row
-  blocks (one sum of (r, t) an application);
+  its row of L from its owner a step; the blocked sweep with the global top
+  2 bs of the residual diagonal, the pool's rows of L and stencils from
+  their owners a sweep, ``pool``) and the Woodbury closure on row blocks
+  (one sum of (r, t) an application);
 * ``solve``, through ``SolveLayout``'s reduction for a solve;
 * the Cholesky route (``to_dense``, ``_solve_structure``): at n <=
   ``max_cholesky_size`` the unsharded operator forms K and factors it, so
   here the rows are formed (SKI's stencils gathered once), gathered once,
   and every rank factors the same n x n matrix, as GSPMD does.  That is the
   route's own n x n, not a fallback;
-* Lanczos and the inverse root (``functions.root_inv_decomposition``): the
-  rank's rows.
+* Lanczos and the roots (``functions/_root_decomposition.py``): the rank's
+  rows of the root, the inverse root and ``diagonalization``'s vectors
+  (the eigenvalues whole), their gradients (shares summed once), and
+  ``zero_mean_mvn_samples``, the rank's rows of the unsharded draw;
+* a gradient in SKI's interpolation weights: W_R's own, from K_grid W^T
+  right (the forward's sum) and K_grid W^T left (a second sum,
+  "interp_left").
 
 What the mesh does not cover raises NotImplementedError naming
-``ROADMAP.md``: indexing, ``cat_rows``, a sum with anything but a diagonal,
-the blocked pivoted Cholesky sweep, a gradient in SKI's interpolation
-weights, the forward root, the inverse root's gradient and
-``posterior_distribution``.  Nothing falls back to a replicated or
-unpreconditioned solve.
+``ROADMAP.md``: indexing, ``cat_rows``, a sum with anything but a
+diagonal, ``add_low_rank``, ``mul``, a batch expansion, and
+``sqrt_inv_matmul`` with CIQ draws.  Nothing falls back to a replicated
+or unpreconditioned solve.
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ from ..operators.interpolated import (
     _batch_aranges,
     _interp_to_dense,
 )
+from ..functions._solve import _unbroadcast
 from ..utils.sparse import left_interp, left_t_interp
 from . import _comm
 
@@ -131,6 +138,18 @@ class KernelRows(LinearOperator):
         return (self.kernel._select_cols(idx)._matmul(eye),
                 whole._select_rows(idx)._select_cols(idx)._matmul(eye))
 
+    def pool(self, idx: torch.Tensor, extra: torch.Tensor) -> tuple:
+        """(K[R, idx], K[idx, idx], extra's rows idx) for global indices
+        ``idx`` (j,) of an unbatched operator (a blocked pivoted sweep's
+        pool): the points are in the gathered x, ``extra`` (|R|, e) comes
+        from the rows' owners in one collective ("pool")."""
+        j, rows = len(idx), self.shape[-2]
+        whole = self.kernel._replace(x1=self.kernel.x2, symmetric=True)
+        own = torch.arange(rows, device=idx.device)
+        return (self.kernel._get_indices(own[:, None].expand(rows, j), idx[None, :].expand(rows, j)),
+                whole._get_indices(idx[:, None].expand(j, j), idx[None, :].expand(j, j)),
+                _comm.owner_rows(extra, idx, self.group, sum(self.sizes[: self.group.index]), name="pool"))
+
     def block(self) -> torch.Tensor:
         """The dense (*b, |R|, n) rows."""
         return self.kernel.to_dense()
@@ -175,13 +194,20 @@ class InterpolatedRows(LinearOperator):
 
     def _bilinear_derivative(self, left_vecs, right_vecs) -> tuple:
         """This rank's share: the grid operator's backward on (W_R^T left_R,
-        W^T right), the right side summed over the group.  The stencils get
-        None (a gradient in the weights is not ported)."""
-        if self.values.requires_grad:
-            raise _queued("a gradient in the interpolation weights")
+        W^T right), the right side summed over the group.  The weights W_R
+        (``values``, the rank's own) get their whole gradient, sum(left_R
+        (K_grid W^T right)[stencil] + right_R (K_grid W^T left)[stencil])
+        over the columns, from a second sum ("interp_left") of W_R^T left_R;
+        the indices get None."""
         u = self._interp_sum(right_vecs)
         a = left_t_interp(self.indices, self.values, left_vecs, self.grid_size)
-        return (*self.base._bilinear_derivative(a, u), None, None)
+        grads = self.base._bilinear_derivative(a, u)
+        if not self.values.requires_grad:
+            return (*grads, None, None)
+        a_all = _comm.all_reduce(a, self.group, name="interp_left")
+        g = (left_vecs[..., None, :] * _at_stencils(self.indices, self.base._matmul(u))
+             + right_vecs[..., None, :] * _at_stencils(self.indices, self.base._matmul(a_all))).sum(dim=-1)
+        return (*grads, None, _unbroadcast(g, self.values.shape))
 
     def owned(self) -> tuple:
         return (self.indices, self.values)
@@ -190,20 +216,21 @@ class InterpolatedRows(LinearOperator):
         """K's diagonal on the rank's rows, (*b, |R|)."""
         return InterpolatedLinearOperator(self.base, self.indices, self.values, self.indices, self.values)._diagonal()
 
-    def _stencils(self, index: torch.Tensor, name: str) -> tuple:
+    def _stencils(self, index: torch.Tensor, name: str, extra: torch.Tensor | None = None) -> tuple:
         """The stencils (indices, values) of the global rows ``index``
-        ((*b, j) or (j,)), (*b, j, k) each, from their owners in one
-        collective."""
+        ((*b, j) or (j,)), (*b, j, k) each, and ``extra``'s rows (*b, j, e)
+        (or an empty tail), from their owners in one collective."""
         k = self.indices.shape[-1]
         offset = sum(self.sizes[: self.group.index])
-        table = torch.cat([self.indices.to(self.values.dtype), self.values], dim=-1)
+        parts = [self.indices.to(self.values.dtype), self.values]
+        table = torch.cat(parts if extra is None else [*parts, extra.to(self.values.dtype)], dim=-1)
         got = _comm.owner_rows(table, index, self.group, offset, name=name)
-        return got[..., :k].round().to(self.indices.dtype), got[..., k:]
+        return got[..., :k].round().to(self.indices.dtype), got[..., k : 2 * k], got[..., 2 * k :]
 
     def pivot_column(self, pivot: torch.Tensor) -> torch.Tensor:
         """K's column ``pivot`` (global, (*b,)) on the rank's rows: W_R
         K_grid w_p^T, the pivot's stencil w_p from its owner."""
-        idx, val = self._stencils(pivot[..., None], "owner_row")  # (*b, 1, k)
+        idx, val, _ = self._stencils(pivot[..., None], "owner_row")  # (*b, 1, k)
         ones = torch.ones((*idx.shape[:-1], 1), dtype=val.dtype, device=val.device)
         grid = left_t_interp(idx, val, ones, self.grid_size)  # (*b, M, 1)
         return left_interp(self.indices, self.values, self.base._matmul(grid))[..., 0]
@@ -213,18 +240,43 @@ class InterpolatedRows(LinearOperator):
         landmarks' stencils fetched from their owners once ("landmarks"),
         then W_R K_grid W_idx^T and W_idx K_grid W_idx^T from one product of
         the grid operator."""
-        li, lv = self._stencils(idx, "landmarks")  # (*b, k, s)
-        eye = torch.eye(len(idx), dtype=self.dtype, device=self.device)
-        kw = self.base._matmul(left_t_interp(li, lv, eye, self.grid_size))  # (*b, M, k)
+        li, lv, _ = self._stencils(idx, "landmarks")  # (*b, k, s)
+        return self._columns(li, lv)
+
+    def _columns(self, li: torch.Tensor, lv: torch.Tensor) -> tuple:
+        """(K[R, idx], K[idx, idx]) from the stencils of the points idx: W_R
+        K_grid W_idx^T and W_idx K_grid W_idx^T from one product of the grid
+        operator."""
+        eye = torch.eye(li.shape[-2], dtype=self.dtype, device=self.device)
+        kw = self.base._matmul(left_t_interp(li, lv, eye, self.grid_size))  # (*b, M, j)
         return left_interp(self.indices, self.values, kw), left_interp(li, lv, kw)
+
+    def pool(self, idx: torch.Tensor, extra: torch.Tensor) -> tuple:
+        """(K[R, idx], K[idx, idx], extra's rows idx) for global indices
+        ``idx`` (j,) (a blocked pivoted sweep's pool): the points' stencils
+        and ``extra``'s rows (|R|, e) from their owners in one collective
+        ("pool")."""
+        li, lv, rows = self._stencils(idx, "pool", extra)
+        return (*self._columns(li, lv), rows)
 
     def block(self) -> torch.Tensor:
         """The dense (*b, |R|, n) rows W_R K_grid W^T, every rank's stencils
-        gathered once (the Cholesky route's n is small)."""
+        gathered once (the Cholesky route's n is small).  The gathered
+        weights are used for the rank's rows alone: their gradient is summed
+        over the group before each rank keeps its own rows'."""
         whole_idx = _comm.all_gather_rows(self.indices.to(torch.float64), self.group, self.sizes)
-        whole_val = _comm.all_gather_rows(self.values, self.group, self.sizes)
+        (whole_val,) = _comm.sum_grads((_comm.gather_rows(self.values, self.group, self.sizes),), self.group)
         w = InterpolationMatrix(whole_idx.round().to(self.indices.dtype), whole_val, self.grid_size)
         return left_interp(self.indices, self.values, self.base._matmul(_interp_to_dense(w).mT))
+
+
+def _at_stencils(indices: torch.Tensor, grid_vecs: torch.Tensor) -> torch.Tensor:
+    """Grid vectors (*b, M, t) at each row's stencil points, (*b, rows, k, t)."""
+    batch = torch.broadcast_shapes(tuple(indices.shape[:-2]), tuple(grid_vecs.shape[:-2]))
+    rows, k = indices.shape[-2:]
+    flat = indices.expand(*batch, rows, k).reshape(*batch, rows * k, 1)
+    got = torch.take_along_dim(grid_vecs.expand(*batch, *grid_vecs.shape[-2:]), flat, dim=-2)
+    return got.reshape(*batch, rows, k, grid_vecs.shape[-1])
 
 
 class RowShardedLinearOperator(LinearOperator):
@@ -317,19 +369,40 @@ class RowShardedLinearOperator(LinearOperator):
         """The rank's rows of the factor the unsharded operator builds under
         the current settings (``AddedDiagLinearOperator._build_precond_factor``)."""
         from ..operators.added_diag import auto_preconditioner_rank, nystrom_factor
-        from ..solvers.pivoted_cholesky import pivoted_cholesky_with_pivots
 
         k = settings.max_preconditioner_size.value()
         mode = settings.preconditioner_mode.value()
         if mode in ("auto", "nystrom"):
             rank = auto_preconditioner_rank(self.shape[-1], k) if mode == "auto" else k
             return nystrom_factor(self.rows, rank=rank, landmarks=self.rows.landmarks)
-        block = settings.pivoted_cholesky_block_size.value()
-        if block and block > 1 and k > block:
-            raise _queued("the blocked pivoted Cholesky sweep (settings.pivoted_cholesky_block_size)")
-        L, _ = pivoted_cholesky_with_pivots(self.rows, k, diag=self.rows.row_diagonal(), group=self.row_group,
-                                            offset=self.offset, column=self.rows.pivot_column)
-        return L
+        return self.pivoted_factor(k)[0]
+
+    def pivoted_factor(self, rank: int, block_size: int | None = None) -> tuple:
+        """(the rank's rows of K's pivoted Cholesky factor, the pivots), as
+        ``solvers.pivoted_cholesky`` builds them unsharded: the blocked sweep
+        where ``block_size`` (default ``settings.pivoted_cholesky_block_size``)
+        is above 1 and below ``rank``, forward-only, else the strict greedy."""
+        from ..solvers.pivoted_cholesky import (
+            _forward_only,
+            blocked_pivoted_cholesky_with_pivots,
+            pivoted_cholesky_with_pivots,
+        )
+
+        if block_size is None:
+            block_size = settings.pivoted_cholesky_block_size.value()
+        rows = dict(diag=self.rows.row_diagonal(), group=self.row_group, offset=self.offset,
+                    column=self.rows.pivot_column)
+        if not (block_size and block_size > 1 and rank > block_size):
+            return pivoted_cholesky_with_pivots(self.rows, rank, **rows)
+        pivots = []
+
+        def build():
+            L, piv = blocked_pivoted_cholesky_with_pivots(self.rows, rank, None, block_size, pool=self.rows.pool,
+                                                          **rows)
+            pivots.append(piv)
+            return L
+
+        return _forward_only(self.rows, build), pivots[0]
 
     def with_preconditioner(self, factor: torch.Tensor | None = None) -> "RowShardedLinearOperator":
         """The same operator carrying the rank's rows of the preconditioner
@@ -407,6 +480,13 @@ class RowShardedLinearOperator(LinearOperator):
         differentiably (the Cholesky route of ``inv_quad_logdet``)."""
         return _comm.gather_rows(rhs, self.row_group, self.sizes)
 
+    def zero_mean_mvn_samples(self, num_samples: int, *, generator: torch.Generator | None = None) -> torch.Tensor:
+        """The rank's rows of the unsharded draws, R z with R the rank's rows
+        of the root and z (k, s) drawn whole (see the base class)."""
+        if settings.ciq_samples.on():
+            raise _queued("zero_mean_mvn_samples under settings.ciq_samples (sqrt_inv_matmul)")
+        return super().zero_mean_mvn_samples(num_samples, generator=generator)
+
     def __add__(self, other):
         from ..operators.diag import DiagLinearOperator
 
@@ -424,8 +504,8 @@ def _queued_method(name: str):
 
 
 for _name in (
-    "root_decomposition", "diagonalization", "sqrt_inv_matmul", "zero_mean_mvn_samples", "_getitem",
-    "_get_indices", "_select_rows", "_select_cols", "cat_rows", "add_low_rank", "mul", "_expand_batch",
+    "sqrt_inv_matmul", "_getitem", "_get_indices", "_select_rows", "_select_cols", "cat_rows", "add_low_rank", "mul",
+    "_expand_batch",
 ):
     setattr(RowShardedLinearOperator, _name, _queued_method(_name))
 
@@ -457,6 +537,7 @@ def row_sharded_interpolated_operator(base: LinearOperator, indices: torch.Tenso
                                       mesh) -> RowShardedLinearOperator:
     """The rank's rows of W K_grid W^T on ``mesh``'s model axis (SKI), from
     the grid operator ``base`` (replicated) and the flat stencils of the
-    rank's own points, ``indices`` and ``values`` (*b, |R|, k)."""
+    rank's own points, ``indices`` and ``values`` (*b, |R|, k); ``values``
+    may require a gradient (the interpolation weights of a trainable x)."""
     sizes = _row_sizes(indices.shape[-2], mesh, values.device)
     return RowShardedLinearOperator(InterpolatedRows(base, indices, values, sizes, mesh.group("model")), None, mesh)

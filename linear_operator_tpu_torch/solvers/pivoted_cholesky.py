@@ -141,25 +141,44 @@ def pivoted_cholesky_with_pivots(op, rank: int, error_tol: float | None = None, 
 
 
 def _blocked_pivoted_cholesky(op, rank: int, error_tol: float | None, bs: int, threshold: float = 0.5):
-    """Adaptive blocked greedy partial Cholesky (the JAX package's
-    ``_blocked_pivoted_cholesky``), forward only.
+    """The factor of :func:`blocked_pivoted_cholesky_with_pivots`."""
+    return blocked_pivoted_cholesky_with_pivots(op, rank, error_tol, bs, threshold)[0]
 
-    Each sweep takes the top ``2 bs`` residual-diagonal entries as a pool,
-    gathers their columns in one ``_get_indices`` call, runs the exact greedy
-    recursion on the pool's small residual Gram (accepting a pivot while its
-    residual is >= ``threshold`` x the pool's largest), and writes all
-    accepted rows at once from one triangular solve.  The sweep loop runs on
-    the host and reads one flag (and the row count) per sweep; the in-pool
-    steps stay on the device.  Batched operators fall back to strict greedy."""
-    d = op._diagonal()
+
+def blocked_pivoted_cholesky_with_pivots(op, rank: int, error_tol: float | None, bs: int, threshold: float = 0.5,
+                                         *, diag=None, group=None, offset: int = 0, column=None, pool=None):
+    """Adaptive blocked greedy partial Cholesky (the JAX package's
+    ``_blocked_pivoted_cholesky``), forward only: (L (n, rank), the pivots
+    in the order they were accepted).
+
+    Each sweep takes the top ``2 bs`` residual-diagonal entries as a pool
+    (ties in index order, as ``lax.top_k`` takes them), forms their columns,
+    runs the exact greedy recursion on the pool's small residual Gram
+    (accepting a pivot while its residual is >= ``threshold`` x the pool's
+    largest), and writes all accepted rows at once from one triangular
+    solve.  The sweep loop runs on the host and reads one flag (and the row
+    count) per sweep; the in-pool steps stay on the device.  Batched
+    operators fall back to strict greedy.
+
+    Row-sharded (a model group ``group``, as for
+    :func:`pivoted_cholesky_with_pivots`): ``op`` is the rank's rows of K
+    from global row ``offset``, ``diag`` their diagonal, and L the rank's
+    rows of the unsharded factor, with the unsharded pivots.  A sweep makes
+    one collective to choose the pool (``_comm.top``, which carries the
+    stopping test's sums) and one to fetch the pool's rows of L with what
+    ``pool(cand, extra)`` needs of their points, which returns K[R, cand],
+    K[cand, cand] and ``extra``'s rows cand."""
+    from ..parallel import _comm
+
+    d = op._diagonal() if diag is None else diag
     if d.ndim > 1:
-        L, _ = pivoted_cholesky_with_pivots(op, rank, error_tol)
-        return L
+        return pivoted_cholesky_with_pivots(op, rank, error_tol, diag=diag, group=group, offset=offset, column=column)
     if error_tol is None:
         error_tol = settings.preconditioner_tolerance.value()
     settings.record_linalg("pivoted_cholesky_blocked", op.shape, (bs,))
 
-    n = d.shape[-1]
+    n = op.shape[-1]
+    rows = d.shape[-1]
     rank = min(rank, n)
     bs = min(bs, rank)
     nc = min(2 * bs, n)  # candidate pool per sweep
@@ -167,39 +186,50 @@ def _blocked_pivoted_cholesky(op, rank: int, error_tol: float | None, bs: int, t
     d = d.to(dtype).clone()
     device = d.device
 
-    tol_total = error_tol * torch.sum(d)
+    if pool is None:
+        row_idx = torch.arange(rows, device=device)
+
+        def pool(cand, extra):
+            return op._get_indices(row_idx[:, None].expand(rows, nc), cand[None, :].expand(rows, nc)), None, extra[cand]
+
+    tol_total = None
     # the factor is padded by one block so that a sweep's row write never clips
-    L = torch.zeros((rank + bs, n), dtype=dtype, device=device)
-    row_idx = torch.arange(n, device=device)
+    L = torch.zeros((rank + bs, rows), dtype=dtype, device=device)
     slots = torch.arange(bs, device=device)
     count = torch.zeros((), dtype=torch.int64, device=device)
+    pivots = []
     sweep = 0
     while sweep < rank:
-        go, count_h = torch.stack([
-            ((torch.max(d) > 1e-12) & (torch.sum(torch.clamp_min(d, 0.0)) > tol_total)).to(torch.int64),
-            count,
-        ]).tolist()
+        # the pool: top nc with ties in index order (a stationary kernel's
+        # diagonal is all ties), the residual trace beside it
+        sums = torch.stack([torch.sum(torch.clamp_min(d, 0.0)), torch.sum(d)])
+        cand, top, sums = _comm.top(d, nc, group, offset, sums)
+        if tol_total is None:
+            tol_total = error_tol * sums[1]
+        go, count_h = torch.stack([((top[0] > 1e-12) & (sums[0] > tol_total)).to(torch.int64), count]).tolist()
         if not go or count_h >= rank:
             break
-        # top nc with ties in index order, as lax.top_k takes them (a
-        # stationary kernel's diagonal is all ties)
-        cand = torch.sort(d, descending=True, stable=True).indices[:nc]
 
-        C = op._get_indices(row_idx[:, None].expand(n, nc), cand[None, :].expand(n, nc)).to(dtype)
+        K_rc, K_cc, Lc = pool(cand, L.mT)
+        Lc = Lc.mT.to(dtype)  # (rank + bs, nc): the pool's columns of L
         with highest_matmul_precision():
-            C = C - torch.einsum("kn,kc->nc", L, L[:, cand])
-        S = C[cand, :]  # (nc, nc) residual Gram of the pool
+            C = K_rc.to(dtype) - torch.einsum("kn,kc->nc", L, Lc)
+            # (nc, nc) residual Gram of the pool: its rows of the panel, or
+            # where they lie on other ranks, K[cand, cand] downdated alike
+            S = C[cand, :] if K_cc is None else K_cc.to(dtype) - Lc.mT @ Lc
         # the pool's residual diagonal and the sweep's scale come from the
         # fresh panel, and the tracked diagonal is synced to it (see the JAX
         # package's notes: stale tracked values can stall a sweep)
         dS = torch.diagonal(S).clone()
         d_global = torch.max(dS)
-        d[cand] = dS
+        local = cand - offset
+        local = torch.where((local >= 0) & (local < rows), local, rows)  # other ranks' rows: past the end
+        d = torch.cat([d, d.new_zeros(1)]).index_copy(0, local, dS)[:rows]
 
         T = torch.zeros((bs, nc), dtype=dtype, device=device)
         sel = torch.full((bs,), -1, dtype=torch.int64, device=device)
         k = torch.zeros((), dtype=torch.int64, device=device)
-        pool = torch.arange(nc, device=device)
+        pool_idx = torch.arange(nc, device=device)
         for _ in range(bs):
             c_rel = torch.argmax(dS)
             dp = dS[c_rel]
@@ -207,7 +237,7 @@ def _blocked_pivoted_cholesky(op, rank: int, error_tol: float | None, bs: int, t
             trow = torch.where(accept, S[c_rel, :] / torch.sqrt(torch.clamp_min(dp, 1e-30)), 0.0)
             S = S - trow[:, None] * trow[None, :]
             dS = dS - trow * trow
-            dS = torch.where(accept & (pool == c_rel), -torch.inf, dS)
+            dS = torch.where(accept & (pool_idx == c_rel), -torch.inf, dS)
             # slot k holds zeros until accepted, so the masked write is a no-op
             T = T.index_copy(0, torch.clamp_max(k, bs - 1)[None], trow[None, :])
             sel = torch.where(accept & (slots == k), c_rel, sel)
@@ -219,15 +249,19 @@ def _blocked_pivoted_cholesky(op, rank: int, error_tol: float | None, bs: int, t
         # slots get a unit diagonal and zero columns, so their rows are zero
         M = torch.triu(T[:, sel_c])
         M = torch.where(valid[None, :], M, 0.0) + torch.diag(torch.where(valid, 0.0, 1.0).to(dtype))
-        G = torch.where(valid[None, :], C[:, sel_c], 0.0)  # (n, bs)
-        P = torch.linalg.solve_triangular(M.mT, G.mT, upper=False)  # (bs, n)
+        G = torch.where(valid[None, :], C[:, sel_c], 0.0)  # (|R|, bs)
+        P = torch.linalg.solve_triangular(M.mT, G.mT, upper=False)  # (bs, |R|)
 
         d = d - torch.sum(P * P, dim=0)
-        # bury the accepted pivots; unused slots point past the end, dropped
-        p_abs = torch.where(valid, cand[sel_c], n)
-        d = torch.cat([d, d.new_zeros(1)]).index_fill(0, p_abs, -torch.inf)[:n]
+        # bury the accepted pivots; unused slots and other ranks' rows point
+        # past the end, dropped
+        p_loc = torch.where(valid, cand[sel_c], -1) - offset
+        p_loc = torch.where((p_loc >= 0) & (p_loc < rows), p_loc, rows)
+        d = torch.cat([d, d.new_zeros(1)]).index_fill(0, p_loc, -torch.inf)[:rows]
 
         L[count_h : count_h + bs] = P
+        pivots.append(torch.where(valid, cand[sel_c], -1))
         count = count + k
         sweep += 1
-    return L[:rank].mT.to(op.dtype)
+    piv = torch.cat(pivots) if pivots else torch.zeros((0,), dtype=torch.int64, device=device)
+    return L[:rank].mT.to(op.dtype), piv[piv >= 0][:rank].to(torch.int32)

@@ -27,3 +27,11 @@ def matmul_broadcast_shape(
     batch = broadcast_shapes(shape_a[:-2], shape_b[:-2])
     return batch + (shape_a[-2], shape_b[-1])
 
+
+
+def pad_with_singletons(
+    shape: tuple[int, ...], num_singletons_before: int, num_singletons_after: int
+) -> tuple[int, ...]:
+    """``shape`` with ``num_singletons_before`` 1s in front and
+    ``num_singletons_after`` behind."""
+    return (1,) * num_singletons_before + tuple(shape) + (1,) * num_singletons_after

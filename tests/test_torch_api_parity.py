@@ -13,7 +13,9 @@ import pytest
 import torch
 
 import linear_operator_tpu as jlo
+import linear_operator_tpu.ops  # noqa: F401 (the JAX package's kernels, not imported by the package)
 import linear_operator_tpu_torch as tlo
+import linear_operator_tpu_torch.ops  # noqa: F401
 from test_api_parity import _EXCEPTIONS, REF_OPERATORS, REF_TOP, REF_UTILS
 from test_torch_harness_common import one_torch_thread  # noqa: F401 (an autouse fixture)
 from test_torch_structure import _jit
@@ -178,3 +180,33 @@ def test_cholesky_utilities_match_jax():
     np.testing.assert_allclose(res.jitter.numpy(), np.asarray(jres.jitter), rtol=1e-12)
     np.testing.assert_allclose(res.factor.numpy(), np.asarray(jres.factor), rtol=1e-10, atol=1e-12)
     assert set(tlo.utils.pinverse.__dict__) >= {"stable_pinverse", "stable_qr"}
+
+
+def _rbf_matvec(pkg, x1, x2, v):
+    return pkg.ops.rbf_matvec(x1, x2, v)
+
+
+def _rbf_matvec_sym(pkg, x1, x2, v):
+    return pkg.ops.rbf_matvec_sym(x1, v[: x1.shape[0]])
+
+
+@pytest.mark.parametrize("name", ["rbf_matvec", "rbf_matvec_sym", "pad_with_singletons"])
+def test_public_names_match_jax(name):
+    """The RBF aliases of K1 and K3 (exported by ``ops``, as the JAX
+    package's) and ``utils.broadcasting.pad_with_singletons`` against the
+    JAX functions on the same inputs: the aliases on the CPU take the
+    kernels' plain versions (1e-5 of the largest entry, the Pallas kernels'
+    three bf16 products in interpret mode)."""
+    if name == "pad_with_singletons":
+        for shape, before, after in [((3, 4), 2, 1), ((), 0, 2), ((5,), 1, 0)]:
+            got = tlo.utils.broadcasting.pad_with_singletons(shape, before, after)
+            assert got == jlo.utils.broadcasting.pad_with_singletons(shape, before, after)
+        return
+    rng = np.random.default_rng(5)
+    x1, x2, v = (rng.normal(size=s).astype(np.float32) * 0.6 for s in [(40, 3), (70, 3), (70, 5)])
+    call = _rbf_matvec if name == "rbf_matvec" else _rbf_matvec_sym
+    assert name in tlo.ops.__all__ and name in jlo.ops.__all__
+    got = call(tlo, *map(torch.from_numpy, (x1, x2, v)))
+    want = np.asarray(_jit(lambda a, b, c: call(jlo, a, b, c))(*map(jnp.asarray, (x1, x2, v))))
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-5 * np.abs(want).max())

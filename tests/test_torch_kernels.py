@@ -18,6 +18,7 @@ card by ``tests/test_torch_cuda.py``.
 """
 
 import ast
+import functools
 import pathlib
 
 import jax
@@ -34,6 +35,22 @@ from test_torch_harness_common import _jit, one_torch_thread  # noqa: F401 (an a
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 COVARS = ["rbf", "matern52", "matern32", "matern12", "rq"]
+
+
+@functools.lru_cache(maxsize=None)
+def _compiled(name, static, shapes):
+    fn = getattr(jrbf, name)
+    args = [jax.ShapeDtypeStruct(shape, dtype) for shape, dtype in shapes]
+    return jax.jit(lambda *a: fn(*a, *static)).lower(*args).compile({"xla_backend_optimization_level": 0})
+
+
+def _jax(name, *static):
+    """The JAX package's ``jrbf.<name>`` with its trailing static arguments
+    (tile, covariance), compiled once for each set of shapes, as ``_jit``
+    compiles (XLA's backend optimizations off): the tests that share shapes
+    share one compilation (Pallas in interpret mode compiles each eager call
+    anew)."""
+    return lambda *args: _compiled(name, static, tuple((a.shape, a.dtype) for a in args))(*args)
 
 
 def _names(covar):
@@ -61,7 +78,7 @@ def test_k1_plain_matches_jax(covar, d):
     scale = np.float32(1.0 / np.sqrt(d))  # keep kernel entries away from 0
     x1, x2 = x1 * scale, x2 * scale
     jname, tname = _names(covar)
-    want = jrbf.kernel_matvec(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(v), 512, jname)
+    want = _jax("kernel_matvec", 512, jname)(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(v))
     got = trbf.kernel_matvec(torch.from_numpy(x1), torch.from_numpy(x2), torch.from_numpy(v), tname)
     assert got.shape == (300, 7) and got.dtype == torch.float32
     _close(got, want, 1e-4)
@@ -73,7 +90,7 @@ def test_dot_acc3_matches_jax(seed):
     # normal rhs, and a ragged inner dimension
     k, v = _data(seed, (64, 300), (300, 11))
     k = np.exp(-0.5 * k * k).astype(np.float32)
-    want = jrbf._dot_acc3(jnp.asarray(k), jnp.asarray(v), (((1,), (0,)), ((), ())))
+    want = _jax("_dot_acc3", (((1,), (0,)), ((), ())))(jnp.asarray(k), jnp.asarray(v))
     got = trbf.dot_acc3(torch.from_numpy(k), torch.from_numpy(v))
     _close(got, want, 3e-6)
     # three bf16 passes are not the full-precision product: they drop lo x lo
@@ -93,7 +110,7 @@ def test_k1_acc3_plain_matches_jax(covar, d, seed):
     scale = np.float32(1.0 / np.sqrt(d))
     x1, x2 = x1 * scale, x2 * scale
     jname, tname = _names(covar)
-    want = jrbf.kernel_matvec(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(v), 512, jname)
+    want = _jax("kernel_matvec", 512, jname)(jnp.asarray(x1), jnp.asarray(x2), jnp.asarray(v))
     args = (torch.from_numpy(x1), torch.from_numpy(x2), torch.from_numpy(v), tname)
     got = trbf.kernel_matvec_acc3_plain(*args)
     assert got.shape == (300, 7) and got.dtype == torch.float32
@@ -107,7 +124,7 @@ def test_k3_plain_matches_jax(covar, d):
     x, v = _data(1, (300, d), (300, 11))
     x = x / np.float32(np.sqrt(d))
     jname, tname = _names(covar)
-    want = jrbf.kernel_matvec_sym(jnp.asarray(x), jnp.asarray(v), 1024, jname)
+    want = _jax("kernel_matvec_sym", 1024, jname)(jnp.asarray(x), jnp.asarray(v))
     got = trbf.kernel_matvec_sym(torch.from_numpy(x), torch.from_numpy(v), tname)
     # Matern-1/2 is sqrt(d2)-sharp at d2 = 0.  With d > 8 both packages take
     # the quadratic form, whose f32 rounding leaves a point ~1e-7 from itself
@@ -128,7 +145,7 @@ def test_fused_dispatcher_matches_jax(t):
     )
     got = op._matmul_closure()(torch.from_numpy(v))
     want = os_ * np.asarray(
-        jrbf.kernel_matvec_sym(jnp.asarray(x / np.float32(ls)), jnp.asarray(v), 1024, "rbf")
+        _jax("kernel_matvec_sym", 1024, "rbf")(jnp.asarray(x / np.float32(ls)), jnp.asarray(v))
     )
     _close(got, want, 1e-5)
     assert trbf.sym_matvec_supported(t) == (t <= trbf.SYM_MAX_COLUMNS)
@@ -185,7 +202,7 @@ def test_k2_plain_matches_jax_past_128_columns(t):
     multiple of 128, at the tolerances of test_k2_plain_matches_jax and
     test_k2_acc3_plain_matches_jax."""
     x1, x2, g, v = _data(11, (64, 3), (48, 3), (64, t), (48, t))
-    jwx, jws = jrbf._pallas_weighted(*map(jnp.asarray, (x1, x2, g, v)), 64, "rbf")
+    jwx, jws = _jax("_pallas_weighted", 64, "rbf")(*map(jnp.asarray, (x1, x2, g, v)))
     args = [torch.from_numpy(a) for a in (x1, x2, g, v)]
     wx, ws = trbf.kernel_weighted(*args)
     _close(wx, jwx, 1e-4)
@@ -255,7 +272,7 @@ def test_k2_plain_matches_jax(covar, d, t):
     scale = np.float32(1.0 / np.sqrt(d))
     x1, x2 = x1 * scale, x2 * scale
     jname, tname = _names(covar)
-    jwx, jws = jrbf._pallas_weighted(*map(jnp.asarray, (x1, x2, g, v)), 512, jname)
+    jwx, jws = _jax("_pallas_weighted", 512, jname)(*map(jnp.asarray, (x1, x2, g, v)))
     wx, ws = trbf.kernel_weighted(*map(torch.from_numpy, (x1, x2, g, v)), tname)
     assert wx.shape == (300, d) and ws.shape == (300,)
     _close(wx, jwx, 1e-4)
@@ -282,7 +299,7 @@ def test_k2_acc3_plain_matches_jax(covar, d, seed):
         # test_k3_backward_matches_jax: Matern-1/2 on coincident points)
         x1, x2 = (np.round(16 * a).astype(np.float32) / np.float32(16) for a in (x1, x2))
     jname, tname = _names(covar)
-    jwx, jws = jrbf._pallas_weighted(*map(jnp.asarray, (x1, x2, g, v)), 512, jname)
+    jwx, jws = _jax("_pallas_weighted", 512, jname)(*map(jnp.asarray, (x1, x2, g, v)))
     args = [torch.from_numpy(a) for a in (x1, x2, g, v)]
     wx, ws = trbf.kernel_weighted_acc3_plain(*args, tname)
     assert wx.shape == (300, d) and ws.shape == (300,) and wx.dtype == torch.float32

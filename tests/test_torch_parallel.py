@@ -41,6 +41,15 @@ over the mesh against the JAX package's, and two steps against unsharded
 Adam; and each f64 exact-GP run's gradient in a trainable x, the rank's rows
 of the JAX gradient.
 
+The roots' runs, on the serve runs of (1, 2) at n = 32 and 33 and of (2, 2)
+and (1, 2, 2) at n = 33 (ROOTS in the worker): posterior_distribution (mean,
+covariance, draws, log_prob, and the gradient through the inverse root), the
+forward root, the inverse root and the Cholesky route's root with their
+gradients, diagonalization, the root's draws and the blocked pivoted sweep
+(rank 24, block 8), each against the JAX package's unsharded function on the
+same draws, with the collectives each makes; SKI's gradient in x through
+the interpolation weights on every SKI run.
+
 Tolerances (measured): the unsharded port lies 7.2e-10 (the loss) and
 7.2e-8 (the gradient, of its norm) from the JAX package at n = 32: 21 CG
 iterations, 20 of them building the SLQ tridiagonals, which lose
@@ -71,13 +80,24 @@ import linear_operator_tpu as jlo
 import linear_operator_tpu.parallel as jpar
 import linear_operator_tpu_torch.parallel as tpar
 from linear_operator_tpu.models import ExactGPRegression as JaxGP
+from linear_operator_tpu.solvers.pivoted_cholesky import _blocked_pivoted_cholesky as jsolvers_blocked
 from linear_operator_tpu_torch.parallel.sharding import Mesh, mesh_axes, shard_gp_batch, split_sizes
 from linear_operator_tpu_torch.test.utils import local_device_mesh
 from test_torch_harness_common import _jit, one_torch_thread  # noqa: F401 (an autouse fixture)
 
 WORKER = Path(__file__).resolve().parent / "torch_parallel_worker.py"
 sys.path.insert(0, str(WORKER.parent))
-from torch_parallel_worker import DKL_HIDDEN, SERVE, SKI_CASES  # noqa: E402 (the cases' settings)
+from torch_parallel_worker import (  # noqa: E402 (the cases' settings)
+    BLOCK_RANK,
+    BLOCK_SIZE,
+    DKL_HIDDEN,
+    ROOTS,
+    ROOTS_CHOLESKY,
+    SAMPLES,
+    SERVE,
+    SKI_CASES,
+    SKI_X_GRAD,
+)
 
 WORLDS = {2: [(2, 1, None), (1, 2, None)], 4: [(2, 2, None), (1, 2, 2)]}
 # SKI (TestShardedSKI's data: n = 512, grid (16, 8), and n = 513, whose
@@ -214,6 +234,12 @@ def _serve_data(n):
                   rhs=rng.normal(size=(SERVE_B, n, 3)), w=rng.normal(size=(SERVE_B, n, 3)))
     for shape in {(PROBES, SERVE_B, 5), (PROBES, SERVE_B, 8), (PROBES, SERVE_B, n), (SERVE_B, n)}:
         arrays["draw" + "x".join(map(str, shape))] = rng.normal(size=shape)
+    # the roots' runs: a value for log_prob, and the draws' z (a root of
+    # the training set's k = n columns, the m x m Cholesky factor's m)
+    arrays["y_star"] = rng.normal(size=(SERVE_B, SERVE_M))
+    arrays["iv"] = rng.normal(size=(SERVE_B, n, 2))  # the inverse root's start vectors
+    for shape in ((SERVE_B, n, SAMPLES), (SERVE_B, SERVE_M, SAMPLES)):
+        arrays["draw" + "x".join(map(str, shape))] = rng.normal(size=shape)
     return arrays
 
 
@@ -230,6 +256,7 @@ def _ski_data(n):
                   ls=np.zeros(2), params=np.array([0.0, 0.0, -2.0]))
     for shape in {(n, PROBES), (PROBES, 5), (PROBES, 8), (PROBES, n), (n,)}:
         arrays["draw" + "x".join(map(str, shape))] = rng.normal(size=shape)
+    arrays[f"draw{PROBES}x24"] = rng.normal(size=(PROBES, 24))  # the blocked sweep's eps1
     return arrays
 
 
@@ -267,8 +294,11 @@ def _runs():
             runs[world].append(dict(name=f"{tag}-fused", layout=list(layout), case=f"n{SIZES[0]}",
                                     dtype="float32", fused=True))
             for n in SIZES:
+                # the roots' runs: on (1, 2) at both sizes, on the world of
+                # 4's meshes at the uneven one
                 runs[world].append(dict(name=f"{tag}-serve-n{n}", layout=list(layout), case=f"s{n}",
-                                        dtype="float64", fused=False, serve=True))
+                                        dtype="float64", fused=False, serve=True,
+                                        roots=layout[1] > 1 and (world == 2 or n == SIZES[1])))
     return runs
 
 
@@ -382,6 +412,82 @@ def _jax_serving(n):
     return out
 
 
+def _jax_roots(n):
+    """The JAX package's unsharded results of the roots' runs (the worker's
+    ``_roots``) on the same data and draws, in one jitted function:
+    posterior_distribution's mean, covariance, draws and log_prob and the
+    gradient of sum(mean) + sum(covariance); the root, the inverse root and
+    the Cholesky route's root with the gradient of |R^T w|^2; the root's
+    draws; diagonalization; the blocked pivoted sweep on each system."""
+    arrays = _serve_data(n)
+    x, y, x_star, w, y_star, iv = (jnp.asarray(arrays[k]) for k in ("x", "y", "x_star", "w", "y_star", "iv"))
+    w1 = w[..., :1]
+    draws = {v.shape: v for k, v in arrays.items() if k.startswith("draw")}
+    model = JaxGP(block_rows=32, materialize_threshold=None)
+    per_system = (SERVE_B, 1, 1)
+    params = model.init_params(D, dtype=jnp.float64)._replace(
+        raw_lengthscale=jnp.full(per_system, PARAMS[0], jnp.float64),
+        raw_outputscale=jnp.full(per_system, PARAMS[1], jnp.float64),
+        raw_noise=jnp.asarray(PARAMS[2], jnp.float64))
+    scalar = model.init_params(D, dtype=jnp.float64)._replace(
+        **{name: jnp.asarray(v, jnp.float64) for name, v in zip(("raw_lengthscale", "raw_outputscale",
+                                                                 "raw_noise"), PARAMS)})
+    key = jax.random.PRNGKey(7)
+
+    def everything(p, q):
+        out = {}
+
+        def dist(p):
+            mvn = model.posterior_distribution(p, x, y, x_star, key=key)
+            cov = mvn.covariance_matrix
+            aux = (mvn.mean, cov, mvn.rsample(key, (SAMPLES,)), mvn.log_prob(y_star))
+            return jnp.sum(mvn.mean) + jnp.sum(cov), aux
+
+        out["distribution"] = _under({**SETTINGS, **ROOTS}, lambda: jax.value_and_grad(dist, has_aux=True)(p))
+        for case, over, inverse in (("root", ROOTS, False), ("inv_root", ROOTS, True),
+                                    ("chol_root", ROOTS_CHOLESKY, False)):
+            def loss(p, inverse=inverse):
+                K = model.train_operator(p, x)
+                root = K.root_inv_decomposition(key=key) if inverse else K.root_decomposition(key=key)
+                R = root.root.to_dense()
+                proj = jnp.sum(R * w1, axis=-2)
+                return jnp.sum(proj * proj), R
+
+            out[case] = _under({**SETTINGS, **over}, lambda loss=loss: jax.value_and_grad(loss, has_aux=True)(p))
+        K = model.train_operator(p, x)
+        out["diagonalization"] = _under({**SETTINGS, **ROOTS}, lambda: K.diagonalization(key=key))
+        out["samples"] = _under({**SETTINGS, **ROOTS}, lambda: K.zero_mean_mvn_samples(SAMPLES, key=key))
+        out["symeig"] = _under({**SETTINGS, **ROOTS}, lambda: K.root_inv_decomposition(method="symeig").root.to_dense())
+        out["initial"] = _under({**SETTINGS, **ROOTS},
+                                lambda: K.root_inv_decomposition(initial_vectors=iv).root.to_dense())
+        out["blocked"] = [jsolvers_blocked(model.covariance(q, x[b]), BLOCK_RANK, None, BLOCK_SIZE)
+                          for b in range(SERVE_B)]
+        return out
+
+    res = _with_draws(draws, lambda: _jit(everything)(params, scalar))
+
+    def grads(g):
+        return np.array([float(jnp.sum(g.raw_lengthscale)), float(jnp.sum(g.raw_outputscale)), float(g.raw_noise)])
+
+    (_, (mean, cov, samples, log_prob)), g = res["distribution"]
+    out = {"distribution": dict(mean=np.asarray(mean), cov=np.asarray(cov), draws=np.asarray(samples),
+                                log_prob=np.asarray(log_prob), grads=grads(g))}
+    for case in ("root", "inv_root", "chol_root"):
+        (_, R), g = res[case]
+        R = np.asarray(R)
+        out[case] = dict(gram=R @ np.swapaxes(R, -1, -2), grads=grads(g))
+    evals, Q = res["diagonalization"]
+    Q = np.asarray(Q.to_dense())
+    out["diagonalization"] = dict(evals=np.asarray(evals),
+                                  gram=(Q * np.asarray(evals)[..., None, :]) @ np.swapaxes(Q, -1, -2))
+    out["samples"] = np.asarray(res["samples"])
+    for case in ("symeig", "initial"):
+        S = np.asarray(res[case])
+        out[case] = dict(gram=S @ np.swapaxes(S, -1, -2))
+    out["blocked"] = [np.asarray(L) for L in res["blocked"]]
+    return out
+
+
 def _under(case_settings, fn):
     ctxs = [getattr(jlo.settings, k)(v) for k, v in case_settings.items()]
     for c in ctxs:
@@ -415,19 +521,26 @@ def _jax_ski(interp, n):
     params = model.init_params(2, dtype=jnp.float64)
     key = jax.random.PRNGKey(1)
 
-    def everything(p):
+    def everything(p, x):
         out = {}
         for case, over in SKI_CASES.items():
             over = {**SETTINGS, **over}
             if case == "posterior":
                 out[case] = _under(over, lambda: model.posterior(p, x, y, x_star, key=key))
             else:
-                out[case] = jax.value_and_grad(lambda q, o=over: _under(o, lambda: model.neg_mll(q, x, y, key=key)))(p)
+                # with x's gradient (through the interpolation weights)
+                out[case] = jax.value_and_grad(lambda q, xx, o=over: _under(o, lambda: model.neg_mll(q, xx, y, key=key)),
+                                               argnums=(0, 1) if case in SKI_X_GRAD else 0)(p, x)
         return out
 
-    res = _with_draws(draws, lambda: _jit(everything)(params))
-    out = {case: dict(loss=float(v), grads=np.concatenate([np.ravel(np.asarray(leaf)) for leaf in g]))
-           for case, (v, g) in res.items() if case != "posterior"}
+    res = _with_draws(draws, lambda: _jit(everything)(params, x))
+    out = {}
+    for case, (v, g) in res.items():
+        if case != "posterior":
+            g, x_grad = g if case in SKI_X_GRAD else (g, None)
+            out[case] = dict(loss=float(v), grads=np.concatenate([np.ravel(np.asarray(leaf)) for leaf in g]))
+            if x_grad is not None:
+                out[case]["x_grad"] = np.asarray(x_grad)
     out["posterior"] = dict(mean=np.asarray(res["posterior"][0]), var=np.asarray(res["posterior"][1]))
     return out
 
@@ -487,6 +600,7 @@ def worlds(tmp_path_factory):
     refs = {n: _jax_reference(n) for n in SIZES}
     refs.update({f"s{n}": _jax_serving(n) for n in SIZES})
     refs.update({f"dkl{n}": _jax_dkl(n) for n in SIZES})
+    refs.update({f"roots{n}": _jax_roots(n) for n in SIZES})
     refs.update({(interp, n): _jax_ski(interp, n) for interp, n in
                  {(i, n) for cases in SKI_RUNS.values() for i, _, n in cases}})
     results, failures = {}, []
@@ -605,17 +719,21 @@ def test_fused_route_matches_unsharded(worlds, world, run):
 
 @pytest.mark.parametrize("world, run", list(_cases("raises")))
 def test_what_the_row_sharded_operator_does_not_cover_raises(worlds, world, run):
-    """What ROADMAP.md queue 1 still lists under a mesh (items 4-5: a
-    sharded Cat, posterior_distribution, the forward root) and indexing, a
-    sum with anything but a diagonal and the blocked pivoted Cholesky sweep
-    on a model-sharded mesh raise NotImplementedError naming ROADMAP.md:
-    nothing falls back to a replicated or unpreconditioned solve."""
+    """What ROADMAP.md queue 1 still lists under a model-sharded mesh
+    (items 3.4-3.5 and CIQ: indexing, cat_rows, a sum with anything but a
+    diagonal, add_low_rank, mul, a batch expansion, sqrt_inv_matmul and
+    CIQ's draws) raises NotImplementedError naming ROADMAP.md: nothing falls
+    back to a replicated or unpreconditioned solve.  posterior_distribution,
+    the forward root and the blocked pivoted sweep, which raised before
+    this slice, now run."""
     results, _ = worlds
+    runs = {"posterior_distribution", "forward root", "blocked pivoted sweep"}
     for r in results[world]:
         raised = r[run["name"]]["raised"]
-        assert set(raised) == {"posterior_distribution", "forward root", "indexing", "cat_rows", "sum",
-                               "blocked pivoted sweep"}
-        assert all("ROADMAP.md" in msg for msg in raised.values()), raised
+        assert set(raised) == runs | {"indexing", "cat_rows", "sum", "add_low_rank", "mul", "batch expansion",
+                                      "sqrt_inv_matmul", "CIQ draws"}
+        assert all(raised[k] == "nothing" for k in runs), raised
+        assert all("ROADMAP.md" in msg for k, msg in raised.items() if k not in runs), raised
 
 
 def _serve_cases(row_sharded=False):
@@ -714,6 +832,19 @@ def test_sharded_serving_collectives_follow_the_design(worlds, world, run, case)
                 assert got["root_rows"] == len(rows)
         assert counts == want, (counts, want)
         assert gathered == [[len(rows), w] for w in widths]
+
+
+def test_top_takes_the_whole_arrays_stable_order(worlds):
+    """_comm.top over a model group of 4 whose ranks hold 3, 3, 3 and 2 of 11
+    entries, k = 10: the first ten of a stable descending sort of the whole
+    array (ties to the lowest index, a buried -inf entry before every rank's
+    padding), on every rank, with the extra (each rank's row count) summed."""
+    whole = torch.tensor([1.0, 3.0, 3.0, -torch.inf, 2.0, 3.0, 0.5, 2.0, -torch.inf, 3.0, 2.0])
+    order = torch.sort(whole, descending=True, stable=True)
+    for r in worlds[0][4]:
+        assert r["top"]["index"] == order.indices[:10].tolist() == [1, 2, 5, 9, 4, 7, 10, 0, 6, 3]
+        assert r["top"]["value"] == order.values[:10].tolist()
+        assert r["top"]["total"] == [11.0]
 
 
 def test_scaling_report_on_meshes_of_two_and_four_ranks(worlds):
@@ -875,4 +1006,160 @@ def test_sharded_ski_collectives_follow_the_design(worlds, world, run, case):
             assert counts["argmax"] == 5 and counts["owner_row"] == 4 + 5
         if case == "nystrom":
             assert counts["landmarks"] == 1
+        if case == "blocked":
+            # a pool choice and a fetch of its stencils and rows of L a sweep
+            assert counts["pool"] >= 3 and counts["top"] in (counts["pool"], counts["pool"] + 1)
 
+
+
+# ---------------------------------------------------------------------------
+# The roots, posterior_distribution and the blocked sweep on the model axis
+# ---------------------------------------------------------------------------
+
+ROOT_CASES = ("distribution", "root", "inv_root", "chol_root", "symeig", "initial", "diagonalization", "samples",
+              "blocked")
+
+
+def _root_runs(cases=ROOT_CASES):
+    for world, runs in _runs().items():
+        for run in runs:
+            if run.get("roots"):
+                for case in cases:
+                    yield pytest.param(world, run, case, id=f"{run['name']}-{case}")
+
+
+def _whole(run, ranks, get):
+    """{data index: the model group's rows of ``get(rank's roots)`` joined
+    in row order (rows on dim -2)}, from the ranks of probe index 0."""
+    joined = {}
+    for rank, r in enumerate(ranks):
+        mesh, batch, _ = _place(run, rank)
+        if mesh.size("probe") > 1 and mesh.index("probe") > 0:
+            continue
+        joined.setdefault(int(batch[0]), []).append((mesh.index("model"), np.asarray(get(r[run["name"]]["roots"]))))
+    return {b: np.concatenate([a for _, a in sorted(parts, key=lambda p: p[0])], axis=-2)
+            for b, parts in joined.items()}
+
+
+@pytest.mark.parametrize("world, run, case", list(_root_runs()))
+def test_sharded_roots_match_jax(worlds, world, run, case):
+    """On (1, 2), (2, 2) and (1, 2, 2) at n = 32 and 33, against the JAX
+    package's unsharded functions on the same data and draws (ROOTS'
+    settings: CG and n Lanczos steps on the training set, the m x m
+    covariance on the Cholesky route):
+    posterior_distribution's mean, covariance, two draws under one
+    generator and log_prob, the same on every model rank, and the gradient
+    of sum(mean) + sum(covariance) (through the inverse root's); the
+    forward root's, the inverse root's and the Cholesky route's R R^T from
+    the ranks' rows, with the gradient of |R^T w|^2, and the inverse
+    root's by symeig and from two given start vectors (the better by the
+    residual test, its sums over the rows); diagonalization's
+    eigenvalues and Q diag(evals) Q^T; the root's draws (the ranks' rows of
+    the unsharded draws); the blocked pivoted sweep (rank 24, block 8) on
+    each data rank's first system: the unsharded port's pivots exactly,
+    which the JAX factor confirms (its rows at them are lower triangular),
+    and the factor's rows.  SERVE_RTOL of the largest entry, GRAD_RTOL of
+    the gradient's norm."""
+    results, refs = worlds
+    want = refs[f"roots{run['case'][1:]}"]
+    ranks = results[world]
+
+    def close(got, ref):
+        got, ref = np.asarray(got), np.asarray(ref)
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, rtol=0, atol=SERVE_RTOL * np.abs(ref).max())
+
+    if case == "distribution":
+        for rank, r in enumerate(ranks):
+            got, (_, batch, _) = r[run["name"]]["roots"][case], _place(run, rank)
+            ref = want[case]
+            for key in ("mean", "cov", "log_prob"):
+                close(got[key], ref[key][batch])
+            close(got["draws"], ref["draws"][:, batch])
+            _grad_close(got["grads"], ref["grads"], GRAD_RTOL)
+    elif case in ("root", "inv_root", "chol_root", "symeig", "initial", "diagonalization"):
+        source = "root" if case == "diagonalization" else case
+        if case == "diagonalization":
+            def get(roots):
+                q = np.asarray(roots["root"]["Q"])
+                return q * np.asarray(roots["root"]["evals"])[..., None, :]
+
+            grams = {b: a for b, a in _whole(run, ranks, get).items()}
+            qs = _whole(run, ranks, lambda roots: roots["root"]["Q"])
+            grams = {b: grams[b] @ np.swapaxes(qs[b], -1, -2) for b in grams}
+            for rank, r in enumerate(ranks):
+                _, batch, _ = _place(run, rank)
+                close(r[run["name"]]["roots"]["root"]["evals"], want[case]["evals"][batch])
+        elif case in ("symeig", "initial"):
+            roots = _whole(run, ranks, lambda roots: roots["inv_root"][case])
+            grams = {b: R @ np.swapaxes(R, -1, -2) for b, R in roots.items()}
+        else:
+            roots = _whole(run, ranks, lambda roots: roots[source]["R"])
+            grams = {b: R @ np.swapaxes(R, -1, -2) for b, R in roots.items()}
+            for r in ranks:
+                _grad_close(r[run["name"]]["roots"][case]["grads"], want[case]["grads"], GRAD_RTOL)
+        for b, gram in grams.items():
+            _, batch, _ = _place(run, next(i for i in range(len(ranks)) if _place(run, i)[1][0] == b))
+            close(gram, want[case]["gram"][batch])
+    elif case == "samples":
+        samples = _whole(run, ranks, lambda roots: np.swapaxes(np.asarray(roots["root"]["samples"]), -1, -2))
+        for b, got in samples.items():
+            _, batch, _ = _place(run, next(i for i in range(len(ranks)) if _place(run, i)[1][0] == b))
+            close(np.swapaxes(got, -1, -2), want[case][:, batch])
+    else:
+        factors = _whole(run, ranks, lambda roots: roots["blocked"]["L"])
+        for r in ranks:
+            got = r[run["name"]]["roots"]["blocked"]
+            ref = want["blocked"][got["system"]]
+            assert got["pivots"] == got["ref_pivots"] and len(got["pivots"]) == ref.shape[-1]
+            at = ref[got["pivots"]]
+            assert np.abs(np.triu(at, 1)).max() <= 1e-12 * np.abs(ref).max() < np.abs(np.diag(at)).min()
+            close(factors[got["system"]], ref)
+
+
+@pytest.mark.parametrize("world, run", [p.values[:2] for p in _root_runs(("distribution",))])
+def test_sharded_roots_collectives_follow_the_design(worlds, world, run):
+    """posterior_distribution makes the LOVE cache's collectives and one
+    (m, 1 + k) all-reduce of the mean and the downdate root; its
+    covariance, draws and log_prob on the replicated m x m make none, and
+    its backward one row sum of the inverse root's S^T S; the roots'
+    backward one gathered block of vectors (the Lanczos roots) and one sum
+    of the gradient shares, the Cholesky route's a gathered cotangent of
+    its factor; the blocked sweep one choice of its pool (``top``) and one
+    fetch of the pool's rows of L ("pool") a sweep, and one last choice that
+    ends it."""
+    results, _ = worlds
+    for r in results[world]:
+        roots = r[run["name"]]["roots"]
+        dist = roots["distribution"]
+        cache = r[run["name"]]["cache"]["counts"]  # the LOVE cache's, the same route
+        assert dist["counts"] == {**cache, "posterior_distribution": 1}, (dist["counts"], cache)
+        assert dist["used"] == {}
+        assert dist["backward"]["root_grad"] == 1
+        # x once, then one column a CG iteration and a Lanczos step
+        assert [w for _, w in dist["gathered"]] == [D] + [1] * (len(dist["gathered"]) - 1)
+        for case in ("root", "inv_root"):
+            assert roots[case]["backward"] == {"all_gather": 1, "all_reduce": 1,
+                                               **({"root_grad": 1} if case == "inv_root" else {})}
+        assert roots["chol_root"]["counts"] == {"all_gather": 1}
+        assert roots["chol_root"]["backward"] == {"all_gather": 1, "sum_grads": 1}
+        blocked = roots["blocked"]["counts"]
+        assert set(blocked) == {"top", "pool"} and blocked["top"] == blocked["pool"] + 1 >= 4
+
+
+@pytest.mark.parametrize("world, run, case", list(_ski_runs(SKI_X_GRAD)))
+def test_sharded_ski_x_gradient_matches_jax(worlds, world, run, case):
+    """SKI with x requiring a gradient (linear on model 2 and 4, cubic on 4;
+    Nystrom and the Cholesky route): each rank's gradient in its own rows,
+    through the interpolation weights, against the JAX package's gradient
+    in x, whose weights' share comes from a second sum of W_R^T left over
+    the model group ("interp_left"), on the iterative route."""
+    results, refs = worlds
+    n = int(run["case"][3:])
+    want = refs[(run["interp"], n)][case]["x_grad"]
+    for rank, r in enumerate(results[world]):
+        got = r[run["name"]][case]
+        rows = torch.tensor_split(torch.arange(n), run["layout"][1])[rank].numpy()
+        np.testing.assert_allclose(got["x_grad"], want[rows], rtol=0, atol=GRAD_RTOL * np.abs(want).max())
+        if case != "cholesky":
+            assert got["backward_counts"]["interp_left"] == 1

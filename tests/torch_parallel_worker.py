@@ -19,7 +19,10 @@ preconditioner mode and on the Cholesky route, ``solve`` and its gradient,
 counting the collectives and the rows of every gathered block.  A "ski" run
 takes one data set's x (n, 2), y, x_star, grid and raw parameters and runs
 the row-sharded SKI model's neg_mll and gradient under each of SKI_CASES and
-its LOVE posterior, with the collectives by name.  A "dkl" run holds a
+its LOVE posterior, with the collectives by name (x's gradient in SKI_X_GRAD's
+cases).  A serve run marked "roots" also runs ``_roots``: the predictive
+distribution, the roots and their gradients and the blocked pivoted sweep
+under ROOTS.  A "dkl" run holds a
 small DKL model's sharded neg_mll, its gradients and two
 ``sharded_train_step`` steps with Adam against the unsharded port on the
 whole data.  The f64 exact-GP runs also return the rank's gradient in its
@@ -43,6 +46,7 @@ from linear_operator_tpu_torch.operators import kernel as tkernel  # noqa: E402
 from linear_operator_tpu_torch.ops.rbf import kernel_matvec_plain  # noqa: E402
 from linear_operator_tpu_torch.parallel import _comm, make_mesh, shard_gp_batch, sharded_train_step  # noqa: E402
 from linear_operator_tpu_torch.parallel.sharding import initialize_distributed  # noqa: E402
+from linear_operator_tpu_torch.solvers.pivoted_cholesky import blocked_pivoted_cholesky_with_pivots  # noqa: E402
 
 # test_models_parallel.py's settings: CG + SLQ, never Cholesky, no preconditioner
 SETTINGS = dict(max_cholesky_size=0, num_trace_samples=4, max_cg_iterations=30, cg_tolerance=1e-6,
@@ -67,7 +71,8 @@ SERVE = {
 
 # the SKI cases: TestShardedSKI's settings (test_models_parallel.py: 4
 # probes, CG to 1e-6 at most 30, no preconditioner, 10 Lanczos steps), then
-# the pivoted and Nystrom preconditioners, the Cholesky route and LOVE
+# the pivoted and Nystrom preconditioners, the blocked pivoted sweep (rank 24,
+# block 8), the Cholesky route and LOVE
 SKI_CG = dict(max_cholesky_size=0, min_preconditioning_size=10**9, max_lanczos_quadrature_iterations=10)
 SKI_CASES = {
     "cg": SKI_CG,
@@ -75,10 +80,24 @@ SKI_CASES = {
                 "preconditioner_mode": "pivoted"},
     "nystrom": {**SKI_CG, "min_preconditioning_size": 16, "max_preconditioner_size": 8,
                 "preconditioner_mode": "nystrom"},
+    "blocked": {**SKI_CG, "min_preconditioning_size": 16, "max_preconditioner_size": 24,
+                "preconditioner_mode": "pivoted", "pivoted_cholesky_block_size": 8},
     "cholesky": {**SKI_CG, "max_cholesky_size": 1000},
     "posterior": {**SKI_CG, "cg_tolerance": 1e-11, "max_cg_iterations": 200},
 }
+SKI_X_GRAD = ("nystrom", "cholesky")  # the cases whose x requires a gradient
 DKL_HIDDEN = (8, 2)
+# the roots and the predictive distribution on a serve run (ROADMAP.md queue
+# 1 item 3.1): CG and Lanczos above max_cholesky_size on the training set
+# (the "cache" case's route), the m x m covariance on the Cholesky route
+# below it; the root and the
+# inverse root at every n the serve runs take, on the Cholesky route too;
+# S draws; the blocked pivoted sweep's rank and block (the JAX tests' sizes,
+# tests/solvers/test_lanczos_slq.py:126-136)
+ROOTS = dict(max_cholesky_size=16, min_preconditioning_size=16, max_preconditioner_size=5, cg_tolerance=1e-11,
+             max_cg_iterations=200)
+ROOTS_CHOLESKY = dict(max_cholesky_size=800)
+SAMPLES, BLOCK_RANK, BLOCK_SIZE = 2, 24, 8
 
 
 class _Iterations(logging.Handler):
@@ -180,6 +199,89 @@ def _serve(run, arrays, mesh, log, gathered):
     return out
 
 
+def _counts_since(before):
+    return {k: v - before.get(k, 0) for k, v in _comm.counts.items() if v > before.get(k, 0)}
+
+
+def _roots(run, arrays, mesh, gathered):
+    """The predictive distribution, the roots and their gradients, and the
+    blocked pivoted sweep on the rank's block (ROOTS' settings): every
+    result the rank's batch (and, for a root, its rows), gradient shares
+    summed over data, and the collectives of each call."""
+    x, y, x_star, w, y_star = (torch.from_numpy(arrays[k]) for k in ("x", "y", "x_star", "w", "y_star"))
+    xs, ys = shard_gp_batch(mesh, x, y)
+    x_star, y_star = (mesh.block(t, batch=True, rows=False, cols=False) for t in (x_star, y_star))
+    w_r = mesh.block(w[..., :1], batch=True, rows=True, cols=False)
+    iv_r = mesh.block(torch.from_numpy(arrays["iv"]), batch=True, rows=True, cols=False)
+    model_group, data_group = mesh.group("model"), mesh.group("data")
+    out = {}
+
+    def summed(model):
+        return _comm.all_reduce(torch.tensor(_grads(model), dtype=torch.float64), data_group).tolist()
+
+    # posterior_distribution (its cache's collectives are the "cache" serve
+    # case's: ROOTS takes the same route at these n)
+    model = _model(run, arrays, torch.float64)
+    _comm.reset_counts()
+    gathered.clear()
+    with _settings(**ROOTS), mesh:
+        mvn = model.posterior_distribution(xs, ys, x_star, generator=torch.Generator())
+        built, built_gathered = dict(_comm.counts), list(gathered)
+        cov = mvn.covariance_matrix
+        draws = mvn.rsample((SAMPLES,), generator=torch.Generator())
+        log_prob = mvn.log_prob(y_star)
+        used, before = _counts_since(built), dict(_comm.counts)
+        (torch.sum(mvn.mean) + torch.sum(cov)).backward()
+    out["distribution"] = dict(mean=mvn.mean.tolist(), cov=cov.tolist(), draws=draws.tolist(),
+                               log_prob=log_prob.tolist(), counts=built, gathered=built_gathered, used=used,
+                               backward=_counts_since(before), grads=summed(model))
+
+    # the root, its draws, diagonalization and the inverse root (Lanczos),
+    # and the root on the Cholesky route: the rank's rows, with the
+    # gradient of |R^T w|^2 (|S^T w|^2), a sum over the rows
+    for case, over, inverse in (("root", ROOTS, False), ("inv_root", ROOTS, True),
+                                ("chol_root", ROOTS_CHOLESKY, False)):
+        model = _model(run, arrays, torch.float64)
+        res = {}
+        with _settings(**over), mesh:
+            K = model.train_operator(xs)
+            _comm.reset_counts()
+            if inverse:
+                R = K.root_inv_decomposition(generator=torch.Generator()).root.to_dense()
+            else:
+                R = K.root_decomposition(generator=torch.Generator()).root.to_dense()
+            forward = dict(_comm.counts)
+            proj = _comm.sum_shares(torch.sum(R * w_r, dim=-2), model_group)
+            before = dict(_comm.counts)
+            torch.sum(proj * proj).backward()
+            res.update(R=R.tolist(), counts=forward, backward=_counts_since(before), grads=summed(model))
+            if case == "root":
+                with torch.no_grad():
+                    evals, Q = K.diagonalization(generator=torch.Generator())
+                    res.update(evals=evals.tolist(), Q=Q.to_dense().tolist(),
+                               samples=K.zero_mean_mvn_samples(SAMPLES, generator=torch.Generator()).tolist())
+            if case == "inv_root":
+                # the symeig route and Lanczos from given start vectors (the
+                # best of two by the residual test)
+                with torch.no_grad():
+                    res["symeig"] = K.root_inv_decomposition(method="symeig").root.to_dense().tolist()
+                    res["initial"] = K.root_inv_decomposition(initial_vectors=iv_r).root.to_dense().tolist()
+        out[case] = res
+
+    # the blocked pivoted sweep on the rank's first system, unbatched, and
+    # the unsharded port's on the whole system
+    b = int(torch.tensor_split(torch.arange(x.shape[0]), mesh.size("data"))[mesh.index("data")][0])
+    model = _model(run, arrays, torch.float64)
+    with mesh:
+        K = model.train_operator(xs[0]).detach()
+        _comm.reset_counts()
+        L, piv = K.pivoted_factor(BLOCK_RANK, BLOCK_SIZE)
+        counts = dict(_comm.counts)
+    _, ref_piv = blocked_pivoted_cholesky_with_pivots(model.covariance(x[b]).detach(), BLOCK_RANK, None, BLOCK_SIZE)
+    out["blocked"] = dict(system=b, L=L.tolist(), pivots=piv.tolist(), ref_pivots=ref_piv.tolist(), counts=counts)
+    return out
+
+
 def _ski(run, arrays, mesh, log, gathered):
     """The row-sharded SKI model on the rank's rows: per SKI case the loss
     and gradient (ls (2,), outputscale, noise), or the posterior's mean and
@@ -199,13 +301,16 @@ def _ski(run, arrays, mesh, log, gathered):
                 res["mean"], res["var"] = mean.tolist(), var.tolist()
                 res["counts"] = dict(_comm.counts)
             else:
-                loss = model.neg_mll(xs, ys, generator=torch.Generator())
+                # x's gradient through the interpolation weights
+                x_r = xs.clone().requires_grad_(case in SKI_X_GRAD)
+                loss = model.neg_mll(x_r, ys, generator=torch.Generator())
                 res["counts"] = dict(_comm.counts)
                 loss.backward()
                 res["loss"] = float(loss)
                 res["grads"] = _ski_grads(model)
-                res["backward_counts"] = {k: v - res["counts"].get(k, 0) for k, v in _comm.counts.items()
-                                          if v > res["counts"].get(k, 0)}
+                res["backward_counts"] = _counts_since(res["counts"])
+                if x_r.grad is not None:
+                    res["x_grad"] = x_r.grad.tolist()
         res["iters"], res["gathered"] = list(log.iters), list(gathered)
         if case != "posterior":
             # the unsharded port on the whole data set
@@ -370,6 +475,9 @@ def main():
             layout = run["layout"]
             mesh = make_mesh(None, data=layout[0], model=layout[1], probe=layout[2], device="cpu")
             results[run["name"]] = _serve(run, arrays, mesh, log, gathered)
+            if run.get("roots"):
+                arrays.update({k: data[f"{run['case']}_{k}"] for k in ("y_star", "iv")})
+                results[run["name"]]["roots"] = _roots(run, arrays, mesh, gathered)
             continue
         arrays = {k: data[f"{run['case']}_{k}"] for k in ("x", "y", "probes", "params")}
         dtype = torch.float64 if run["dtype"] == "float64" else torch.float32
@@ -419,6 +527,7 @@ def main():
         if run.get("raises"):
             raised = {}
             other = lo.DenseLinearOperator(torch.eye(x.shape[1], dtype=dtype).expand(xs.shape[0], -1, -1))
+            low_rank = torch.ones((xs.shape[0], xs.shape[1], 1), dtype=dtype)
             for label, over, call in [
                 ("posterior_distribution", {}, lambda m: m.posterior_distribution(xs, ys, xs[..., :3, :])),
                 ("forward root", {}, lambda m: m.train_operator(xs).root_decomposition()),
@@ -427,6 +536,11 @@ def main():
                 ("sum", {}, lambda m: m.train_operator(xs) + other),
                 ("blocked pivoted sweep", dict(min_preconditioning_size=0, max_preconditioner_size=5,
                                                pivoted_cholesky_block_size=2), lambda m: m.neg_mll(xs, ys)),
+                ("add_low_rank", {}, lambda m: m.train_operator(xs).add_low_rank(low_rank)),
+                ("mul", {}, lambda m: m.train_operator(xs).mul(other)),
+                ("batch expansion", {}, lambda m: m.train_operator(xs)._expand_batch((3, *xs.shape[:-2]))),
+                ("sqrt_inv_matmul", {}, lambda m: m.train_operator(xs).sqrt_inv_matmul(ys[..., None])),
+                ("CIQ draws", dict(ciq_samples=True), lambda m: m.train_operator(xs).zero_mean_mvn_samples(2)),
             ]:
                 try:
                     with _settings(**over), mesh:
@@ -439,6 +553,14 @@ def main():
 
     torch.randn = real_randn
     if spec.get("scaling"):
+        # _comm.top over a model group of 4 whose ranks hold fewer rows than
+        # k = 10 (11 rows: 3, 3, 3, 2), with ties and buried (-inf) entries
+        whole = torch.tensor([1.0, 3.0, 3.0, -torch.inf, 2.0, 3.0, 0.5, 2.0, -torch.inf, 3.0, 2.0])
+        mesh = make_mesh(None, data=1, model=4, device="cpu")
+        rows = torch.tensor_split(torch.arange(11), 4)[mesh.index("model")]
+        index, value, total = _comm.top(whole[rows], 10, mesh.group("model"), int(rows[0]),
+                                        torch.tensor([float(len(rows))]))
+        results["top"] = dict(index=index.tolist(), value=value.tolist(), total=total.tolist())
         # meshes of 2 ranks (the other two idle) and of 4, model axis 2
         report = lo.parallel.scaling_report([2, 4], model_axis=2, n=64, reps=1, block_rows=32, device="cpu")
         results["scaling"] = {str(c): r for c, r in report.items()}
