@@ -173,9 +173,20 @@ Phases, each reported on its own line:
     pivoted sweep (rank 24, block 8) at n = 8192 and N = 100,000, its
     pivots as the unsharded sweep's, and config 5's step under it; (19l)
     SKI at config 4b with x's gradient through the interpolation weights
-    (one more sum of W_R^T left); K1 and K2 at the sharded shapes against
-    their plain versions, timed beside their bounds (ms_sharded in the
-    kernels line);
+    (one more sum of W_R^T left); (19m) indexing at 16a's shapes and the
+    algebra (add_low_rank and its solve, a sum, a batch expansion, mul at
+    n = 8192; at the model's own noise add_low_rank's solve and the sum's
+    preconditioned solve) at N = 100,000, (19n) the fantasy update at N =
+    100,000 + 64 (also at the model's own noise) and (19o) config 6's CIQ
+    draws and their backward, each on (1, 2)
+    against the unsharded call in the same process (one K1 a product, no K3
+    on the rows, the collectives by name); K1 and K2 at the sharded shapes
+    against their plain versions, timed beside their bounds (ms_sharded in
+    the kernels line);
+20. the port's four examples at their default sizes, all at once
+    (phase_examples: torch_demo.py --big, torch_train_gp.py,
+    torch_multitask_lmc.py, torch_train_sharded.py in a world of 2), each
+    exiting 0 with its losses falling and its outputs finite;
  7. one JSON line listing every ported kernel with its launches (K3's and
     K1's including phases 12, 13, 18e and 19), error, times and bound (bound_basis:
     the f32 rate for K4, the tensor cores' for K1, K2, K3 and K5; K5's t = 1
@@ -193,7 +204,7 @@ Without a CUDA device, or without the package beside it, it fails at once.
 
 runs only the named module-level phases (woodbury, kron_toeplitz, ski,
 indexing, fantasy, harness, kernel_family, sgpr, svgp, classification,
-multitask, dkl, sharded) after the build, with the package taken from DIR
+multitask, dkl, sharded, examples) after the build, with the package taken from DIR
 (another commit's checkout) when given: the same phases, one card, two
 commits.
 """
@@ -204,6 +215,7 @@ import contextlib
 import json
 import logging
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -399,6 +411,28 @@ SKI_HELD_RAW = (math.log(math.expm1(0.05)), math.log(math.expm1(1.0)))
 # SKI_HELD_RAW, f64 to SHARDED_F64_RTOL and f32 to SKI_GRAD_RTOL of its
 # largest, beside the unsharded f32 run's distance from itself
 BLOCK_RANK, BLOCK_SIZE, ROOTS_LOG_PROB_CHOLESKY = 24, 8, M_LOVE
+# 19m, n and o (indexing and the algebra, the fantasy update and CIQ on the
+# row-sharded operator), each against the unsharded operator's same call in
+# the same rank process, to SERVE_RTOL of the largest entry (a gradient of
+# its norm), CG and MINRES iterations within SERVE_ITERS: 19m at N with
+# 16a's index shapes, add_low_rank's rank and mul at N_SHARDED; 19n at N +
+# M_FANTASY; 19o at config 6's N_CIQ
+ALGEBRA_RANK = 20
+# 19m's and 19n's model: lengthscale 0.127 and noise 1.0 (raw values), where
+# unpreconditioned CG to SERVE_CG_TOL converges in tens of iterations and
+# the sharded run takes the unsharded run's count within SERVE_ITERS
+ALGEBRA_HELD_RAW = (SHARDED_RAW_LS, math.log(math.expm1(1.0)))
+# beside it, the solves at the model's own noise (SHARDED_RAW_LS: lengthscale
+# and noise 0.127) of add_low_rank and the fantasy operator, unpreconditioned
+# as unsharded.  Where f32 CG crosses SERVE_CG_TOL there moves with the
+# summation order: on an H100 the sharded runs took 247 against 245
+# iterations (K + V V^T), 65 against 63 and 128 against 128 (the fantasy
+# operator), and the sum of two row-sharded operators at the model's noise
+# 208 against 206 (pivoted rank 15) and 173 against 176 (Nystrom 400), up to
+# 3.2%; these solves, and the sum's preconditioned solve at noise 1.0, are
+# held within ALGEBRA_ITERS_DRIFT of the unsharded count (at least
+# SERVE_ITERS)
+ALGEBRA_ITERS_DRIFT = 0.05
 HARNESS_KERNEL_TOLERANCES = {
     "matmul": {"rtol": 1e-4, "atol": 2e-4},
     "grad": {"rtol": 1e-3, "atol": 1e-3},
@@ -2633,10 +2667,12 @@ def _sharded_settings(settings, kind: str):
     config 3's (bench.py:100-129, ``bench_context``: "auto", so Nystrom rank
     400 at N = 1e5, 20 Lanczos steps); "serve": the bench's with CG to
     SERVE_CG_TOL (at most SERVE_CG_MAX iterations) and LOVE's k; "ski":
-    config 4b's (bench.py:278-298: config 5's with 20 Lanczos steps)."""
+    config 4b's (bench.py:278-298: config 5's with 20 Lanczos steps);
+    "algebra": CG to SERVE_CG_TOL, no preconditioner (19m and 19n)."""
     probes, tol, iters = {"dryrun": (4, 1e-6, 60), "config5": (10, 1.0, 100), "held": (10, 1e-4, 100),
                           "default": (10, 1.0, 100), "bench": (PROBES, 1.0, 100), "ski": (10, 1.0, 100),
-                          "serve": (PROBES, SERVE_CG_TOL, SERVE_CG_MAX)}[kind]
+                          "serve": (PROBES, SERVE_CG_TOL, SERVE_CG_MAX),
+                          "algebra": (PROBES, SERVE_CG_TOL, SERVE_CG_MAX)}[kind]
     stack = contextlib.ExitStack()
     ctxs = [settings.max_cholesky_size(0), settings.num_trace_samples(probes), settings.max_cg_iterations(iters),
             settings.cg_tolerance(tol), settings.verbose_linalg(True)]
@@ -2696,7 +2732,7 @@ def _sharded_worker(argv) -> None:
     for lay in spec.get("layouts", []):
         started = time.perf_counter()
         mesh = make_mesh(data=lay["data"], model=lay["model"], probe=lay["probe"])
-        if lay.get("ski") or lay.get("dkl") or lay.get("roots") or lay.get("blocked"):
+        if any(lay.get(k) for k in ("ski", "dkl", "roots", "blocked", "algebra", "fantasy", "ciq")):
             def reset():
                 rbf.reset_launch_counts()
                 _comm.reset_counts()
@@ -2705,7 +2741,9 @@ def _sharded_worker(argv) -> None:
             w = types.SimpleNamespace(torch=torch, lo=lo, settings=settings, _comm=_comm, dev=dev, dist=dist,
                                       mesh=mesh, log=log, counts=counts, reset=reset)
             res = (_ski_layout if lay.get("ski") else _dkl_layout if lay.get("dkl")
-                   else _roots_layout if lay.get("roots") else _blocked_layout)(w, lay)
+                   else _roots_layout if lay.get("roots") else _algebra_layout if lay.get("algebra")
+                   else _fantasy_layout if lay.get("fantasy") else _ciq_layout if lay.get("ciq")
+                   else _blocked_layout)(w, lay)
             res["seconds"] = time.perf_counter() - started
             results[lay["name"]] = res
             torch.cuda.empty_cache()
@@ -2986,13 +3024,14 @@ def _ski_layout(w, lay) -> dict:
     return out
 
 
-def _exact_model(w, fused: bool, raw_ls=None):
+def _exact_model(w, fused: bool, raw_ls=None, raw_noise=None):
     mdl = w.lo.ExactGPRegression(block_rows=8192 if fused else 2048, materialize_threshold=None,
                                  use_fused_kernels=fused, dtype=w.torch.float32 if fused else w.torch.float64,
                                  device=w.dev)
-    if raw_ls is not None:
-        with w.torch.no_grad():
-            mdl.raw_lengthscale.fill_(raw_ls)
+    with w.torch.no_grad():
+        for p, value in ((mdl.raw_lengthscale, raw_ls), (mdl.raw_noise, raw_noise)):
+            if value is not None:
+                p.fill_(value)
     return mdl
 
 
@@ -3235,6 +3274,396 @@ def _dkl_layout(w, lay) -> dict:
     return out
 
 
+def _parts_recorder(w, parts):
+    """part(name, fn, warm): fn's result, and under ``parts[name]`` its
+    seconds (after one untimed call with ``warm``), launches, collectives and
+    CG and MINRES iterations."""
+    torch, _comm = w.torch, w._comm
+
+    def part(name, fn, warm=False):
+        if warm:  # the first call loads the kernels' libraries
+            fn()
+        w.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        parts[name] = dict(s=time.perf_counter() - t0, launches=w.counts(), comm=dict(_comm.counts),
+                           iters=list(w.log.counts), minres=list(w.log.minres))
+        return got
+
+    return part
+
+
+def _held_errors(torch, got: dict, ref: dict) -> dict:
+    """max |got - ref| / max |ref| of each result (ref: the unsharded run's)."""
+    return {k: float((got[k].double() - ref[k].double()).abs().max() / ref[k].double().abs().max()) for k in ref}
+
+
+def _iters_drift(its: list, ref: list) -> bool:
+    """One CG run within ALGEBRA_ITERS_DRIFT of the unsharded run's count."""
+    return len(its) == 1 and abs(its[0] - ref[0]) <= max(SERVE_ITERS, math.ceil(ALGEBRA_ITERS_DRIFT * ref[0]))
+
+
+def _algebra_layout(w, lay) -> dict:
+    """19m on (1, 2) at lay["n"] points, the fused f32 model at
+    ALGEBRA_HELD_RAW under the algebra settings (CG to SERVE_CG_TOL): indexing
+    at 16a's shapes (K[idx] with M_INDEX random rows, the n/2 x n/2 block,
+    pointwise entries) with the phase's peak device memory;
+    add_low_rank(V) with a rank-ALGEBRA_RANK root, its product and a
+    solve; a sum of two row-sharded operators (K and the kernel operator);
+    a batch expansion's product (the unsharded operator would densify, so it
+    is held against K v); mul of two kernel operators at N_SHARDED (two
+    Lanczos roots, then a product); the sum's solve under the bench's
+    preconditioner ("auto": Nystrom rank 400; D outside the sum, whose
+    landmark columns come from one product); at the model's own noise
+    (SHARDED_RAW_LS) add_low_rank's solve again.  Each
+    unsharded and sharded on the same data, with launches, collectives and
+    seconds."""
+    torch, settings, dev = w.torch, w.settings, w.dev
+    from linear_operator_tpu_torch.parallel import shard_gp_batch
+
+    n = lay["n"]
+    g = torch.Generator().manual_seed(200)
+    x = torch.randn((n, D), generator=g)
+    y = torch.sin(3.0 * x[:, 0]) + 0.1 * torch.randn(n, generator=g)
+    V = 0.1 * torch.randn((n, ALGEBRA_RANK), generator=g)
+    v = torch.randn((n, 1), generator=g)
+    idx = torch.randperm(n, generator=g)[:M_INDEX]
+    xs, _ = shard_gp_batch(w.mesh, x, y)
+    rows = w.mesh.block(torch.arange(n)[:, None], batch=False, rows=True, cols=False)[:, 0]
+    xs8, _ = shard_gp_batch(w.mesh, x[:N_SHARDED], y[:N_SHARDED])
+    rows8 = w.mesh.block(torch.arange(N_SHARDED)[:, None], batch=False, rows=True, cols=False)[:, 0]
+    V_r, v_r, v8_r = V[rows].to(dev), v[rows].to(dev), v[:N_SHARDED][rows8].to(dev)
+    x, V, v, idx = x.to(dev), V.to(dev), v.to(dev), idx.to(dev)
+    out = dict(rows=len(rows))
+    for label, xx, xx8, VV, vv, vv8 in (("unsharded", x, x[:N_SHARDED], V, v, v[:N_SHARDED]),
+                                        ("sharded", xs, xs8, V_r, v_r, v8_r)):
+        sharded = label == "sharded"
+        parts, got = {}, {}
+        part = _parts_recorder(w, parts)
+        mdl, other = _exact_model(w, True, *ALGEBRA_HELD_RAW), _exact_model(w, True)
+        with _sharded_settings(settings, "algebra"), (w.mesh if sharded else contextlib.nullcontext()), \
+                torch.no_grad():
+            K = mdl.train_operator(xx)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            got["index_rows"] = part("index_rows", warm=True, fn=lambda: K[idx] @ v)
+            got["index_block"] = part("index_block", warm=True, fn=lambda: K[: n // 2, : n // 2] @ v[: n // 2])
+            got["entries"] = part("entries", warm=True, fn=lambda: K[idx, idx.flip(0)])
+            peak = torch.cuda.max_memory_allocated() - base
+            low = K.add_low_rank(VV)
+            got["low_rank_mv"] = part("low_rank_mv", warm=True, fn=lambda: low @ vv)
+            got["low_rank_solve"] = part("low_rank_solve", lambda: low.solve(vv))
+            both = K + mdl.covariance(xx)
+            got["sum_mv"] = part("sum_mv", warm=True, fn=lambda: both @ vv)
+            if sharded:
+                got["expand_mv"] = part("expand_mv", warm=True, fn=lambda: K._expand_batch((2,)) @ vv)
+            else:
+                got["expand_mv"] = part("expand_mv", warm=True, fn=lambda: (K @ vv).expand(2, -1, -1))
+            K8, O8 = mdl.covariance(xx8), other.covariance(xx8)
+            prod = part("mul_roots", lambda: K8.mul(O8))
+            got["mul_mv"] = part("mul_mv", warm=True, fn=lambda: prod @ vv8)
+            with settings.min_preconditioning_size(2000), settings.preconditioner_mode("auto"):
+                got["sum_solve"] = part("sum_solve", lambda: both.solve(vv))
+            low0 = _exact_model(w, True, SHARDED_RAW_LS).train_operator(xx).add_low_rank(VV)
+            got["low_rank_solve_model"] = part("low_rank_solve_model", lambda: low0.solve(vv))
+        out[label] = dict(got=got, parts=parts, peak=peak)
+        del K, low, both, K8, O8, prod, low0
+        torch.cuda.empty_cache()
+    ref, mine = out["unsharded"], out["sharded"]
+    for key in ("low_rank_mv", "low_rank_solve", "sum_mv", "expand_mv", "low_rank_solve_model", "sum_solve"):
+        ref["got"][key] = ref["got"][key][..., rows.to(dev), :]
+    ref["got"]["mul_mv"] = ref["got"]["mul_mv"][rows8.to(dev)]
+    mine["err"] = _held_errors(torch, mine["got"], ref["got"])
+    mine["finite"] = all(bool(torch.isfinite(t).all()) for t in mine["got"].values())
+    for r in (ref, mine):
+        del r["got"]
+    return out
+
+
+def _fantasy_layout(w, lay) -> dict:
+    """19n on (1, 2): 16b's fantasy update at lay["n"] + M_FANTASY points,
+    the fused f32 model at ALGEBRA_HELD_RAW: (K + s2 I).cat_rows(B, C), B the
+    new rows' cross-covariance (each rank its columns), C = k(x_new, x_new)
+    + s2 I, solved for [y; y_new] by unpreconditioned CG to FANTASY_TOL (16b's
+    tolerance, reported) and to SERVE_CG_TOL (held), and at the model's own
+    noise (SHARDED_RAW_LS) to SERVE_CG_TOL, unsharded and sharded (the last
+    rank owns the new rows), with launches, collectives and seconds."""
+    torch, settings, dev, _comm = w.torch, w.settings, w.dev, w._comm
+    from linear_operator_tpu_torch.parallel import shard_gp_batch
+    from linear_operator_tpu_torch.parallel.sharding import split_sizes
+
+    n, m = lay["n"], M_FANTASY
+    g = torch.Generator().manual_seed(201)
+    x = torch.randn((n, D), generator=g)
+    y = torch.sin(3.0 * x[:, 0]) + 0.1 * torch.randn(n, generator=g)
+    x_new = torch.randn((m, D), generator=g)
+    y_new = torch.sin(3.0 * x_new[:, 0])
+    xs, ys = shard_gp_batch(w.mesh, x, y)
+    last = w.mesh.index("model") == w.mesh.size("model") - 1
+    x, y, x_new, y_new = x.to(dev), y.to(dev), x_new.to(dev), y_new.to(dev)
+    whole = torch.cat([y, y_new])[:, None]
+    mine = torch.cat([ys, y_new])[:, None] if last else ys[:, None]
+    out = dict(rows=xs.shape[0])
+    for label, xx, rhs in (("unsharded", x, whole), ("sharded", xs, mine)):
+        sharded = label == "sharded"
+        parts, got = {}, {}
+        part = _parts_recorder(w, parts)
+
+        def appended(mdl):
+            s2 = torch.nn.functional.softplus(mdl.raw_noise.detach())
+            C = mdl.covariance(x_new).to_dense() + s2 * torch.eye(m, device=dev)
+            with w.mesh if sharded else contextlib.nullcontext():
+                return mdl.train_operator(xx).cat_rows(mdl.covariance(x_new, xx).to_dense(), C)
+
+        with torch.no_grad():
+            op = appended(_exact_model(w, True, *ALGEBRA_HELD_RAW))
+            own = appended(_exact_model(w, True, SHARDED_RAW_LS))
+            for tol, tag, this in ((FANTASY_TOL, "solve_16b", op), (SERVE_CG_TOL, "solve", op),
+                                   (SERVE_CG_TOL, "solve_model", own)):
+                stack = _sharded_settings(settings, "algebra")
+                stack.enter_context(settings.cg_tolerance(tol))
+                with stack:
+                    got[tag] = part(tag, lambda: this.solve(rhs))
+        out[label] = dict(got=got, parts=parts, sizes=list(getattr(op, "sizes", [])))
+        del op, own
+    ref, mine = out["unsharded"], out["sharded"]
+    sizes = split_sizes(lay["n"], w.mesh.size("model"))
+    sizes = (*sizes[:-1], sizes[-1] + m)
+    start = sum(sizes[: w.mesh.index("model")])
+    for key in ref["got"]:
+        ref["got"][key] = ref["got"][key][start : start + sizes[w.mesh.index("model")]]
+    mine["err"] = _held_errors(torch, {k: mine["got"][k] for k in ("solve", "solve_model")},
+                               {k: ref["got"][k] for k in ("solve", "solve_model")})
+    mine["finite"] = all(bool(torch.isfinite(t).all()) for t in mine["got"].values())
+    for r in (ref, mine):
+        del r["got"]
+    return out
+
+
+def _ciq_layout(w, lay) -> dict:
+    """19o on (1, 2): config 6 (bench.py:309-334) at lay["n"] points, the
+    fused f32 model at its initial parameters: CIQ_SAMPLES draws through
+    zero_mean_mvn_samples under phase 12's settings ("auto": Nystrom 400,
+    MINRES to 1e-3, 15 quadrature points) and the backward of the sum of
+    their squares, unsharded and sharded on the same base and start vector
+    (one generator), with launches, collectives, MINRES iterations and
+    seconds."""
+    torch, settings, dev, _comm = w.torch, w.settings, w.dev, w._comm
+    from linear_operator_tpu_torch.parallel import shard_gp_batch
+
+    n = lay["n"]
+    g = torch.Generator().manual_seed(202)
+    x = torch.randn((n, D), generator=g)
+    xs, _ = shard_gp_batch(w.mesh, x, x[:, 0])
+    rows = w.mesh.block(torch.arange(n)[:, None], batch=False, rows=True, cols=False)[:, 0]
+    x = x.to(dev)
+    group = w.mesh.group("model")
+    out = dict(rows=xs.shape[0])
+    for label, xx in (("unsharded", x), ("again", x), ("sharded", xs)):
+        sharded = label == "sharded"
+        parts, got = {}, {}
+        part = _parts_recorder(w, parts)
+        mdl = _exact_model(w, True)
+        stack = contextlib.ExitStack()
+        for ctx in [settings.ciq_samples(True), settings.minres_tolerance(1e-3), settings.num_contour_quadrature(15),
+                    settings.preconditioner_mode("auto"), settings.verbose_linalg(True)]:
+            stack.enter_context(ctx)
+        with stack, (w.mesh if sharded else contextlib.nullcontext()):
+            K = mdl.train_operator(xx)
+            s = part("draws", lambda: K.zero_mean_mvn_samples(
+                CIQ_SAMPLES, generator=torch.Generator(device=dev).manual_seed(60)))
+            loss = torch.sum(s * s)
+            part("backward", lambda: (_comm.sum_shares(loss, group) if sharded else loss).backward())
+        got["draws"] = s.detach()
+        out[label] = dict(got=got, parts=parts,
+                          grads=[float(p.grad) for p in (mdl.raw_lengthscale, mdl.raw_outputscale, mdl.raw_noise)])
+        del K, s, loss
+    ref, mine, again = out["unsharded"], out["sharded"], out.pop("again")
+    ref["spread"] = _held_errors(torch, again["got"], ref["got"])["draws"]
+    ref["grad_spread"] = math.dist(again["grads"], ref["grads"]) / math.hypot(*ref["grads"])
+    ref["got"]["draws"] = ref["got"]["draws"][:, rows.to(dev)]
+    mine["err"] = _held_errors(torch, mine["got"], ref["got"])
+    mine["finite"] = bool(torch.isfinite(mine["got"]["draws"]).all()) and all(map(math.isfinite, mine["grads"]))
+    for r in (ref, mine):
+        del r["got"]
+    return out
+
+
+def _launch_sum(c, ranks, side="sharded") -> None:
+    """Adds every part's launches of the ranks' ``side`` to the kernels line."""
+    for rank in ranks:
+        for part in rank[side]["parts"].values():
+            for key in ("K1", "K2", "K3"):
+                c.launches[key] += part["launches"][key]
+
+
+def _check_parts(name, ranks, want: dict) -> list:
+    """Each rank's parts against ``want``: {part: (launches or a callable of
+    the part, collectives or a callable)}; a callable returns True when the
+    part is as the design implies."""
+    problems = []
+    for r, rank in enumerate(ranks):
+        for part, (launches, comm) in want.items():
+            got = rank["sharded"]["parts"][part]
+            ok_l = launches(got) if callable(launches) else got["launches"] == {**dict(K1=0, K3=0, K2=0), **launches}
+            ok_c = comm(got) if callable(comm) else got["comm"] == comm
+            if not (ok_l and ok_c):
+                problems.append(f"{name} rank {r}, {part}: launches {got['launches']}, collectives {got['comm']}, "
+                                f"CG iterations {got['iters']}, MINRES {got['minres']}: not as the design implies")
+    return problems
+
+
+def _check_algebra(c, lay, ranks) -> list:
+    """19m's holds: each result within SERVE_RTOL of the unsharded one's
+    largest entry; one K1 a product of the rows and no K3 on them (K1 for
+    the replicated row selection, K3 for the square block, none for the
+    entries); the collectives by name; CG iterations within SERVE_ITERS
+    at noise 1.0 and within ALGEBRA_ITERS_DRIFT at the model's own; the
+    sum's solve preconditioned as the unsharded one (its Woodbury sums);
+    the indexing's peak device memory under INDEX_PEAK_BYTES."""
+    problems, name, first = [], lay["name"], ranks[0]
+    ref, got = first["unsharded"], first["sharded"]
+    say(f"  {name} (held to {SERVE_RTOL} of each one's largest): "
+        + ", ".join(f"{k} {e:.3e}" for k, e in got["err"].items())
+        + f"; indexing's peak device memory {got['peak'] / 2**30:.3f} GiB above its start a rank "
+          f"(unsharded {ref['peak'] / 2**30:.3f} GiB; the dense K would take {4 * lay['n'] ** 2 / 1e9:.0f} GB)")
+    for part in got["parts"]:
+        gp, rp = got["parts"][part], ref["parts"][part]
+        say(f"    {part}: launches {gp['launches']} (unsharded {rp['launches']}); collectives {gp['comm']}; "
+            f"CG iterations {gp['iters']} (unsharded {rp['iters']}); {gp['s'] * 1e3:.3f} ms on rank 0 (unsharded "
+            f"{rp['s'] * 1e3:.3f} ms; ranks share one card)")
+    say(f"    the layout took {first['seconds']:.1f} s on rank 0")
+    if not (got["finite"] and max(got["err"].values()) <= SERVE_RTOL):
+        problems.append(f"{name}: the sharded results lie {got['err']} from the unsharded ones")
+    for r, rank in enumerate(ranks):
+        if not rank["sharded"]["peak"] < INDEX_PEAK_BYTES:
+            problems.append(f"{name} rank {r}: indexing took {rank['sharded']['peak']} bytes of device memory")
+        its, ref_its = rank["sharded"]["parts"]["low_rank_solve"]["iters"], ref["parts"]["low_rank_solve"]["iters"]
+        if len(its) != 1 or abs(its[0] - ref_its[0]) > SERVE_ITERS:
+            problems.append(f"{name} rank {r}: the low-rank solve's CG iterations {its}, unsharded {ref_its}")
+        for part in ("low_rank_solve_model", "sum_solve"):
+            its, ref_its = rank["sharded"]["parts"][part]["iters"], ref["parts"][part]["iters"]
+            if not _iters_drift(its, ref_its):
+                problems.append(f"{name} rank {r}, {part}: CG iterations {its}, unsharded {ref_its}")
+    problems += _check_parts(name, ranks, {
+        "index_rows": (dict(K1=1), {}),
+        "index_block": (dict(K3=1), {}),
+        "entries": ({}, {}),
+        "low_rank_mv": (dict(K1=1), dict(all_gather=1, low_rank=1)),
+        "low_rank_solve": (lambda p: p["launches"] == dict(K1=p["iters"][0], K3=0, K2=0),
+                           lambda p: p["comm"].get("all_gather") == p["comm"].get("low_rank") == p["iters"][0]),
+        "low_rank_solve_model": (lambda p: p["launches"] == dict(K1=p["iters"][0], K3=0, K2=0),
+                                 lambda p: p["comm"].get("all_gather") == p["comm"].get("low_rank") == p["iters"][0]
+                                 and "woodbury" not in p["comm"]),
+        # two K1 a product of the sum (one a CG iteration, one of the
+        # landmarks' unit columns), a gathered vector each; the landmarks'
+        # rows from their owners once; one Woodbury sum a CG iteration and
+        # one at its start
+        "sum_solve": (lambda p: p["launches"] == dict(K1=2 * (p["iters"][0] + 1), K3=0, K2=0),
+                      lambda p: p["comm"].get("all_gather") == p["launches"]["K1"]
+                      and p["comm"].get("landmarks") == 1 and p["comm"].get("woodbury") == p["iters"][0] + 1),
+        "sum_mv": (dict(K1=2), dict(all_gather=2)),
+        "expand_mv": (dict(K1=1), dict(all_gather=1)),
+        "mul_roots": (dict(K1=2 * LOVE_K), dict(lanczos=2 * (4 * LOVE_K + 1), all_gather=2 * LOVE_K)),
+        "mul_mv": ({}, dict(low_rank=1)),
+    })
+    _launch_sum(c, ranks)
+    return problems
+
+
+def _check_fantasy(c, lay, ranks) -> list:
+    """19n's holds: the solves to SERVE_CG_TOL within SERVE_RTOL of the
+    unsharded ones' largest entry, CG iterations (at both tolerances) within
+    SERVE_ITERS at noise 1.0 and within ALGEBRA_ITERS_DRIFT at the model's
+    own; one K1 a CG iteration and no K3, one "cat_rows" sum and one
+    gathered vector an iteration on each rank; the last rank owns the new
+    rows."""
+    problems, name, first = [], lay["name"], ranks[0]
+    ref, got = first["unsharded"], first["sharded"]
+    say(f"  {name}: solve to {SERVE_CG_TOL} {got['err']['solve']:.3e} (at the model's noise "
+        f"{got['err']['solve_model']:.3e}) from the unsharded one (held to "
+        f"{SERVE_RTOL}); row counts {got['sizes']}")
+    for part in got["parts"]:
+        gp, rp = got["parts"][part], ref["parts"][part]
+        say(f"    {part}: CG iterations {gp['iters']} (unsharded {rp['iters']}); launches {gp['launches']} "
+            f"(unsharded {rp['launches']}); collectives {gp['comm']}; {gp['s']:.3f} s on rank 0 (unsharded "
+            f"{rp['s']:.3f} s; ranks share one card)")
+    say(f"    the layout took {first['seconds']:.1f} s on rank 0")
+    if not (got["finite"] and max(got["err"].values()) <= SERVE_RTOL):
+        problems.append(f"{name}: the sharded fantasy solve lies {got['err']} from the unsharded one")
+    from linear_operator_tpu_torch.parallel.sharding import split_sizes
+
+    old = split_sizes(lay["n"], len(got["sizes"]))
+    if got["sizes"] != [*old[:-1], old[-1] + M_FANTASY]:
+        problems.append(f"{name}: row counts {got['sizes']}: the last rank does not own the new rows")
+    for r, rank in enumerate(ranks):
+        for part in ("solve_16b", "solve", "solve_model"):
+            its, ref_its = rank["sharded"]["parts"][part]["iters"], ref["parts"][part]["iters"]
+            if not (_iters_drift(its, ref_its) if part == "solve_model" else
+                    len(its) == 1 and abs(its[0] - ref_its[0]) <= SERVE_ITERS):
+                problems.append(f"{name} rank {r}, {part}: CG iterations {its}, unsharded {ref_its}")
+    problems += _check_parts(name, ranks, {
+        part: (lambda p: p["launches"] == dict(K1=p["iters"][0], K3=0, K2=0),
+               lambda p: p["comm"].get("all_gather") == p["comm"].get("cat_rows") == p["iters"][0])
+        for part in ("solve_16b", "solve", "solve_model")})
+    _launch_sum(c, ranks)
+    return problems
+
+
+def _check_ciq(c, lay, ranks) -> list:
+    """19o's holds: the draws within SERVE_RTOL of the unsharded ones'
+    largest, the gradient of their sum of squares within SERVE_RTOL of its
+    norm; the range estimate's 20 CG iterations and MINRES's within
+    SERVE_ITERS; on each rank one K1 a product (20 for the range estimate,
+    one a MINRES iteration on K, one last product) and no K3, K2 in the
+    backward; two MINRES sums a step and two at its start, the nested
+    range estimate's Lanczos sums."""
+    problems, name, first = [], lay["name"], ranks[0]
+    ref, got = first["unsharded"], first["sharded"]
+    g_err = math.sqrt(sum((a - b) ** 2 for a, b in zip(got["grads"], ref["grads"]))) / math.sqrt(
+        sum(b * b for b in ref["grads"]))
+    say(f"  {name}: draws {got['err']['draws']:.3e} from the unsharded ones, the gradient of their sum of squares "
+        f"{g_err:.3e} of its norm (held to {SERVE_RTOL}; {['%.5e' % v for v in got['grads']]}, unsharded "
+        f"{['%.5e' % v for v in ref['grads']]}); the unsharded run from itself {ref['spread']:.3e} and "
+        f"{ref['grad_spread']:.3e} (K3's atomics through MINRES to 1e-3)")
+    for part in ("draws", "backward"):
+        gp, rp = got["parts"][part], ref["parts"][part]
+        say(f"    {part}: CG iterations {gp['iters']}, MINRES {gp['minres']} (unsharded {rp['iters']}, "
+            f"{rp['minres']}); launches {gp['launches']} (unsharded {rp['launches']}); collectives {gp['comm']}; "
+            f"{gp['s']:.3f} s on rank 0 (unsharded {rp['s']:.3f} s; ranks share one card)")
+    say(f"    {CIQ_SAMPLES / got['parts']['draws']['s']:.1f} draws/s a rank (ranks share one card; unsharded "
+        f"{CIQ_SAMPLES / ref['parts']['draws']['s']:.1f}); the layout took {first['seconds']:.1f} s")
+    if not (got["finite"] and got["err"]["draws"] <= SERVE_RTOL and g_err <= SERVE_RTOL):
+        problems.append(f"{name}: the sharded draws or their gradient lie {got['err']}, {g_err:.3e} from the "
+                        "unsharded ones")
+    for r, rank in enumerate(ranks):
+        for part in ("draws", "backward"):
+            gp, rp = rank["sharded"]["parts"][part], ref["parts"][part]
+            if gp["iters"] != rp["iters"] or len(gp["minres"]) != len(rp["minres"]) or any(
+                    abs(a - b) > SERVE_ITERS for a, b in zip(gp["minres"], rp["minres"])):
+                problems.append(f"{name} rank {r}, {part}: CG {gp['iters']} and MINRES {gp['minres']} iterations, "
+                                f"unsharded {rp['iters']} and {rp['minres']}")
+
+    def draws_ok(p):
+        k_main = p["minres"][-1] if p["minres"] else -1
+        return p["launches"] == dict(K1=20 + k_main + 1, K3=0, K2=0) and p["iters"] == [20]
+
+    def sums_ok(p):
+        return (p["comm"].get("minres") == sum(2 + 2 * k for k in p["minres"])
+                and p["comm"].get("all_gather") == p["launches"]["K1"])
+
+    problems += _check_parts(name, ranks, {
+        "draws": (draws_ok, lambda p: sums_ok(p) and p["comm"].get("lanczos") == 4 * 20 + 1),
+        "backward": (lambda p: p["launches"]["K3"] == 0 and p["launches"]["K1"] > 0 and p["launches"]["K2"] > 0,
+                     lambda p: p["comm"].get("minres") == sum(2 + 2 * k for k in p["minres"])),
+    })
+    _launch_sum(c, ranks)
+    return problems
+
+
 def _spawn_world(world: int, backend: str, spec: dict, timeout_s: float, tmp: Path):
     """Runs a world of ``world`` ranks of ``_sharded_worker`` on the card
     and returns (each rank's results or None, each rank's output tail): a
@@ -3322,7 +3751,9 @@ def phase_sharded(c) -> None:
     backward at N = 100,000 on (1, 2) (_roots_layout), (k) the blocked
     pivoted sweep and config 5's step under it at n = 8192 and N = 100,000
     (_blocked_layout), (l) SKI at config 4b with x's gradient (_ski_layout),
-    each held against the unsharded run in the same process."""
+    (m) indexing and the algebra (_algebra_layout), (n) the fantasy update
+    (_fantasy_layout) and (o) config 6's CIQ draws (_ciq_layout), each held
+    against the unsharded run in the same process."""
     import tempfile
 
     torch, rbf = c.torch, c.rbf
@@ -3378,7 +3809,13 @@ def phase_sharded(c) -> None:
                           n=N_SHARDED, blocked=True),
                      dict(name=f"k 2 ranks (1, 2) N={N} blocked sweep", data=1, model=2, probe=None, n=N,
                           blocked=True),
-                     dict(ski(f"l 2 ranks (1, 2) SKI linear n={N_SKI} x's gradient", 2, "linear"), x_grad=True)]),
+                     dict(ski(f"l 2 ranks (1, 2) SKI linear n={N_SKI} x's gradient", 2, "linear"), x_grad=True),
+                     dict(name=f"m 2 ranks (1, 2) N={N} indexing and the algebra", data=1, model=2, probe=None, n=N,
+                          algebra=True),
+                     dict(name=f"n 2 ranks (1, 2) N={N}+{M_FANTASY} fantasy update", data=1, model=2, probe=None,
+                          n=N, fantasy=True),
+                     dict(name=f"o 2 ranks (1, 2) N={N_CIQ} CIQ sampling (config 6)", data=1, model=2, probe=None,
+                          n=N_CIQ, ciq=True)]),
         (4, shared, [layout("c 4 ranks (2, 2) n=8192", 2, 2, None, N_SHARDED, "dryrun"),
                      layout("c 4 ranks (1, 2, 2) n=8192", 1, 2, 2, N_SHARDED, "dryrun"),
                      layout("e 4 ranks (2, 2) n=8192 default settings", 2, 2, None, N_SHARDED, "default", False),
@@ -3397,6 +3834,8 @@ def phase_sharded(c) -> None:
             ranks = [r[lay["name"]] for r in results]
             check = (_check_ski if lay.get("ski") else _check_dkl if lay.get("dkl")
                      else _check_roots if lay.get("roots") else _check_blocked if lay.get("blocked")
+                     else _check_algebra if lay.get("algebra") else _check_fantasy if lay.get("fantasy")
+                     else _check_ciq if lay.get("ciq")
                      else _check_served if lay.get("serve") else _check_sharded)
             problems += check(c, lay, ranks)
     torch.cuda.empty_cache()
@@ -3862,8 +4301,96 @@ def _check_served(c, lay, ranks) -> list:
     return problems
 
 
+# ---------------------------------------------------------------------------
+# 20. The port's examples on the card
+# ---------------------------------------------------------------------------
+
+# each example's command line (from the examples/ folder of the package's
+# checkout) and the world it runs in
+EXAMPLES = (("torch_demo.py", ["--big"], 1), ("torch_train_gp.py", [], 1), ("torch_multitask_lmc.py", [], 1),
+            ("torch_train_sharded.py", ["--backend", "gloo"], 2))
+EXAMPLES_TIMEOUT_S = 300
+
+
+def phase_examples(c) -> None:
+    """20. The port's four examples at their default sizes on the card, all
+    started at once, each in its own process: torch_demo.py --big (the 10M
+    x 10M Woodbury solve), torch_train_gp.py (the exact GP, SKI, DKL, SGPR
+    and SVGP trained with Adam), torch_multitask_lmc.py, and
+    torch_train_sharded.py in a world of 2 (gloo on the card's tensors, as
+    phase 19's worlds of 2: NCCL takes no two ranks on one card).  Each must
+    exit 0 within EXAMPLES_TIMEOUT_S and print a JSON summary whose outputs
+    are finite and whose training losses fell (the demo's five Adam steps
+    on the GP's marginal likelihood)."""
+    import socket
+    import tempfile
+
+    folder = Path(c.lo.__file__).resolve().parents[1] / "examples"
+    tmp = Path(tempfile.mkdtemp(prefix="examples-"))
+    procs = []
+    t0 = time.perf_counter()
+    for script, args, world in EXAMPLES:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        for rank in range(world):
+            env = dict(os.environ)
+            if world > 1:
+                env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE=str(world), RANK=str(rank),
+                           LOCAL_RANK=str(rank))
+            log = open(tmp / f"{script}-{rank}.txt", "w+")
+            procs.append((script, rank, log, subprocess.Popen([sys.executable, str(folder / script), *args],
+                                                              stdout=log, stderr=subprocess.STDOUT, env=env)))
+    deadline = time.perf_counter() + EXAMPLES_TIMEOUT_S
+    try:
+        while any(p.poll() is None for *_, p in procs) and time.perf_counter() < deadline:
+            time.sleep(0.2)
+    finally:
+        for *_, p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    wall = time.perf_counter() - t0
+    problems, summaries = [], {}
+    for script, rank, log, p in procs:
+        log.seek(0)
+        text = log.read()
+        log.close()
+        if p.returncode != 0:
+            problems.append(f"{script} rank {rank} exited {p.returncode}:\n{text[-3000:]}")
+            continue
+        if rank == 0:
+            try:
+                summaries[script] = json.loads(text.strip().splitlines()[-1])
+            except (json.JSONDecodeError, IndexError):
+                problems.append(f"{script} printed no JSON summary:\n{text[-2000:]}")
+            say(f"  {script}:\n" + "\n".join(f"    {line}" for line in text.strip().splitlines()[:-1]
+                                               if line.strip() and "Warning" not in line and "warn(" not in line))
+    for path in tmp.iterdir():
+        path.unlink()
+    tmp.rmdir()
+    losses = {}
+    for script, s in summaries.items():
+        parts = {k: v for k, v in s.items() if isinstance(v, dict) and "loss" in v}
+        if "loss" in s:
+            parts[script] = s
+        losses.update({f"{script} {k}": v["loss"] for k, v in parts.items()})
+        if not s.get("finite"):
+            problems.append(f"{script}: outputs not finite ({s})")
+    fell = {k: v[1] < v[0] for k, v in losses.items()}
+    say(f"examples (phase 20): {len(EXAMPLES)} examples in {wall:.1f} s wall, all started at once; losses "
+        + ", ".join(f"{k} {v[0]:.4g} -> {v[1]:.4g}" for k, v in losses.items()))
+    if len(summaries) != len(EXAMPLES):
+        problems.append(f"summaries from {sorted(summaries)} only")
+    if not all(fell.values()):
+        problems.append(f"a training loss did not fall: {[k for k, v in fell.items() if not v]}")
+    if problems:
+        fail("phase 20: " + "\n".join(problems))
+
+
 PHASES = ("woodbury", "kron_toeplitz", "ski", "indexing", "fantasy", "harness", "kernel_family", "sgpr", "svgp",
-          "classification", "multitask", "dkl", "sharded")
+          "classification", "multitask", "dkl", "sharded", "examples")
 
 
 def main() -> None:
@@ -5180,6 +5707,8 @@ def main() -> None:
         phase(ctx)
     # 19. the sharded step (config 5) in worlds of 1, 2 and 4 ranks
     phase_sharded(ctx)
+    # 20. the port's examples at their default sizes
+    phase_examples(ctx)
     for key in ("K1", "K2", "K3"):
         stats[key]["ms_by_covar"] = {name: ms[key] for name, ms in ctx.family_ms.items()}
     stats["K3"]["ms_t1_by_covar"] = {name: ms["K3_t1"] for name, ms in ctx.family_ms.items()}

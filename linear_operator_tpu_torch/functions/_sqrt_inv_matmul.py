@@ -19,6 +19,13 @@ operator, so the gradient treats it as a constant, as the JAX package does.
 Randomness: one Lanczos start vector is drawn per call and serves the range
 estimate and the nested quadrature on P; the backward reuses the forward's
 shifts and weights, and the settings the forward read.
+
+On a row-sharded operator (``parallel/``) rhs, the result and its
+cotangent are the rank's rows and the start vector is drawn whole and cut
+to them; the range estimate and MINRES sum their inner products over the
+model group (``contour_integral_quad``'s ``layout``), on K and on P's own
+operator (whose products sum L_R^T v_R), and the backward sums the
+operator's gradient shares once, as ``solve``'s does.
 """
 
 from __future__ import annotations
@@ -41,11 +48,13 @@ class _Quadrature:
 
     def __init__(self, op, init: torch.Tensor):
         self.init = init
+        self.layout = _row_layout(op)
         self.kw = dict(
             num_quad=settings.num_contour_quadrature.value(),
             max_lanczos_iter=settings.max_lanczos_quadrature_iterations.value(),
             tolerance=settings.minres_tolerance.value(),
             max_iter=settings.max_cg_iterations.value(),
+            layout=self.layout,
         )
         self.precond, self.sqrt_pre = None, None
         closure, precond_op, _ = op.detach()._preconditioner()
@@ -102,6 +111,8 @@ class _SqrtInvMatmul(torch.autograd.Function):
         left = (-w * g_solves).movedim(0, -1).reshape(*g_solves.shape[1:-1], -1)
         right = rhs_solves.movedim(0, -1).reshape(*rhs_solves.shape[1:-1], -1)
         op_grads = ctx.op._bilinear_derivative(left, right)
+        if quad.layout is not None:
+            op_grads = quad.layout.reduce_grads(op_grads)
         return (None, rhs_bar, None, *op_grads)
 
 
@@ -112,8 +123,24 @@ def _broadcast_rhs(op, rhs: torch.Tensor) -> torch.Tensor:
     return rhs.expand(*batch, *rhs.shape[-2:])
 
 
+def _row_layout(op):
+    """A row-sharded operator's ``SolveLayout``, else None."""
+    if getattr(op, "row_group", None) is None:
+        return None
+    from ..parallel.sharding import solve_layout
+
+    return solve_layout(op)
+
+
 def _sqrt_inv_core(op, rhs: torch.Tensor, generator: torch.Generator | None) -> torch.Tensor:
-    init = randn((*rhs.shape[:-2], rhs.shape[-2]), rhs.dtype, rhs.device, generator)  # the Lanczos start
+    if _row_layout(op) is None:
+        init = randn((*rhs.shape[:-2], rhs.shape[-2]), rhs.dtype, rhs.device, generator)  # the Lanczos start
+    else:
+        from ._root_decomposition import _random_start
+
+        # the rank's rows of the whole start vector
+        init = _random_start(op, generator).to(rhs.dtype)
+        init = init.expand(*rhs.shape[:-2], init.shape[-1])
     return _SqrtInvMatmul.apply(op, rhs, _Quadrature(op, init), *op._leaves())
 
 
@@ -135,8 +162,31 @@ def sqrt_inv_matmul(op, rhs: torch.Tensor, lhs: torch.Tensor | None = None, *, g
     return out
 
 
+class _RowMatmul(torch.autograd.Function):
+    """K v on a row-sharded operator (the rank's rows of both), whose
+    products gather or sum outside autograd: the backward is K g (K is
+    symmetric) for v, and the operator's gradient shares of sum(g * K v),
+    summed once over the model group."""
+
+    @staticmethod
+    def forward(ctx, op, layout, rhs, *op_leaves):
+        ctx.op, ctx.layout = op, layout
+        ctx.save_for_backward(rhs)
+        return op._matmul(rhs)
+
+    @staticmethod
+    def backward(ctx, g):
+        (rhs,) = ctx.saved_tensors
+        grads = ctx.layout.reduce_grads(ctx.op._bilinear_derivative(g, rhs))
+        rhs_bar = ctx.op._matmul(g) if ctx.needs_input_grad[2] else None
+        return (None, None, rhs_bar, *grads)
+
+
 def sqrt_matmul(op, rhs: torch.Tensor, *, generator=None) -> torch.Tensor:
     """K^{1/2} rhs = K (K^{-1/2} rhs): with M M^T = K^{-1}, (K M)(K M)^T = K,
     so K M z is an exact N(0, K) draw for z ~ N(0, I)."""
     half_inv = _sqrt_inv_core(op, _broadcast_rhs(op, rhs), generator)
-    return op._matmul(half_inv)
+    layout = _row_layout(op)
+    if layout is None:
+        return op._matmul(half_inv)
+    return _RowMatmul.apply(op, layout, half_inv, *op._leaves())

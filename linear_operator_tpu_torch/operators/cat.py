@@ -1,8 +1,11 @@
 """Lazy concatenation of operators along the rows, the columns or a batch dim
 (counterpart of linear_operator_tpu/operators/cat.py).  All blocks live on
-one device, as in the JAX package.  Under a mesh (``parallel/``) a Cat runs
-replicated: every rank holds and multiplies every block; sharding its blocks
-over the ranks is queued (``ROADMAP.md`` queue 1)."""
+one device, as in the JAX package, which has no sharded Cat of its own (its
+user shards the blocks' leaves over the mesh).  Under a mesh (``parallel/``)
+a Cat runs replicated: every rank holds and multiplies every block, with the
+values of the JAX package's.  The fantasy update of a row-sharded operator
+(``cat_rows``) is not a Cat but row-sharded itself
+(``parallel.row_sharded.CatRows``)."""
 
 from __future__ import annotations
 

@@ -244,7 +244,11 @@ def initialize_distributed(
     init_method = f"tcp://{coordinator_address}" if coordinator_address is not None else "env://"
     if timeout_s is not None:
         kwargs["timeout"] = timedelta(seconds=timeout_s)
-    dist.init_process_group(backend, init_method=init_method, world_size=num_processes, rank=process_id, **kwargs)
+    # unnamed, the size and rank come from the env:// variables (torchrun's)
+    for key, value in (("world_size", num_processes), ("rank", process_id)):
+        if value is not None:
+            kwargs[key] = value
+    dist.init_process_group(backend, init_method=init_method, **kwargs)
     if torch.cuda.is_available():
         if local_rank is None:
             local_rank = dist.get_rank()

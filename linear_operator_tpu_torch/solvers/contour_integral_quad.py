@@ -87,21 +87,30 @@ def ciq_eig_range(
     init: torch.Tensor,
     max_lanczos_iter: int = 20,
     preconditioner: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    *,
+    layout=None,
 ):
     """(min_eig, max_eig), scalars, from the Ritz values of ``max_lanczos_iter``
     Lanczos steps from ``init`` (*b, n), or with a preconditioner those of the
     whitened pencil from preconditioned CG's tridiagonal, widened by 1.2 on
-    each side and reduced over the batch, so that the shifts are shared."""
-    n = init.shape[-1]
+    each side and reduced over the batch, so that the shifts are shared.
+
+    With ``layout`` (a ``parallel.sharding.SolveLayout`` of a row-sharded
+    operator) ``init`` and the closure's vectors are a rank's rows: Lanczos
+    sums its inner products over the rows ("lanczos"), CG runs under the
+    layout's reductions, and every rank builds the unsharded T."""
+    n = init.shape[-1] if layout is None else layout.n
     k = min(max_lanczos_iter, n)
     if preconditioner is None:
-        _, T = lanczos_tridiag(matmul_closure, k, init_vecs=init)
+        row_sum = None if layout is None else (lambda t: _comm_sum(t, layout, "lanczos"))
+        _, T = lanczos_tridiag(matmul_closure, k, init_vecs=init, row_sum=row_sum, n=n)
     else:
         from .linear_cg import linear_cg
 
         res = linear_cg(
             matmul_closure, init[..., None], n_tridiag=1, max_iter=k, max_tridiag_iter=k,
             tolerance=1e-5, preconditioner=preconditioner,
+            reduction=None if layout is None else layout.reduction(1, 1, 0, init),
         )
         T = res.t_mats[0]  # (*b, k, k): the leading dim is the tridiagonal's column
     ritz = torch.linalg.eigvalsh(T)
@@ -126,6 +135,7 @@ def contour_integral_quad(
     quadrature: tuple[torch.Tensor, torch.Tensor] | None = None,
     tolerance: float | None = None,
     max_iter: int | None = None,
+    layout=None,
 ):
     """K^{-1/2} rhs (``inverse``) or K^{1/2} rhs by shifted MINRES.
 
@@ -138,14 +148,19 @@ def contour_integral_quad(
     With ``preconditioner`` (z -> P^{-1} z) and ``sqrt_premultiply``
     (r -> P^{1/2} r) the quadrature runs over the whitened spectrum of
     P^{-1/2} K P^{-1/2}, and each solve is (K + s_j P)^{-1} P^{1/2} rhs: the
-    weighted sum is M rhs with M M^T = K^{-1} exactly."""
+    weighted sum is M rhs with M M^T = K^{-1} exactly.
+
+    With ``layout`` (a row-sharded operator's ``SolveLayout``) ``rhs``,
+    ``init``, the closures' vectors and the solves are a rank's rows: the
+    range estimate and MINRES sum their inner products over the model group
+    ("lanczos", "minres")."""
     if num_quad is None:
         num_quad = settings.num_contour_quadrature.value()
     settings.record_linalg("contour_integral_quad", rhs.shape)
     if sqrt_premultiply is not None:
         rhs = sqrt_premultiply(rhs)
     if quadrature is None:
-        min_eig, max_eig = ciq_eig_range(matmul_closure, init, max_lanczos_iter, preconditioner)
+        min_eig, max_eig = ciq_eig_range(matmul_closure, init, max_lanczos_iter, preconditioner, layout=layout)
         quadrature = ciq_shifts_weights(min_eig, max_eig, num_quad)
     shifts, weights = (a.to(rhs.dtype) for a in quadrature)
     solves = minres(
@@ -155,8 +170,17 @@ def contour_integral_quad(
         max_iter=settings.max_cg_iterations.value() if max_iter is None else max_iter,
         tolerance=settings.minres_tolerance.value() if tolerance is None else tolerance,
         preconditioner=preconditioner,
+        row_sum=None if layout is None else (lambda t: _comm_sum(t, layout, "minres")),
+        n=None if layout is None else layout.n,
     )
     if not inverse:
         # one product over the leading shift dim: (q, *b, n, t) at once
         solves = matmul_closure(solves)
     return solves, shifts, weights
+
+
+def _comm_sum(t: torch.Tensor, layout, name: str) -> torch.Tensor:
+    """The sum of ``t`` over a row-sharded layout's model group."""
+    from ..parallel import _comm
+
+    return _comm.all_reduce(t, layout.rows, name=name)

@@ -27,9 +27,18 @@ def minres(
     max_iter: int | None = None,
     tolerance: float | None = None,
     preconditioner: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    row_sum: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    n: int | None = None,
 ) -> torch.Tensor:
     """Solutions of shape (num_shifts, *b, n, t), or (*b, n, t) when
     ``shifts`` is None (one zero shift, squeezed).
+
+    Row-sharded: ``rhs``, the closure's vectors and the solutions are a
+    rank's rows of the whole n (``n``), and ``row_sum`` sums over the ranks'
+    rows.  Every contraction over n goes through it: the start's norm and
+    beta0 once, each step's alpha and beta once each (two sums a step), so
+    that every rank computes the same stopping value and stops on the same
+    iteration.
 
     ``preconditioner`` (z -> P^{-1} z, SPD) runs the preconditioned Lanczos
     recurrence: the basis pair (z, q = P^{-1} z) with beta = sqrt(z . q), so
@@ -52,9 +61,14 @@ def minres(
 
     dtype = torch.promote_types(rhs.dtype, torch.float32)
     b = rhs.to(dtype)
-    n, t = b.shape[-2], b.shape[-1]
+    t = b.shape[-1]
+    if n is None:
+        n = b.shape[-2]
     batch = b.shape[:-2]
     max_iter = min(max_iter, 2 * n + 10)
+
+    def total(a):
+        return a if row_sum is None else row_sum(a)
 
     def mm(v):
         return matmul_closure(v.to(rhs.dtype)).to(dtype)
@@ -66,20 +80,23 @@ def minres(
         def prec(v):
             return preconditioner(v.to(rhs.dtype)).to(dtype)
 
-    b_norm = torch.linalg.norm(b, dim=-2, keepdim=True)
+    if row_sum is None:
+        b_norm = torch.linalg.norm(b, dim=-2, keepdim=True)
+    else:
+        b_norm = torch.sqrt(row_sum(torch.sum(b * b, dim=-2, keepdim=True)))
     b_is_zero = b_norm < 1e-10
     b_norm = torch.where(b_is_zero, 1.0, b_norm)
     b_hat = b / b_norm
 
     # generalized Lanczos start: beta0 = sqrt(z . P^{-1} z), 1 without P
     q0_raw = prec(b_hat)
-    beta0 = torch.sqrt(torch.clamp_min(torch.sum(b_hat * q0_raw, dim=-2, keepdim=True), 1e-30))
+    beta0 = torch.sqrt(torch.clamp_min(total(torch.sum(b_hat * q0_raw, dim=-2, keepdim=True)), 1e-30))
     z_prev = torch.zeros_like(b_hat)
     z_cur = b_hat / beta0
     q_cur = q0_raw / beta0
     beta = torch.zeros((*batch, 1, t), dtype=dtype, device=b.device)
 
-    x = torch.zeros((s, *batch, n, t), dtype=dtype, device=b.device)
+    x = torch.zeros((s, *b.shape[:-1], t), dtype=dtype, device=b.device)
     w0 = torch.zeros_like(x)  # search direction k-1
     w1 = torch.zeros_like(x)  # search direction k-2
     ones = torch.ones((s, *batch, 1, t), dtype=dtype, device=b.device)
@@ -93,10 +110,10 @@ def minres(
         # the shared (preconditioned) Lanczos step on K; each shift enters
         # only its own QR
         p = mm(q_cur)
-        alpha = torch.sum(q_cur * p, dim=-2, keepdim=True)  # (*b, 1, t)
+        alpha = total(torch.sum(q_cur * p, dim=-2, keepdim=True))  # (*b, 1, t)
         p = p - alpha * z_cur - beta * z_prev
         q_raw = prec(p)
-        beta_next = torch.sqrt(torch.clamp_min(torch.sum(p * q_raw, dim=-2, keepdim=True), 0.0))
+        beta_next = torch.sqrt(torch.clamp_min(total(torch.sum(p * q_raw, dim=-2, keepdim=True)), 0.0))
         dead = beta_next < 1e-30
         safe_beta = torch.where(dead, 1.0, beta_next)
         z_next = torch.where(dead, 0.0, p / safe_beta)

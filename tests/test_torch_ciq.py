@@ -138,27 +138,30 @@ def test_minres_matches_jax(counts, shifted, precond, batch):
     shifts = np.array([0.0, 0.05, 1.0, 7.0]) if shifted else None
     kw = dict(tolerance=1e-7, max_iter=300)
 
-    def j_run(**extra):
-        return _jit(lambda b: j_minres(
+    def j_run(b, max_iter):
+        return j_minres(
             lambda v: jnp.asarray(A) @ v, b,
             shifts=None if shifts is None else jnp.asarray(shifts),
-            preconditioner=(lambda v: jnp.asarray(dinv)[..., None] * v) if precond else None, **{**kw, **extra},
-        ))(jnp.asarray(rhs))
+            preconditioner=(lambda v: jnp.asarray(dinv)[..., None] * v) if precond else None,
+            **{**kw, "max_iter": max_iter},
+        )
 
     got = t_minres(
         lambda v: torch.from_numpy(A) @ v, torch.from_numpy(rhs),
         shifts=None if shifts is None else torch.from_numpy(shifts),
         preconditioner=(lambda v: torch.from_numpy(dinv)[..., None] * v) if precond else None, **kw,
     )
-    want = j_run()
-    assert got.shape == want.shape == ((4,) if shifted else ()) + (*batch, n, 3)
-    _close(got, want, 1e-8)
     (k,) = counts.minres
     assert 1 < k < kw["max_iter"]
+    # the JAX loop at its cap, and stopped at the port's count and one less,
+    # in one compiled function
+    want, at_k, before_k = _jit(lambda b: tuple(j_run(b, m) for m in (kw["max_iter"], k, k - 1)))(jnp.asarray(rhs))
+    assert got.shape == want.shape == ((4,) if shifted else ()) + (*batch, n, 3)
+    _close(got, want, 1e-8)
     # the JAX loop ran exactly k iterations: stopped at k it is unchanged,
     # at k - 1 it is not
-    assert np.array_equal(_np(j_run(max_iter=k)), _np(want))
-    assert not np.array_equal(_np(j_run(max_iter=k - 1)), _np(want))
+    assert np.array_equal(_np(at_k), _np(want))
+    assert not np.array_equal(_np(before_k), _np(want))
     # each shifted system is solved: (A + s P) x = rhs, P the preconditioner
     p = np.eye(n) / dinv[..., None] if precond else np.eye(n)
     for i, s in enumerate(shifts if shifted else [0.0]):

@@ -1,5 +1,6 @@
 """The port imports nothing of JAX: every module under
-``linear_operator_tpu_torch/`` and ``chip_smoke.py``, parsed with ``ast``,
+``linear_operator_tpu_torch/``, the port's examples (``examples/torch_*.py``)
+and ``chip_smoke.py``, parsed with ``ast``,
 imports no ``jax``, ``jaxlib``, ``optax`` or ``linear_operator_tpu`` (its
 own package, ``linear_operator_tpu_torch``, aside), at any depth: top level,
 inside a function, or relative imports resolved to their package."""
@@ -12,7 +13,7 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = "linear_operator_tpu_torch"
 FORBIDDEN = {"jax", "jaxlib", "optax", "linear_operator_tpu"}
-FILES = sorted((ROOT / PACKAGE).rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / PACKAGE).rglob("*.py")) + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported(path: Path):

@@ -61,7 +61,9 @@ to 2e-9 and the gradient to 3e-7 of its norm; the float32 fused route to
 1e-6 of the unsharded port (measured 0 and 6e-8).
 """
 
+import concurrent.futures
 import json
+import multiprocessing
 import os
 import socket
 import subprocess
@@ -88,8 +90,10 @@ from test_torch_harness_common import _jit, one_torch_thread  # noqa: F401 (an a
 WORKER = Path(__file__).resolve().parent / "torch_parallel_worker.py"
 sys.path.insert(0, str(WORKER.parent))
 from torch_parallel_worker import (  # noqa: E402 (the cases' settings)
+    ALGEBRA,
     BLOCK_RANK,
     BLOCK_SIZE,
+    CIQ,
     DKL_HIDDEN,
     ROOTS,
     ROOTS_CHOLESKY,
@@ -97,6 +101,7 @@ from torch_parallel_worker import (  # noqa: E402 (the cases' settings)
     SERVE,
     SKI_CASES,
     SKI_X_GRAD,
+    ski_index,
 )
 
 WORLDS = {2: [(2, 1, None), (1, 2, None)], 4: [(2, 2, None), (1, 2, 2)]}
@@ -118,6 +123,16 @@ SKI_STENCIL = {"linear": 4, "cubic": 16}  # points a stencil: 2^D, 4^D
 # preconditioner (rank 5) 2.2e-8 and 1.0e-8.  Nystrom and the Cholesky
 # route lie within 1e-11 and take LOSS_RTOL and GRAD_RTOL
 SKI_RTOL = {"cg": (5e-6, 1.5e-6), "pivoted": (1e-7, 5e-8)}
+# the algebra runs: indexing on (1, 2) (with the algebra and CIQ) and on
+# (1, 4), whose row selections span every rank, at n = 33 (uneven rows)
+ALGEBRA_RUNS = {2: (1, 2, None, "full"), 4: (1, 4, None, "index")}
+ALGEBRA_N, ALGEBRA_M = 33, 3
+INDEX_CASES = ("rows", "square", "rect", "cols", "colslice", "batch", "entries")
+ALGEBRA_CASES = ("low_rank", "root_low_rank", "sum_op", "sum_dense", "sum_scalar", "mul", "scaled", "expand", "cat",
+                 "cat_root")
+# f64 holds of the algebra (of the largest entry; gradients of their norm),
+# and of CIQ on the blocked path (test_torch_ciq.py's CASES)
+ALGEBRA_RTOL, ALGEBRA_GRAD_RTOL, CIQ_RTOL = 1e-9, 1e-6, 1e-6
 SIZES = (32, 33)
 B, D, PROBES = 8, 2, 4
 SERVE_B, SERVE_M = 2, 5
@@ -127,6 +142,7 @@ SETTINGS = dict(max_cholesky_size=0, num_trace_samples=PROBES, max_cg_iterations
 LOSS_RTOL, GRAD_RTOL, FUSED_RTOL, SERVE_RTOL = 2e-9, 3e-7, 1e-6, 2e-9
 LR, ADAM_EPS = 0.01, 1e-8
 TIMEOUT_S = 120
+REF_PROCESSES = 2  # the processes that compute the JAX references
 
 
 # ---------------------------------------------------------------------------
@@ -275,6 +291,9 @@ def _dkl_data(n):
 
 def _runs():
     runs = {world: [] for world in WORLDS}
+    for world, (data, model, probe, kind) in ALGEBRA_RUNS.items():
+        runs[world].append(dict(name=f"algebra-{data}x{model}-n{ALGEBRA_N}", layout=[data, model, probe],
+                                case=f"a{ALGEBRA_N}", algebra=kind))
     for world, cases in SKI_RUNS.items():
         for interp, layout, n in cases:
             tag = "x".join(str(a) for a in layout if a is not None)
@@ -300,6 +319,115 @@ def _runs():
                                         dtype="float64", fused=False, serve=True,
                                         roots=layout[1] > 1 and (world == 2 or n == SIZES[1])))
     return runs
+
+
+def _algebra_data(n):
+    """An algebra data set of SERVE_B systems: x, y, a product's and a
+    solve's vectors w (and w_cat, of the n + m appended rows), a low-rank V,
+    a symmetric dense A, m new points, row and column indices spanning the
+    ranks, batch indices, and the draws of both packages by shape (the
+    Lanczos start, CIQ's base)."""
+    rng = np.random.default_rng(400 + n)
+    x = rng.normal(size=(SERVE_B, n, D))
+    a = rng.normal(size=(SERVE_B, n, n)) / n
+    arrays = dict(x=x, y=np.sin(3.0 * x[..., 0]), w=rng.normal(size=(SERVE_B, n, 3)),
+                  V=rng.normal(size=(SERVE_B, n, 2)) / 3.0, A=a + np.swapaxes(a, -1, -2),
+                  x_new=rng.normal(size=(SERVE_B, ALGEBRA_M, D)), w_cat=rng.normal(size=(SERVE_B, n + ALGEBRA_M, 3)),
+                  idx=np.array([0, n - 1, 5, 17, 3, n // 2 + 1]), idx2=np.array([4, 4, n - 2, 0, 9, 30]),
+                  bidx=np.array([1, 0, 1, 1, 0, 0]), params=np.array(PARAMS))
+    for shape in {(SERVE_B, n), (SERVE_B, n, SAMPLES)}:
+        arrays["draw" + "x".join(map(str, shape))] = rng.normal(size=shape)
+    return arrays
+
+
+def _jax_algebra(n):
+    """The JAX package's unsharded results of the algebra runs (the worker's
+    ``_algebra``) on the same data and draws, in one jitted function: each
+    indexed block's values and product, the pointwise entries; each sum's,
+    add_low_rank's, mul's, the constant multiple's, the batch expansion's
+    and cat_rows's values and product, with the solves' rows and the
+    gradients of sum(w * solve); sqrt_inv_matmul and the gradients of
+    sum(V_0 * out) with and without the preconditioner; CIQ's draws."""
+    arrays = _algebra_data(n)
+    x, w, V, A, x_new, w_cat = (jnp.asarray(arrays[k]) for k in ("x", "w", "V", "A", "x_new", "w_cat"))
+    idx, idx2, bidx = (arrays[k] for k in ("idx", "idx2", "bidx"))
+    draws = {v.shape: v for k, v in arrays.items() if k.startswith("draw")}
+    model = JaxGP(block_rows=32, materialize_threshold=None)
+    per_system = (SERVE_B, 1, 1)
+    params = model.init_params(D, dtype=jnp.float64)._replace(
+        raw_lengthscale=jnp.full(per_system, PARAMS[0], jnp.float64),
+        raw_outputscale=jnp.full(per_system, PARAMS[1], jnp.float64),
+        raw_noise=jnp.asarray(PARAMS[2], jnp.float64))
+    key = jax.random.PRNGKey(0)
+
+    def appended(p):
+        K = model.train_operator(p, x)
+        C = model.covariance(p, x_new).to_dense() + jax.nn.softplus(p.raw_noise) * jnp.eye(ALGEBRA_M)
+        return K.cat_rows(model.covariance(p, x_new, x).to_dense(), C)
+
+    ops = {
+        "low_rank": (lambda p: model.train_operator(p, x).add_low_rank(V), w),
+        "sum_op": (lambda p: model.train_operator(p, x) + model.covariance(p, x), w),
+        "sum_dense": (lambda p: model.train_operator(p, x) + A, w),
+        # the JAX AddedDiag takes no scalar summand: the same values as a tensor
+        "sum_scalar": (lambda p: model.train_operator(p, x) + jnp.full((SERVE_B, n, n), 0.5), w),
+        "mul": (lambda p: model.train_operator(p, x).mul(model.covariance(p, x)), w),
+        "scaled": (lambda p: model.train_operator(p, x) * 2.5 - model.train_operator(p, x), w),
+        "expand": (lambda p: model.train_operator(p, x)._expand_batch((3, SERVE_B)), w),
+        "cat": (appended, w_cat),
+    }
+
+    def everything(p, z):
+        out = {}
+        K = model.train_operator(p, x)
+        for case, block, v in (("rows", K[..., idx, :], w), ("square", K[..., 2:20, 2:20], w[..., 2:20, :]),
+                               ("rect", K[..., 2:20, 5:30], w[..., 5:30, :]), ("cols", K[..., :, idx], w[..., idx, :]),
+                               ("colslice", K[..., :, 3:11], w[..., 3:11, :])):
+            out[case] = dict(dense=block.to_dense(), mv=block @ v)
+        out["batch"] = dict(dense=K[-1].to_dense())
+        out["entries"] = dict(pairs=K[..., idx, idx2], batched=K[bidx, idx, idx2])
+        for case, (make, v) in ops.items():
+            op = make(p)
+            out[case] = dict(dense=op.to_dense(), mv=op @ v)
+        for case in ("low_rank", "sum_op", "cat"):
+            make, v = ops[case]
+
+            def loss(q, make=make, v=v):
+                sol = make(q).solve(v)
+                return jnp.sum(sol * v), sol
+
+            (_, sol), g = jax.value_and_grad(loss, has_aux=True)(p)
+            out[case].update(sol=sol, grads=g)
+        for label, over in CIQ.items():
+            def ciq():
+                # the backward reads the MINRES settings too
+                got, vjp = jax.vjp(lambda q, zz: jlo.sqrt_inv_matmul(model.train_operator(q, x), zz, key=key), p, z)
+                g, z_grad = vjp(jnp.broadcast_to(V[..., :1], got.shape))
+                return dict(out=got, z_grad=z_grad, grads=g)
+
+            out[f"ciq_{label}"] = _under({**SETTINGS, **ALGEBRA, **over}, ciq)
+        def samples():
+            def squares(q):
+                s = model.train_operator(q, x).zero_mean_mvn_samples(SAMPLES, key=key)
+                return jnp.sum(s * s), s
+
+            (_, s), g = jax.value_and_grad(squares, has_aux=True)(p)
+            return dict(samples=s, grads=g)
+
+        out["ciq_samples"] = _under({**SETTINGS, **ALGEBRA, **CIQ["precond"], "ciq_samples": True}, samples)
+        return out
+
+    res = _with_draws(draws, lambda: _under({**SETTINGS, **ALGEBRA}, lambda: _jit(everything)(params, w)))
+
+    def grads(g):
+        return np.array([float(jnp.sum(g.raw_lengthscale)), float(jnp.sum(g.raw_outputscale)), float(g.raw_noise)])
+
+    out = {}
+    for case, got in res.items():
+        out[case] = {k: grads(v) if k == "grads" else np.asarray(v) for k, v in got.items()}
+    for case, same in (("root_low_rank", "low_rank"), ("cat_root", "cat")):
+        out[case] = dict(dense=out[same]["dense"], mv=out[same]["mv"])
+    return out
 
 
 def _free_port() -> int:
@@ -512,7 +640,8 @@ def _with_draws(draws, fn):
 def _jax_ski(interp, n):
     """The JAX package's unsharded SKI model on the same data and draws, in
     one jitted function: neg_mll and its gradient under each SKI case, and
-    the LOVE posterior."""
+    the LOVE posterior; indexing the train operator (the worker's
+    ``_ski_index``)."""
     arrays = _ski_data(n)
     draws = {v.shape: v for k, v in arrays.items() if k.startswith("draw")}
     x, y, x_star = (jnp.asarray(arrays[k]) for k in ("x", "y", "x_star"))
@@ -521,8 +650,12 @@ def _jax_ski(interp, n):
     params = model.init_params(2, dtype=jnp.float64)
     key = jax.random.PRNGKey(1)
 
+    idx = np.array(ski_index(n))
+
     def everything(p, x):
-        out = {}
+        K = model.train_operator(p, x)
+        out = {"index": dict(rows=K[idx, :].to_dense(), block=K[2:20, 5:30].to_dense(), cols=K[:, idx].to_dense(),
+                             entries=K[idx, idx[::-1]])}
         for case, over in SKI_CASES.items():
             over = {**SETTINGS, **over}
             if case == "posterior":
@@ -534,7 +667,7 @@ def _jax_ski(interp, n):
         return out
 
     res = _with_draws(draws, lambda: _jit(everything)(params, x))
-    out = {}
+    out = {"index": {k: np.asarray(v) for k, v in res.pop("index").items()}}
     for case, (v, g) in res.items():
         if case != "posterior":
             g, x_grad = g if case in SKI_X_GRAD else (g, None)
@@ -567,11 +700,19 @@ def _jax_dkl(n):
                                                                                   *g.gp)])
 
 
+def _jax_process() -> None:
+    """A reference process's JAX: the test configuration's (the CPU, f64)."""
+    os.environ["JAX_PLATFORMS"] = "cpu"
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+
+
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """Both worlds spawned at once (each rank one process), the JAX
-    references computed while they run; a rank that fails ends its world at
-    once, and each world has its own timeout."""
+    references computed while they run, in REF_PROCESSES processes of their
+    own; a rank that fails ends its world at once, and each world has its
+    own timeout."""
     tmp = tmp_path_factory.mktemp("parallel")
     arrays = {}
     for n in SIZES:
@@ -582,6 +723,7 @@ def worlds(tmp_path_factory):
         arrays.update({f"dkl{n}_{k}": v for k, v in _dkl_data(n).items()})
     for n in SKI_SIZES:
         arrays.update({f"ski{n}_{k}": v for k, v in _ski_data(n).items()})
+    arrays.update({f"a{ALGEBRA_N}_{k}": v for k, v in _algebra_data(ALGEBRA_N).items()})
     np.savez(tmp / "arrays.npz", **arrays)
     env = {k: v for k, v in os.environ.items() if k not in ("XLA_FLAGS",)}
     env["OMP_NUM_THREADS"] = "1"
@@ -597,12 +739,17 @@ def worlds(tmp_path_factory):
                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
             for r in range(world)
         ]
-    refs = {n: _jax_reference(n) for n in SIZES}
-    refs.update({f"s{n}": _jax_serving(n) for n in SIZES})
-    refs.update({f"dkl{n}": _jax_dkl(n) for n in SIZES})
-    refs.update({f"roots{n}": _jax_roots(n) for n in SIZES})
-    refs.update({(interp, n): _jax_ski(interp, n) for interp, n in
-                 {(i, n) for cases in SKI_RUNS.values() for i, _, n in cases}})
+    # the JAX references, longest first, in processes of their own
+    jobs = [((interp, n), _jax_ski, (interp, n)) for interp, n in
+            sorted({(i, n) for cases in SKI_RUNS.values() for i, _, n in cases})]
+    jobs.append((f"a{ALGEBRA_N}", _jax_algebra, (ALGEBRA_N,)))
+    jobs += [(f"{key}{n}", fn, (n,)) for key, fn in (("s", _jax_serving), ("roots", _jax_roots), ("dkl", _jax_dkl))
+             for n in SIZES]
+    jobs += [(n, _jax_reference, (n,)) for n in SIZES]
+    context = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(REF_PROCESSES, mp_context=context, initializer=_jax_process) as pool:
+        futures = [(key, pool.submit(fn, *args)) for key, fn, args in jobs]
+        refs = {key: future.result() for key, future in futures}
     results, failures = {}, []
     for world, ranks in procs.items():
         deadline = started + TIMEOUT_S
@@ -626,7 +773,7 @@ def worlds(tmp_path_factory):
 def _cases(kind):
     for world, runs in _runs().items():
         for run in runs:
-            if run.get("serve") or run.get("ski") or run.get("dkl"):
+            if run.get("serve") or run.get("ski") or run.get("dkl") or run.get("algebra"):
                 if run.get(kind):
                     yield pytest.param(world, run, id=run["name"])
                 continue
@@ -719,21 +866,20 @@ def test_fused_route_matches_unsharded(worlds, world, run):
 
 @pytest.mark.parametrize("world, run", list(_cases("raises")))
 def test_what_the_row_sharded_operator_does_not_cover_raises(worlds, world, run):
-    """What ROADMAP.md queue 1 still lists under a model-sharded mesh
-    (items 3.4-3.5 and CIQ: indexing, cat_rows, a sum with anything but a
-    diagonal, add_low_rank, mul, a batch expansion, sqrt_inv_matmul and
-    CIQ's draws) raises NotImplementedError naming ROADMAP.md: nothing falls
-    back to a replicated or unpreconditioned solve.  posterior_distribution,
-    the forward root and the blocked pivoted sweep, which raised before
-    this slice, now run."""
+    """What a model-sharded mesh once refused now runs on it: on (1, 2),
+    (2, 2) and (1, 2, 2) nothing of ROADMAP.md queue 1 raises any more
+    (indexing, cat_rows, a sum with another operator, add_low_rank, mul, a
+    batch expansion, sqrt_inv_matmul and CIQ's draws, beside
+    posterior_distribution, the forward root and the blocked pivoted sweep
+    of earlier slices); the values are held against the JAX package by the
+    algebra tests."""
     results, _ = worlds
-    runs = {"posterior_distribution", "forward root", "blocked pivoted sweep"}
     for r in results[world]:
         raised = r[run["name"]]["raised"]
-        assert set(raised) == runs | {"indexing", "cat_rows", "sum", "add_low_rank", "mul", "batch expansion",
-                                      "sqrt_inv_matmul", "CIQ draws"}
-        assert all(raised[k] == "nothing" for k in runs), raised
-        assert all("ROADMAP.md" in msg for k, msg in raised.items() if k not in runs), raised
+        assert set(raised) == {"posterior_distribution", "forward root", "blocked pivoted sweep", "indexing",
+                               "cat_rows", "sum", "add_low_rank", "mul", "batch expansion", "sqrt_inv_matmul",
+                               "CIQ draws"}
+        assert all(v == "nothing" for v in raised.values()), raised
 
 
 def _serve_cases(row_sharded=False):
@@ -964,6 +1110,45 @@ def test_sharded_ski_matches_jax(worlds, world, run, case):
 
 
 @pytest.mark.parametrize("world, run", list(_cases("ski")))
+def test_sharded_ski_indexing_matches_unsharded(worlds, world, run):
+    """Indexing the row-sharded SKI operator (InterpolatedRows: linear on
+    model 2 and 4, cubic on 4) beside the unsharded port's operator on the
+    whole data set (which tests/test_torch_ski.py holds against the JAX
+    package): a row selection and a rectangular block, the same on every
+    rank, each rank's rows of a column selection, and pointwise entries,
+    within ALGEBRA_RTOL of the largest entry; one collective each (the
+    rows' and columns' stencils from their owners, "index")."""
+    results, _ = worlds
+    n = int(run["case"][3:])
+    for rank, r in enumerate(results[world]):
+        got = r[run["name"]]["index"]
+        assert max(got["errs"].values()) <= ALGEBRA_RTOL, got["errs"]
+        assert got["counts"] == {"index": 4}, got["counts"]
+        assert got["shapes"] == dict(rows=[5, n], block=[18, 25], cols=[split_sizes(n, run["layout"][1])[rank], 5],
+                                     entries=[5])
+
+
+@pytest.mark.parametrize("world, run", list(_cases("ski")))
+def test_sharded_ski_indexing_matches_jax(worlds, world, run):
+    """Indexing the row-sharded SKI operator against the JAX package's
+    unsharded SKI train operator on the same data: the row selection, the
+    rectangular block and the entries the same on every rank, each rank's
+    rows of the column selection, within ALGEBRA_RTOL of the largest
+    entry."""
+    results, refs = worlds
+    n = int(run["case"][3:])
+    want = refs[(run["interp"], n)]["index"]
+    for rank, r in enumerate(results[world]):
+        got = r[run["name"]]["index"]["values"]
+        rows = slice(None)
+        for key, ref in want.items():
+            if key == "cols":
+                sizes = split_sizes(n, run["layout"][1])
+                rows = slice(sum(sizes[:rank]), sum(sizes[: rank + 1]))
+            _held(got[key], ref[rows] if key == "cols" else ref, ALGEBRA_RTOL)
+
+
+@pytest.mark.parametrize("world, run", list(_cases("ski")))
 def test_sharded_ski_neg_mll_is_the_whole_data_set_loss(worlds, world, run):
     """Given shard_gp_batch's rows of one data set, each rank's neg_mll is
     the whole data set's (the JAX package's unsharded loss), not the loss of
@@ -1163,3 +1348,159 @@ def test_sharded_ski_x_gradient_matches_jax(worlds, world, run, case):
         np.testing.assert_allclose(got["x_grad"], want[rows], rtol=0, atol=GRAD_RTOL * np.abs(want).max())
         if case != "cholesky":
             assert got["backward_counts"]["interp_left"] == 1
+
+
+# ---------------------------------------------------------------------------
+# Indexing, the algebra and CIQ on the model axis
+# ---------------------------------------------------------------------------
+
+
+def _algebra_runs(cases, kinds=("full", "index")):
+    for world, runs in _runs().items():
+        for run in runs:
+            if run.get("algebra") in kinds:
+                for case in cases:
+                    yield pytest.param(world, run, case, id=f"{run['name']}-{case}")
+
+
+def _rows_of(run, rank, sizes=None):
+    """The rank's rows of a whole array (of ``sizes``, default the split of n)."""
+    _, model, _ = run["layout"]
+    sizes = split_sizes(ALGEBRA_N, model) if sizes is None else sizes
+    start = sum(sizes[:rank])
+    return slice(start, start + sizes[rank])
+
+
+def _held(got, want, rtol):
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    np.testing.assert_allclose(got, want, rtol=0, atol=rtol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("world, run, case", list(_algebra_runs(INDEX_CASES)))
+def test_sharded_indexing_matches_jax(worlds, world, run, case):
+    """Indexing the row-sharded train operator (n = 33, B = 2) on (1, 2) and
+    on (1, 4), against the JAX package's unsharded indexing on the same
+    data: a row selection K[..., idx, :] (idx spanning every rank), square
+    and rectangular slices (the same on every rank), a column selection and
+    a column slice (each rank's rows), a batch element (still row-sharded)
+    and pointwise entries (with and without a batch index); each block's
+    values and its product with a vector of its columns, within
+    ALGEBRA_RTOL of the largest entry.  The square block stays a symmetric
+    kernel operator with D's slice; no product of an indexed block makes a
+    collective."""
+    results, refs = worlds
+    want = refs[f"a{ALGEBRA_N}"][case]
+    for rank, r in enumerate(results[world]):
+        got = r[run["name"]][case]
+        rows = _rows_of(run, rank) if case in ("cols", "colslice") else slice(None)
+        for key, ref in want.items():
+            _held(got[key], ref[..., rows, :] if key in ("dense", "mv") and case != "batch" else ref, ALGEBRA_RTOL)
+        assert got["counts"] == ({"all_gather": 1} if case == "batch" else {}), got["counts"]
+        if case == "square":
+            assert got["type"] == "AddedDiagLinearOperator" and got["symmetric"]
+        if case == "batch":
+            assert got["type"] == "RowShardedLinearOperator"
+
+
+# the collectives of one product of each algebra result (K's own gathers
+# its vector once)
+ALGEBRA_PRODUCT_COUNTS = {
+    "low_rank": {"all_gather": 1, "low_rank": 1}, "root_low_rank": {"low_rank": 1},
+    "sum_op": {"all_gather": 2}, "sum_dense": {"all_gather": 2}, "sum_scalar": {"all_gather": 1},
+    "mul": {"low_rank": 1}, "scaled": {"all_gather": 2}, "expand": {"all_gather": 1},
+    "cat": {"all_gather": 1, "cat_rows": 1}, "cat_root": {"low_rank": 1},
+}
+
+
+@pytest.mark.parametrize("world, run, case", list(_algebra_runs(ALGEBRA_CASES, ("full",))))
+def test_sharded_algebra_matches_jax(worlds, world, run, case):
+    """The algebra on the row-sharded train operator (n = 33, B = 2, (1, 2)),
+    against the JAX package's unsharded operator on the same data:
+    add_low_rank (a lazy sum; with a carried root, the root's rows [R_R |
+    V_R]), sums with another row-sharded operator, a dense tensor's rows
+    and a scalar, mul of two roots, a constant multiple, a batch expansion
+    and cat_rows (without and with a carried root: the last rank owns the
+    3 new rows).  The whole values and each rank's rows of a product within
+    ALGEBRA_RTOL of the largest entry; the solves' rows likewise, the
+    gradient of sum(w * solve) within ALGEBRA_GRAD_RTOL of its norm, and the
+    solved results' last batch element; one product's collectives by
+    name.  The sum with another operator keeps D outside and is
+    preconditioned (its Woodbury sums), as the unsharded sum is, and its
+    solve takes the unsharded port's CG iterations (its Nystrom and blocked
+    pivoted factors are the rows of the unsharded ones); add_low_rank and
+    cat_rows, unpreconditioned unsharded, are so here, within one
+    iteration of it."""
+    results, refs = worlds
+    want = refs[f"a{ALGEBRA_N}"][case]
+    for rank, r in enumerate(results[world]):
+        got = r[run["name"]][case]
+        sizes = got.get("sizes") or (
+            (*split_sizes(ALGEBRA_N, 2)[:-1], split_sizes(ALGEBRA_N, 2)[-1] + ALGEBRA_M) if case.startswith("cat")
+            else None)
+        rows = _rows_of(run, rank, sizes)
+        _held(got["dense"], want["dense"], ALGEBRA_RTOL)
+        if case == "sum_dense":  # the same sum with the whole dense operator
+            _held(got["whole"], want["dense"], ALGEBRA_RTOL)
+        _held(got["mv"], want["mv"][..., rows, :], ALGEBRA_RTOL)
+        if "sol" in want:
+            _held(got["sol"], want["sol"][..., rows, :], ALGEBRA_RTOL)
+            _grad_close(got["grads"], want["grads"], ALGEBRA_GRAD_RTOL)
+            # a batch element of the result, still row-sharded
+            _held(got["batch_dense"], want["dense"][-1], ALGEBRA_RTOL)
+            # the forward CG as the unsharded port runs it: preconditioned
+            # where the unsharded sum keeps D outside, the same count; else
+            # within one (unpreconditioned CG at 1e-11 on n = 33 stops at
+            # its rounding floor, where the summation order moves the count)
+            fwd, ref_fwd = got["sol_iters"][0], got["ref_iters"][0]
+            assert len(got["sol_iters"]) == 2 and (fwd == ref_fwd if case == "sum_op" else abs(fwd - ref_fwd) <= 1), (
+                got["sol_iters"], got["ref_iters"])
+            assert ("woodbury" in got["solve_counts"]) == (case == "sum_op"), got["solve_counts"]
+        if case == "sum_op":  # its Nystrom and blocked pivoted factors' rows
+            assert max(got["factors"].values()) <= ALGEBRA_RTOL, got["factors"]
+        assert got["type"] == "RowShardedLinearOperator"
+        assert got["counts"] == ALGEBRA_PRODUCT_COUNTS[case], got["counts"]
+
+
+@pytest.mark.parametrize("world, run, case", list(_algebra_runs(("ciq_precond", "ciq_plain", "ciq_samples"),
+                                                                  ("full",))))
+def test_sharded_ciq_matches_jax(worlds, world, run, case):
+    """sqrt_inv_matmul on the row-sharded train operator (test_torch_ciq.py's
+    settings, with the "auto" preconditioner and without) and CIQ's draws,
+    against the JAX package's on the same data and draws: each rank's rows
+    of the result and of the rhs's gradient, and the parameters' gradient of
+    sum(V_0 * out) (of the draws' sum of squares), within CIQ_RTOL; MINRES's iterations those of the
+    unsharded port.  The range estimate's Lanczos and every MINRES sum
+    their inner products over the model group: two sums a MINRES step and
+    two at its start."""
+    results, refs = worlds
+    want = refs[f"a{ALGEBRA_N}"][case]
+    for rank, r in enumerate(results[world]):
+        got = r[run["name"]][case]
+        rows = _rows_of(run, rank)
+        if case == "ciq_samples":
+            _held(got["samples"], want["samples"][..., rows], CIQ_RTOL)
+            _grad_close(got["grads"], want["grads"], CIQ_RTOL)
+            continue
+        _held(got["out"], want["out"][..., rows, :], CIQ_RTOL)
+        _held(got["z_grad"], want["z_grad"][..., rows, :], CIQ_RTOL)
+        _grad_close(got["grads"], want["grads"], CIQ_RTOL)
+        assert got["minres"] == got["ref_minres"] and len(got["minres"]) == (4 if case == "ciq_precond" else 2)
+        forward, backward = got["minres"][: len(got["minres"]) // 2], got["minres"][len(got["minres"]) // 2:]
+        assert got["counts"]["minres"] == sum(2 + 2 * k for k in forward)
+        assert got["backward"]["minres"] == sum(2 + 2 * k for k in backward)
+
+
+@pytest.mark.parametrize("world, run", [p.values[:2] for p in _algebra_runs(("precond_op",), ("full",))])
+def test_row_sharded_preconditioner_operator_sums_over_the_rows(worlds, world, run):
+    """The preconditioner's operator P = L L^T + D of the row-sharded train
+    operator (pivoted rank 5) maps a vector's rows to the rank's rows of the
+    unsharded port's P v, through its product and through its solvers'
+    closure: its product sums L_R^T v_R over the model group ("precond")
+    once, as CIQ's nested P^{1/2} quadrature needs."""
+    results, _ = worlds
+    for r in results[world]:
+        got = r[run["name"]]["precond_op"]
+        _held(got["got"], got["want"], 1e-12)
+        _held(got["closure"], got["want"], 1e-12)
+        assert got["counts"] == {"precond": 1}, got["counts"]

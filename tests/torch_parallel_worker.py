@@ -98,16 +98,28 @@ ROOTS = dict(max_cholesky_size=16, min_preconditioning_size=16, max_precondition
              max_cg_iterations=200)
 ROOTS_CHOLESKY = dict(max_cholesky_size=800)
 SAMPLES, BLOCK_RANK, BLOCK_SIZE = 2, 24, 8
+# the algebra runs (indexing, the sums, mul, cat_rows, a batch expansion) on
+# their own data set: CG to 1e-11 (a result with no diagonal has no
+# preconditioner; K itself pivoted rank 5); CIQ at test_torch_ciq.py's
+# settings, with the preconditioner ("auto": Nystrom) and without
+ALGEBRA = dict(max_cholesky_size=0, min_preconditioning_size=16, max_preconditioner_size=5, cg_tolerance=1e-11,
+               max_cg_iterations=200)
+CIQ = {"precond": dict(min_preconditioning_size=0, preconditioner_mode="auto", minres_tolerance=1e-7,
+                       max_cg_iterations=400, num_contour_quadrature=12),
+       "plain": dict(max_preconditioner_size=0, minres_tolerance=1e-7, max_cg_iterations=400,
+                     num_contour_quadrature=12)}
 
 
 class _Iterations(logging.Handler):
     def __init__(self):
         super().__init__()
-        self.iters = []
+        self.iters, self.minres = [], []
 
     def emit(self, record):
         if record.getMessage().startswith("linear_cg finished"):
             self.iters.append(int(record.args[0]))
+        elif record.getMessage().startswith("minres finished"):
+            self.minres.append(int(record.args[0]))
 
 
 def _settings(**over):
@@ -197,6 +209,213 @@ def _serve(run, arrays, mesh, log, gathered):
             res["ref_grads"] = _grads(ref)
         out[case] = res
     return out
+
+
+def _own(mesh, sizes):
+    """This rank's rows of the model group's blocks of ``sizes``."""
+    start = sum(sizes[: mesh.index("model")])
+    return slice(start, start + sizes[mesh.index("model")])
+
+
+def _algebra(run, arrays, mesh, log, full):
+    """Indexing, the algebra and CIQ on the rank's block of an algebra data
+    set (ALGEBRA's settings): per case the results (a row-sharded result's
+    whole to_dense and its rows of a product; a replicated one's whole; a
+    solve's rows and gradients, shares summed over data) and the
+    collectives of its product.  With ``full`` also the sums, mul,
+    cat_rows, a batch expansion, CIQ (beside the unsharded port's MINRES
+    iterations) and the preconditioner's operator (beside the unsharded
+    port's P v)."""
+    x, y, w, V, A, x_new, w_cat = (torch.from_numpy(arrays[k]) for k in
+                                   ("x", "y", "w", "V", "A", "x_new", "w_cat"))
+    idx, idx2, bidx = (torch.from_numpy(arrays[k]) for k in ("idx", "idx2", "bidx"))
+    xs, ys = shard_gp_batch(mesh, x, y)
+    w_r, V_r, A_r = (mesh.block(t, batch=True, rows=True, cols=False) for t in (w, V, A))
+    w_b, w_cat_b, A_b, x_b, V_b = (mesh.block(t, batch=True, rows=False, cols=False) for t in (w, w_cat, A, x, V))
+    group, data_group = mesh.group("model"), mesh.group("data")
+    out = {}
+
+    def case(name, fn, over=ALGEBRA):
+        model = _model(dict(fused=False), arrays, torch.float64)
+        log.iters.clear()
+        log.minres.clear()
+        with _settings(**over), mesh:
+            K = model.train_operator(xs)
+            _comm.reset_counts()
+            res = fn(model, K)
+        res.setdefault("counts", dict(_comm.counts))
+        res["iters"], res["minres"] = list(log.iters), list(log.minres)
+        if any(p.grad is not None for p in model.parameters()):
+            res["grads"] = _comm.all_reduce(torch.tensor(_grads(model), dtype=torch.float64), data_group).tolist()
+        out[name] = res
+
+    def product(op, v, **more):
+        """op's dense values and its product with v, the product's collectives."""
+        dense = op.to_dense()
+        _comm.reset_counts()
+        mv = op._matmul(v)
+        return dict(dense=dense.tolist(), mv=mv.tolist(), counts=dict(_comm.counts), type=type(op).__name__,
+                    **more)
+
+    def solved(op, rhs_r, weights, unsharded):
+        """The rows of op^{-1} rhs and the gradient of sum(w * sol), with
+        the solve's collectives and CG iterations (its backward's too)
+        beside the unsharded port's on the rank's batch
+        (``unsharded(model)``: its operator and rhs)."""
+        _comm.reset_counts()
+        log.iters.clear()
+        sol = op.solve(rhs_r)
+        loss = _comm.sum_shares(torch.sum(sol * weights), group)
+        loss.backward()
+        got = dict(sol=sol.tolist(), solve_counts=dict(_comm.counts), sol_iters=list(log.iters))
+        log.iters.clear()
+        with _comm_off():
+            ref_op, ref_rhs = unsharded(_model(dict(fused=False), arrays, torch.float64))
+            torch.sum(ref_op.solve(ref_rhs) * ref_rhs).backward()
+        return dict(got, ref_iters=list(log.iters))
+
+    # indexing: a replicated row selection, square and rectangular blocks, the
+    # rank's rows of a column selection and of a column slice, a batch
+    # element, and pointwise entries
+    case("rows", lambda m, K: product(K[..., idx, :], w_b))
+    case("square", lambda m, K: product(K[..., 2:20, 2:20], w_b[..., 2:20, :],
+                                        symmetric=bool(K[..., 2:20, 2:20].operators[0].symmetric)))
+    case("rect", lambda m, K: product(K[..., 2:20, 5:30], w_b[..., 5:30, :]))
+    case("cols", lambda m, K: product(K[..., :, idx], w_b[..., idx, :]))
+    case("colslice", lambda m, K: product(K[..., :, 3:11], w_b[..., 3:11, :]))
+    case("batch", lambda m, K: dict(dense=K[-1].to_dense().tolist(), type=type(K[-1]).__name__))
+    case("entries", lambda m, K: dict(pairs=K[..., idx, idx2].tolist(),
+                                      batched=K[bidx, idx, idx2].tolist()))
+    if not full:
+        return out
+
+    # the sums, add_low_rank (without and with a carried root), mul, a
+    # constant multiple and a batch expansion
+    def root_carrying(K):
+        return K.with_factorization(K.root_decomposition(method="cholesky"))
+
+    def low_rank(m, K):
+        op = K.add_low_rank(V_r)
+        return dict(product(op, w_r), batch_dense=op[-1].to_dense().tolist(),
+                    **solved(op, w_r, w_r, lambda r: (r.train_operator(x_b).add_low_rank(V_b), w_b)))
+
+    case("low_rank", low_rank)
+    case("root_low_rank", lambda m, K: product(root_carrying(K).add_low_rank(V_r), w_r))
+
+    def sum_op(m, K):
+        # (K + K2) + D: D stays outside, so the solve is preconditioned (pivoted rank 5)
+        op = K + m.covariance(xs)
+        return dict(product(op, w_r), batch_dense=op[-1].to_dense().tolist(), factors=sum_factors(m, op),
+                    **solved(op, w_r, w_r, lambda r: (r.train_operator(x_b) + r.covariance(x_b), w_b)))
+
+    def sum_factors(m, op):
+        """The sum's Nystrom and blocked pivoted factors (their columns of
+        the summed rows from products with unit vectors) beside the rows of
+        the unsharded port's: the largest difference, of the largest entry."""
+        with _comm_off():
+            whole = m.train_operator(x_b) + m.covariance(x_b)
+        errs = {}
+        for mode, over in (("nystrom", dict(preconditioner_mode="nystrom")),
+                           ("blocked", dict(pivoted_cholesky_block_size=2, max_preconditioner_size=6))):
+            with _settings(**{**ALGEBRA, **over}), torch.no_grad():
+                got = op._build_precond_factor()
+                with _comm_off():
+                    want = whole._build_precond_factor()[..., _own(mesh, op.sizes), :]
+            errs[mode] = float((got - want).abs().max() / want.abs().max())
+        return errs
+
+    case("sum_op", sum_op)
+    # a dense tensor of the rank's rows, and the whole n x n operator (cut to them)
+    case("sum_dense", lambda m, K: product(K + A_r, w_r, whole=(K + lo.DenseLinearOperator(A_b)).to_dense().tolist()))
+    case("sum_scalar", lambda m, K: product(K + 0.5, w_r))
+    case("mul", lambda m, K: product(K.mul(m.covariance(xs)), w_r))
+    case("scaled", lambda m, K: product(K * 2.5 - K, w_r))
+    case("expand", lambda m, K: product(K._expand_batch((3, *K.batch_shape)), w_r))
+
+    # cat_rows: the new rows' cross-covariance (the rank's columns) and C
+    # = k(x_new, x_new) + s2 I (replicated, off the mesh)
+    x_new_b = mesh.block(x_new, batch=True, rows=False, cols=False)
+
+    def appended(m, K, rooted=False, points=xs):
+        with _comm_off():
+            C = m.covariance(x_new_b).to_dense()
+            C = C + torch.nn.functional.softplus(m.raw_noise) * torch.eye(C.shape[-1], dtype=C.dtype)
+        cross = m.covariance(x_new_b, points).to_dense()
+        # the carried root from a Cholesky factor (root_low_rank's is a root decomposition's)
+        return (K.with_factorization(K.cholesky()) if rooted else K).cat_rows(cross, C)
+
+    def cat(m, K):
+        op = appended(m, K)
+        w_new = w_cat_b[..., _own(mesh, op.sizes), :]
+        return dict(product(op, w_new), batch_dense=op[-1].to_dense().tolist(), sizes=list(op.sizes),
+                    **solved(op, w_new, w_new, lambda r: (appended(r, r.train_operator(x_b), points=x_b), w_cat_b)))
+
+    case("cat", cat)
+    case("cat_root", lambda m, K: product(appended(m, K, rooted=True), w_cat_b[..., _own(
+        mesh, tuple(K.sizes[:-1]) + (K.sizes[-1] + x_new.shape[-2],)), :]))
+
+    # CIQ: sqrt_inv_matmul with the gradients of sum(w * out) in the
+    # parameters and the rhs (its rows), then the unsharded port's MINRES
+    # iterations; the CIQ draws
+    def ciq(m, K):
+        z = w_r.clone().requires_grad_(True)
+        got = lo.sqrt_inv_matmul(K, z, generator=torch.Generator())
+        counts = dict(_comm.counts)
+        loss = _comm.sum_shares(torch.sum(got * V_r[..., :1]), group)
+        loss.backward()
+        return dict(out=got.tolist(), z_grad=z.grad.tolist(), counts=counts, backward=_counts_since(counts))
+
+    for label, over in CIQ.items():
+        case(f"ciq_{label}", ciq, {**ALGEBRA, **over})
+        ref = _model(dict(fused=False), arrays, torch.float64)
+        log.minres.clear()
+        with _settings(**{**ALGEBRA, **over}):
+            b = mesh.block(torch.arange(x.shape[0]), batch=True, rows=False, cols=False)
+            z = w[b].clone().requires_grad_(True)
+            got = lo.sqrt_inv_matmul(ref.train_operator(x[b]), z, generator=torch.Generator())
+            torch.sum(got * V[b][..., :1]).backward()
+        out[f"ciq_{label}"]["ref_minres"] = list(log.minres)
+
+    def samples(m, K):
+        """CIQ's draws and the gradient of the sum of their squares."""
+        with settings.ciq_samples(True):
+            s = K.zero_mean_mvn_samples(SAMPLES, generator=torch.Generator())
+        counts = dict(_comm.counts)
+        _comm.sum_shares(torch.sum(s * s), group).backward()
+        return dict(samples=s.tolist(), counts=counts, backward=_counts_since(counts))
+
+    case("ciq_samples", samples, {**ALGEBRA, **CIQ["precond"]})
+
+    # the preconditioner's operator P = L L^T + D on the rank's rows, beside
+    # the unsharded port's P v (pivoted rank 5)
+    def precond_op(m, K):
+        _, P, _ = K.detach()._preconditioner()
+        _comm.reset_counts()
+        got = P._matmul(w_r)
+        counts = dict(_comm.counts)
+        closure = P._matmul_closure()(w_r)
+        with _comm_off():
+            _, P_full, _ = m.train_operator(x_b).detach()._preconditioner()
+            want = P_full._matmul(w_b)[..., _own(mesh, K.sizes), :]
+        return dict(got=got.tolist(), closure=closure.tolist(), want=want.tolist(), counts=counts)
+
+    case("precond_op", precond_op)
+    return out
+
+
+class _comm_off:
+    """Outside the ambient mesh inside a ``with mesh:`` block."""
+
+    def __enter__(self):
+        from linear_operator_tpu_torch.parallel import sharding
+
+        self.saved = list(sharding._AMBIENT)
+        sharding._AMBIENT.clear()
+
+    def __exit__(self, *exc):
+        from linear_operator_tpu_torch.parallel import sharding
+
+        sharding._AMBIENT.extend(self.saved)
 
 
 def _counts_since(before):
@@ -320,7 +539,37 @@ def _ski(run, arrays, mesh, log, gathered):
             loss.backward()
             res["ref_loss"], res["ref_grads"] = float(loss), _ski_grads(ref)
         out[case] = res
+    out["index"] = _ski_index(run, arrays, mesh, x, xs)
     return out
+
+
+def _ski_index(run, arrays, mesh, x, xs):
+    """Indexing the row-sharded SKI operator (its rows' stencils from their
+    owners) beside the unsharded port's: each block's largest difference
+    from it, as a share of its largest entry, and the collectives."""
+    n = x.shape[0]
+    idx = torch.tensor(ski_index(n))
+    rows = mesh.block(torch.arange(n)[:, None], batch=False, rows=True, cols=False)[:, 0]
+    model = _ski_model(run, arrays)
+    with _settings(**SKI_CG):
+        with mesh:
+            K = model.train_operator(xs)
+            _comm.reset_counts()
+            got = dict(rows=K[idx, :].to_dense(), block=K[2:20, 5:30].to_dense(), cols=K[:, idx].to_dense(),
+                       entries=K[idx, idx.flip(0)])
+            counts = dict(_comm.counts)
+        K = model.train_operator(x)
+        want = dict(rows=K[idx, :].to_dense(), block=K[2:20, 5:30].to_dense(), cols=K[:, idx].to_dense()[rows],
+                    entries=K[idx, idx.flip(0)])
+    errs = {k: float((got[k] - want[k]).abs().max() / want[k].abs().max()) for k in want}
+    return dict(errs=errs, counts=counts, shapes={k: list(v.shape) for k, v in got.items()},
+                values={k: v.tolist() for k, v in got.items()})
+
+
+def ski_index(n: int) -> list:
+    """The global row indices that indexing the SKI operators takes (its
+    entries pair them with their reverse)."""
+    return [0, n - 1, 7, n // 2, 3]
 
 
 def _ski_model(run, arrays):
@@ -456,6 +705,14 @@ def main():
 
     results = {}
     for run in spec["runs"]:
+        if run.get("algebra"):
+            arrays = {k[len(run["case"]) + 1:]: data[k] for k in data.files if k.startswith(run["case"] + "_")}
+            probes_by_shape.clear()
+            probes_by_shape.update({v.shape: v for k, v in arrays.items() if k.startswith("draw")})
+            layout = run["layout"]
+            mesh = make_mesh(None, data=layout[0], model=layout[1], probe=layout[2], device="cpu")
+            results[run["name"]] = _algebra(run, arrays, mesh, log, run["algebra"] == "full")
+            continue
         if run.get("ski") or run.get("dkl"):
             prefix = f"{run['case']}_"
             arrays = {k[len(prefix):]: data[k] for k in data.files if k.startswith(prefix)}
@@ -532,12 +789,13 @@ def main():
                 ("posterior_distribution", {}, lambda m: m.posterior_distribution(xs, ys, xs[..., :3, :])),
                 ("forward root", {}, lambda m: m.train_operator(xs).root_decomposition()),
                 ("indexing", {}, lambda m: m.train_operator(xs)[..., :3, :3]),
-                ("cat_rows", {}, lambda m: m.train_operator(xs).cat_rows(xs[..., :3, :1], ys[..., :1, None])),
+                ("cat_rows", {}, lambda m: m.train_operator(xs).cat_rows(0.1 * xs[..., None, :, 0],
+                                                                          2.0 + 0.0 * xs[..., :1, :1])),
                 ("sum", {}, lambda m: m.train_operator(xs) + other),
                 ("blocked pivoted sweep", dict(min_preconditioning_size=0, max_preconditioner_size=5,
                                                pivoted_cholesky_block_size=2), lambda m: m.neg_mll(xs, ys)),
                 ("add_low_rank", {}, lambda m: m.train_operator(xs).add_low_rank(low_rank)),
-                ("mul", {}, lambda m: m.train_operator(xs).mul(other)),
+                ("mul", {}, lambda m: m.train_operator(xs).mul(m.train_operator(xs))),
                 ("batch expansion", {}, lambda m: m.train_operator(xs)._expand_batch((3, *xs.shape[:-2]))),
                 ("sqrt_inv_matmul", {}, lambda m: m.train_operator(xs).sqrt_inv_matmul(ys[..., None])),
                 ("CIQ draws", dict(ciq_samples=True), lambda m: m.train_operator(xs).zero_mean_mvn_samples(2)),
@@ -546,8 +804,8 @@ def main():
                     with _settings(**over), mesh:
                         call(_model(run, arrays, dtype))
                     raised[label] = "nothing"
-                except NotImplementedError as err:
-                    raised[label] = str(err)
+                except Exception as err:  # noqa: BLE001 (the test reports what failed)
+                    raised[label] = f"{type(err).__name__}: {err}"
             out["raised"] = raised
         results[run["name"]] = out
 
